@@ -1,0 +1,169 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+The sources under ``hnsw_tpu_torch/csrc/`` have a plain C interface. On
+first use they are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one
+shared library under ``hnsw_tpu_torch/_build/`` and loaded with ``ctypes``.
+The library's file name carries a hash of the sources and flags, so an edit
+to any source builds a new one. Nothing here runs at import: the CPU-only
+tests import every module.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``CudaKernel.launch`` raises if that is not 0 and
+otherwise counts the launch. The counts show that a run went through the
+kernels (``launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# argument types of each C entry point, the trailing stream included
+_SIGNATURES = {
+    # table, dtype, n_rows, d, ids, q, k, qs, offset, scale, ip, out, stream
+    "hnsw_vec_dist": (_P, _I, _I64, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    # codes, n_rows, row_w, nbr_sq, k, d, bits, cur, q, qs, ip, out, stream
+    "hnsw_packed_dist": (_P, _I64, _I64, _P, _I, _I, _I, _P, _I, _P, _I, _P,
+                         _P),
+    # buf_d, buf_p, cand_i, cand_d, q, ef, k, ef_live,
+    # out_d, out_p, cur, ndis, stream
+    "hnsw_beam_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+}
+
+# shared memory a launch may ask for without opting in to more
+SMEM_LIMIT = 48 * 1024
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhnsw_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile the kernels if this exact source set has no library yet.
+    Writes to a temporary name and renames, so concurrent builders never
+    load a half-written file."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.hnsw_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hnsw_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+class CudaKernel:
+    """One C entry point plus its launch count."""
+
+    def __init__(self, name: str, symbol: str):
+        self.name = name
+        self.symbol = symbol
+        self.launches = 0
+        KERNELS[name] = self
+
+    def launch(self, *args) -> None:
+        lib = library()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, self.symbol)(*args, stream)
+        if err != 0:
+            msg = lib.hnsw_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: launch failed: CUDA error "
+                               f"{err} ({msg})")
+        self.launches += 1
+
+
+KERNELS: dict[str, CudaKernel] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on the CPU (the wrapper then runs the plain
+    PyTorch version), False when all are on one CUDA device (it launches the
+    kernel). Anything else raises: no other device has these kernels."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} vs "
+                             f"{dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type == "cpu"
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
+    """Raise unless ``t`` has ``dtype``, ``shape`` (None = any size on that
+    axis) and a contiguous layout."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != ts for s, ts in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

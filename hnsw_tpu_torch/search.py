@@ -1,0 +1,243 @@
+"""Batched HNSW query pipeline, ported from ``hnsw_tpu.search`` (its fused
+path: one expansion per hop, all beam bookkeeping in K1).
+
+``IndexHNSW::search`` as batched tensor steps:
+
+  1. entry: a dense scan of a strided sample of the live nodes
+     (``_sample_seeds``; entry_mode "sample" / "seed") or the greedy
+     upper-level descent (``greedy_descend``; "descend"), then an exact
+     rescore of the seeds with K3;
+  2. level 0: ``beam_search_fused``; each hop gathers the adjacency row and
+     computes the candidates' distances (K2 from the packed code row, or K3
+     from the vectors), then K1 updates the beam;
+  3. an exact rerank of the final [Q, ef] buffer with K3, duplicate
+     collapse, top-k, and the true squared L2 restored.
+
+Distances use the L2 surrogate ||x||² − 2 q·x in the loop; ||q||² is added
+back on the final top-k only.
+
+Not ported yet (they raise NotImplementedError): filtered search
+(``allowed``), ``n_expand > 1`` at search, ``visited_mode="bitmap"``, and
+sq8 / bf16 / pq storage.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import IP, L2
+from .graph import GraphArrays
+from .ops import beam as beam_ops
+from .ops.dist_kernel import gathered_vec_dist_ids
+from .ops.packed import PackedNeighbors, make_packed_expand
+
+INF = float("inf")
+
+
+class SearchStats(NamedTuple):
+    hops: int            # level-0 loop iterations for the batch
+    ndis: torch.Tensor   # int32 [Q] distance computations per query
+
+
+def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
+                      metric: str):
+    """distance_to(ids [Q, K], mask) -> f32 [Q, K] exact surrogate distances
+    from K3 (its plain f32 version when the tensors are on the CPU). Masked
+    ids read row 0 and are to be ignored by the caller."""
+    qf = queries.float().contiguous()
+
+    def distance_to(ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        safe = torch.where(mask, ids, 0).to(torch.int32)
+        return gathered_vec_dist_ids(vectors, safe, qf, metric=metric)
+
+    return distance_to
+
+
+def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
+                   entry_dist: torch.Tensor, to_level: torch.Tensor,
+                   max_level_cap: int):
+    """Batched faiss ``greedy_update_nearest``: an ef=1 walk per level from
+    the graph's max level down to (exclusive) each query's ``to_level``.
+    The whole batch steps down a level once no query improves at it (one
+    host read per step). Returns (node [Q], dist [Q])."""
+    lvl = min(max(graph.max_level, 0), max_level_cap)
+    cur, curd = entry, entry_dist
+    moved = torch.ones_like(entry, dtype=torch.bool)
+    while lvl > 0:
+        act = (lvl > to_level) & moved
+        slot = graph.upper_slot[cur].clamp(min=0)
+        nbrs = graph.upper_neighbors[slot, lvl - 1]               # [Q, m]
+        valid = (nbrs >= 0) & act[:, None]
+        dn = torch.where(valid, distance_to(nbrs, valid), INF)
+        mini = torch.argmin(dn, dim=1, keepdim=True)
+        mind = torch.gather(dn, 1, mini)[:, 0]
+        better = mind < curd
+        cur = torch.where(better, torch.gather(nbrs, 1, mini)[:, 0], cur)
+        curd = torch.where(better, mind, curd)
+        if bool(better.any()):
+            moved = better
+        else:
+            lvl -= 1
+            moved = torch.ones_like(moved)
+    return cur, curd
+
+
+def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
+                  queries: torch.Tensor, metric: str, *, n_sample: int,
+                  n_seeds: int, tile_q: int = 2048) -> torch.Tensor:
+    """Entry seeds from one dense scan over an evenly strided sample of
+    ``n_sample`` ids in [0, ntotal): the sample is cut into ``n_seeds``
+    equal contiguous strata and each stratum's argmin is returned, int32
+    [Q, n_seeds] (-1 where a stratum had no live candidate). Sampled ids
+    must be inserted and non-isolated. The [tile_q, n_sample] distance block
+    bounds the memory; the caller rescores the seeds exactly."""
+    dev = vectors.device
+    nt = max(graph.ntotal, 1)
+    a = torch.arange(n_sample, dtype=torch.int64, device=dev)
+    step, rem = nt // n_sample, nt % n_sample
+    ids = torch.clamp(a * step + (a * rem) // n_sample, max=nt - 1)
+    ok = (graph.levels[ids] >= 0) & (graph.neighbors0[ids, 0] >= 0)
+    sv = vectors[ids].float()                                    # [S, d]
+    svsq = (sv * sv).sum(1)
+    ss = n_sample // n_seeds
+    base = torch.arange(n_seeds, device=dev)[None, :] * ss
+    out = []
+    for q0 in range(0, queries.shape[0], tile_q):
+        dots = queries[q0:q0 + tile_q].float() @ sv.T
+        dist = -dots if metric == IP else svsq[None, :] - 2.0 * dots
+        dist = torch.where(ok[None, :], dist, INF).view(-1, n_seeds, ss)
+        j = torch.argmin(dist, dim=2)                            # first on ties
+        cd = torch.gather(dist, 2, j[..., None])[..., 0]
+        out.append(torch.where(torch.isfinite(cd), ids[base + j], -1))
+    return torch.cat(out).to(torch.int32)
+
+
+def entry_sample_size(capacity: int) -> int:
+    """Sample width for entry_mode "sample": the largest power of two <=
+    capacity/32, clamped to [128, 32768] (~1/M density, like the level-1 set
+    the greedy descent would converge on)."""
+    return min(32768, max(128, 1 << max(capacity // 32, 1).bit_length() - 1))
+
+
+def ef_bucket(ef: int) -> int:
+    """Beam-buffer width for a requested efSearch: the next power of two
+    >= ef (min 32). The true ef masks the tail (``ef_live``)."""
+    return max(32, 1 << (int(ef) - 1).bit_length())
+
+
+def compute_sqnorms(vectors: torch.Tensor, dequant=None) -> torch.Tensor:
+    """||x||² per row; with ``dequant`` = (offset, scale), ||x̂||² of the
+    dequantized codes."""
+    v = vectors.float()
+    if dequant is not None:
+        v = dequant[0] + dequant[1] * v
+    return (v * v).sum(-1)
+
+
+def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
+                queries: torch.Tensor, *, k: int, ef_search: int,
+                metric: str = L2, max_level_cap: int = 6, max_hops: int = 0,
+                n_expand: int = 1, with_stats: bool = False,
+                visited_mode: str = "buffer", allowed=None,
+                packed: PackedNeighbors | None = None,
+                entry_mode: str = "auto"):
+    """Batched k-NN. Returns (dists [Q, k] f32, ids [Q, k] int32), ascending;
+    ids are -1 (dist inf) past the reachable set. ``with_stats`` adds
+    ``SearchStats``.
+
+    ``ef_search`` is a runtime value inside a power-of-two buffer
+    (``ef_bucket``). ``max_hops``: 0 caps the level-0 loop at ef + 8 hops;
+    > 0 sets the cap; < 0 runs to convergence. ``packed``: route on the
+    packed 8/4-bit code rows (``ops/packed.py``); the final buffer is
+    re-ranked exactly either way. ``entry_mode``: "sample" (default via
+    "auto"), "seed" (the beam starts from up to 16 stratified seeds) or
+    "descend" (faiss's greedy upper-level walk)."""
+    if allowed is not None:
+        raise NotImplementedError(
+            "filtered search (allowed=) is not ported yet: ROADMAP.md A9")
+    if n_expand != 1:
+        raise NotImplementedError(
+            "n_expand > 1 at search is not ported yet: ROADMAP.md A3")
+    if visited_mode != "buffer":
+        raise NotImplementedError(
+            f"visited_mode={visited_mode!r} is not ported yet: ROADMAP.md A3")
+    if entry_mode not in ("auto", "sample", "seed", "descend"):
+        raise ValueError(
+            f"entry_mode must be auto|sample|seed|descend, got {entry_mode!r}")
+    if entry_mode == "auto":
+        entry_mode = "sample"
+    ef = max(int(ef_search), k)
+    if max_hops == 0:
+        hop_limit = ef + 8
+    elif max_hops > 0:
+        hop_limit = max_hops
+    else:
+        hop_limit = 1 << 30
+    ef_buf = ef_bucket(ef)
+    queries = queries.float().contiguous()
+    qn = queries.shape[0]
+    distance_to = _make_distance_fn(vectors, queries, metric)
+
+    ep = torch.full((qn,), graph.entry_point, dtype=torch.int32,
+                    device=queries.device)
+    if entry_mode in ("sample", "seed"):
+        n_sample = entry_sample_size(vectors.shape[0])
+        n_seeds = (min(16, ef_buf // 2) if entry_mode == "seed"
+                   else max(1, n_sample // 4096))
+        seeds = _sample_seeds(graph, vectors, queries, metric,
+                              n_sample=n_sample, n_seeds=n_seeds)
+        # seeds + the global entry point (the fallback when every sampled
+        # id is masked), rescored exactly; no seed may repeat the entry
+        seeds = torch.where(seeds == ep[:, None], -1, seeds)
+        cand = torch.cat([seeds, ep[:, None]], 1)                # [Q, E+1]
+        valid = cand >= 0
+        cd = torch.where(valid, distance_to(cand, valid), INF)
+        ep0_dist, o = torch.sort(cd, dim=1, stable=True)
+        ep0 = torch.gather(cand, 1, o)
+        if ep0.shape[1] > 2:
+            # two strata can argmin the same node when ntotal < n_sample
+            dup = torch.cat([torch.zeros_like(ep0[:, :1], dtype=torch.bool),
+                             ep0[:, 1:] == ep0[:, :-1]], 1) & (ep0 >= 0)
+            ep0 = torch.where(dup, -1, ep0)
+            ep0_dist, o = torch.sort(torch.where(dup, INF, ep0_dist), dim=1,
+                                     stable=True)
+            ep0 = torch.gather(ep0, 1, o)
+        if entry_mode == "sample":
+            ep0, ep0_dist = ep0[:, :1], ep0_dist[:, :1]
+    else:
+        ep_dist = distance_to(ep[:, None], torch.ones_like(ep[:, None],
+                                                           dtype=torch.bool))
+        e, e_d = greedy_descend(graph, distance_to, ep, ep_dist[:, 0],
+                                torch.zeros_like(ep), max_level_cap)
+        ep0, ep0_dist = e[:, None], e_d[:, None]
+
+    neighbors0 = graph.neighbors0
+    if packed is not None:
+        expand, shift = make_packed_expand(packed, neighbors0, queries,
+                                           metric)
+        ep0_dist = ep0_dist + shift[:, None]
+    else:
+        def expand(cur, step_ok):
+            nbrs = neighbors0[cur]
+            return nbrs, distance_to(nbrs, (nbrs >= 0) & step_ok[:, None])
+
+    state = beam_ops.beam_search_fused(
+        ep0, ep0_dist, expand, ef=ef_buf, max_hops=4 * ef_buf + 16,
+        ef_live=ef, hop_limit=hop_limit)
+
+    # exact rerank of the final buffer: routing may have been quantized, the
+    # returned distances never are
+    src = state.buf_ids
+    ex = gathered_vec_dist_ids(vectors, src.clamp(min=0), queries,
+                               metric=metric)
+    ids, dist = beam_ops.dedup_sorted_buffer(
+        src, torch.where(src >= 0, ex, INF))
+    out_d, out_i = dist[:, :k], ids[:, :k]
+    if metric == L2:
+        out_d = out_d + (queries * queries).sum(1, keepdim=True)
+    out_d = torch.where(out_i >= 0, out_d, INF)
+    if with_stats:
+        return out_d, out_i, SearchStats(state.hops, state.ndis)
+    return out_d, out_i

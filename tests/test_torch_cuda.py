@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need an NVIDIA GPU and nvcc, and skip without them. The file
+imports neither jax nor the reference package, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+(``chip_smoke.py`` makes the same comparisons at the main path's shapes.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel
+
+
+def beam_case(ef, k, qn, seed):
+    """Random hop inputs in the reference's [ef, Q] layout: sorted buffers
+    (1..ef-1 filled, random expanded bits), candidates with ~20% ids
+    already in the buffer and ~15% invalid. The cases of the reference's
+    tests/test_beam_kernel.py."""
+    rng = np.random.default_rng(seed)
+    n_fill = rng.integers(1, ef, qn)
+    buf_d = np.full((ef, qn), np.inf, np.float32)
+    buf_p = np.full((ef, qn), -1, np.int32)
+    for q in range(qn):
+        nf = n_fill[q]
+        buf_d[:nf, q] = np.sort(rng.standard_normal(nf).astype(np.float32))
+        ids = rng.choice(1 << 20, nf, replace=False).astype(np.int32)
+        buf_p[:nf, q] = (ids << 1) | (rng.random(nf) < 0.5)
+    cand_i = rng.choice(1 << 20, (k, qn)).astype(np.int32)
+    dupmask = rng.random((k, qn)) < 0.2
+    for q in range(qn):
+        kk = np.where(dupmask[:, q])[0]
+        if len(kk) and n_fill[q] > 0:
+            cand_i[kk, q] = buf_p[rng.integers(0, n_fill[q], len(kk)),
+                                  q] >> 1
+    cand_i[rng.random((k, qn)) < 0.15] = -1
+    cand_d = rng.standard_normal((k, qn)).astype(np.float32)
+    return buf_d, buf_p, cand_i, cand_d
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card(card):
+    """Each kernel against its plain version at small shapes (tolerances as
+    in chip_smoke.py: f32 sums in another order), and each launch counted."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(0)
+    table = torch.randn((5000, 100), generator=g, device=card)
+    ids = torch.randint(0, 5000, (256, 64), generator=g, device=card,
+                        dtype=torch.int32)
+    qs = torch.randn((256, 100), generator=g, device=card)
+    for metric in ("l2", "ip"):
+        torch.testing.assert_close(
+            dist_kernel.gathered_vec_dist_ids(table, ids, qs, metric=metric),
+            dist_kernel.gathered_vec_dist_plain(table, ids, qs,
+                                                metric=metric),
+            rtol=1e-5, atol=1e-3)
+    for bits in (8, 4):
+        db = 100 if bits == 8 else 50
+        codes = torch.randint(0, 256, (5000, 64 * db), generator=g,
+                              device=card, dtype=torch.uint8)
+        nbr_sq = torch.rand((5000, 64), generator=g, device=card)
+        cur = ids[:, 0].contiguous()
+        torch.testing.assert_close(
+            dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, qs,
+                                            bits=bits, metric="l2"),
+            dist_kernel.packed_row_dist_plain(codes, nbr_sq, cur, qs,
+                                              bits=bits, metric="l2"),
+            rtol=1e-5, atol=1e-2)
+    for ef, k, ef_live in ((64, 64, 64), (128, 48, 100), (512, 64, 512)):
+        args = [torch.from_numpy(np.ascontiguousarray(a.T)).to(card)
+                for a in beam_case(ef, k, 128, ef + k)]
+        for got, want in zip(beam_kernel.beam_update(*args, ef_live),
+                             beam_kernel.beam_update_plain(*args, ef_live)):
+            assert torch.equal(got, want)
+    assert _cuda.launch_counts() == {"gathered_vec_dist": 2,
+                                     "packed_row_dist": 2, "beam_update": 3}

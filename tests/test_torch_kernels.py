@@ -1,0 +1,194 @@
+"""The port's three kernels (hnsw_tpu_torch: K1 beam_update, K2
+packed_row_dist, K3 gathered_vec_dist) against the reference Pallas kernels
+run in interpret mode, on the CPU, where each wrapper runs its plain
+PyTorch version. The same inputs, made with numpy from a seed, go to both.
+
+The CUDA kernels themselves are held against the plain versions on the
+card: by tests/test_torch_cuda.py (skipped without a card) and by
+``chip_smoke.py``."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hnsw_tpu.ops.beam_kernel import beam_update as ref_beam_update
+from hnsw_tpu.ops.dist_kernel import gathered_vec_dist as ref_vec_dist
+from hnsw_tpu.ops.dist_kernel import packed_row_dist as ref_packed_dist
+from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel
+from test_torch_cuda import beam_case
+
+REPO = Path(__file__).resolve().parent.parent
+# f32 sums taken in another order than the reference's
+RTOL, ATOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [32, 100])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
+def test_gathered_vec_dist_matches_reference(dtype, d, metric):
+    rng = np.random.default_rng(d * 10 + len(dtype))
+    q, k = 64, 16
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    dq_np = None
+    if dtype == "u8":
+        vecs = rng.integers(0, 256, size=(q, k, d), dtype=np.uint8)
+        dq_np = (rng.normal(size=d).astype(np.float32),
+                 rng.uniform(0.002, 0.01, size=d).astype(np.float32))
+    else:
+        vecs = rng.normal(size=(q, k, d)).astype(np.float32)
+    jv = jnp.asarray(vecs, jnp.bfloat16) if dtype == "bf16" \
+        else jnp.asarray(vecs)
+    tv = torch.from_numpy(vecs)
+    if dtype == "bf16":
+        tv = tv.to(torch.bfloat16)
+    want = ref_vec_dist(jv, jnp.asarray(qs),
+                        None if dq_np is None else tuple(map(jnp.asarray,
+                                                             dq_np)),
+                        metric=metric, interpret=True)
+    got = dist_kernel.gathered_vec_dist(
+        tv, torch.from_numpy(qs),
+        None if dq_np is None else tuple(map(torch.from_numpy, dq_np)),
+        metric=metric)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_gathered_vec_dist_ids_matches_pregathered():
+    """The ids entry point (the search path's) gathers inside; the
+    pre-gathered one runs it on vecs.view(Q*K, d) with ids = arange."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(500, 24)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 500, size=(40, 12),
+                                        dtype=np.int32))
+    qs = torch.from_numpy(rng.normal(size=(40, 24)).astype(np.float32))
+    a = dist_kernel.gathered_vec_dist_ids(table, ids, qs, metric="l2")
+    b = dist_kernel.gathered_vec_dist(table[ids.long()].contiguous(), qs,
+                                      metric="l2")
+    assert torch.equal(a, b)
+
+
+def _nibble_rows(vals: np.ndarray) -> np.ndarray:
+    q, k, d = vals.shape
+    if d % 2:
+        vals = np.concatenate([vals, np.zeros((q, k, 1), np.uint8)], axis=2)
+    return (vals[..., 0::2] | (vals[..., 1::2] << 4)).reshape(q, -1)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [32, 31])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_packed_row_dist_matches_reference(bits, d, metric):
+    rng = np.random.default_rng(bits * 100 + d)
+    q, k = 64, 16
+    vals = rng.integers(0, 1 << bits, size=(q, k, d), dtype=np.uint8)
+    rows = vals.reshape(q, -1) if bits == 8 else _nibble_rows(vals)
+    # qs = q * scale: per-dim scales of an 8/4-bit code range
+    qs = (rng.normal(size=(q, d)) * 0.01).astype(np.float32)
+    sq = rng.uniform(1, 10, size=(q, k)).astype(np.float32)
+    want = ref_packed_dist(jnp.asarray(rows), jnp.asarray(qs),
+                           jnp.asarray(sq), k=k, bits=bits, metric=metric,
+                           interpret=True)
+    got = dist_kernel.packed_row_dist(
+        torch.from_numpy(rows), torch.from_numpy(qs), torch.from_numpy(sq),
+        k=k, bits=bits, metric=metric)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_packed_row_dist_ids_reads_row_by_node():
+    """The ids entry point reads code row cur[q] of the table and its norm
+    row: the same values as gathering those rows first."""
+    rng = np.random.default_rng(5)
+    n, k, d = 300, 8, 20
+    codes = torch.from_numpy(rng.integers(0, 256, size=(n, k * d),
+                                          dtype=np.uint8))
+    nbr_sq = torch.from_numpy(rng.uniform(1, 5, size=(n, k))
+                              .astype(np.float32))
+    cur = torch.from_numpy(rng.integers(0, n, size=32, dtype=np.int32))
+    qs = torch.from_numpy(rng.normal(size=(32, d)).astype(np.float32))
+    a = dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=8,
+                                        metric="l2")
+    b = dist_kernel.packed_row_dist(codes[cur.long()], qs,
+                                    nbr_sq[cur.long()], k=k, bits=8,
+                                    metric="l2")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ef,k,ef_live", [(64, 64, 64), (32, 64, 32),
+                                          (64, 64, 48), (128, 48, 100)])
+def test_beam_update_matches_reference(ef, k, ef_live):
+    qn = 128
+    buf_d, buf_p, cand_i, cand_d = beam_case(ef, k, qn, ef * 1000 + k)
+    rd, rp, rcur, rndis = (np.asarray(a) for a in ref_beam_update(
+        jnp.asarray(buf_d), jnp.asarray(buf_p), jnp.asarray(cand_i),
+        jnp.asarray(cand_d), jnp.int32(ef_live), ef=ef, bq=128,
+        interpret=True))
+    od, op, cur, ndis = beam_kernel.beam_update(
+        *(torch.from_numpy(np.ascontiguousarray(a.T))
+          for a in (buf_d, buf_p, cand_i, cand_d)), ef_live)
+    assert np.array_equal(cur.numpy(), rcur)
+    assert np.array_equal(ndis.numpy(), rndis)
+    od, op = od.numpy(), op.numpy()
+    for q in range(qn):   # the bitonic network may reorder equal keys
+        assert sorted(zip(od[q], op[q])) == sorted(zip(rd[:, q], rp[:, q])), q
+
+
+def test_cpu_tensors_run_plain_versions_and_count_nothing():
+    _cuda.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    t = torch.from_numpy(rng.normal(size=(50, 8)).astype(np.float32))
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    dist_kernel.gathered_vec_dist_ids(t, ids, t[:4], metric="l2")
+    beam_kernel.beam_update(torch.zeros((4, 32)),
+                            torch.full((4, 32), -1, dtype=torch.int32),
+                            ids, torch.zeros((4, 3)), 32)
+    assert _cuda.launch_counts() == {"gathered_vec_dist": 0,
+                                     "packed_row_dist": 0, "beam_update": 0}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    t = torch.zeros((50, 8))
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        dist_kernel.gathered_vec_dist_ids(t, ids.long(), t[:4], metric="l2")
+    with pytest.raises(ValueError, match="contiguous"):
+        dist_kernel.gathered_vec_dist_ids(t, ids, t[:8:2], metric="l2")
+    with pytest.raises(ValueError, match="shape"):
+        dist_kernel.gathered_vec_dist_ids(t, ids, t[:5], metric="l2")
+    with pytest.raises(ValueError, match="row width"):
+        dist_kernel.packed_row_dist_ids(
+            torch.zeros((9, 30), dtype=torch.uint8), torch.zeros((9, 4)),
+            torch.zeros(2, dtype=torch.int32), torch.zeros((2, 8)), bits=8,
+            metric="l2")
+    with pytest.raises(ValueError, match="shape"):
+        beam_kernel.beam_update(torch.zeros((4, 32)),
+                                torch.zeros((4, 16), dtype=torch.int32),
+                                ids, torch.zeros((4, 3)), 32)
+    # a device with no kernel raises instead of running the plain version
+    meta = torch.empty((50, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dist_kernel.gathered_vec_dist_ids(
+            meta, ids.to("meta"), meta[:4], metric="l2")
+
+
+def test_imports_without_jax():
+    """The port never imports jax or hnsw_tpu: every module imports in a
+    process where both are unavailable."""
+    import hnsw_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(hnsw_tpu_torch.__path__,
+                                                   "hnsw_tpu_torch.")]
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['hnsw_tpu'] = None\n"
+            f"for name in {['hnsw_tpu_torch'] + names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m in sys.modules if sys.modules[m] is not None)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
