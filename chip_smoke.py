@@ -7,31 +7,49 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Phases (any failure raises, and the exit code is not 0):
 
   1. require CUDA; print the card's name and power limit;
-  2. build the hand-written kernels (nvcc, sm_90a) and print the seconds;
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (Q=8192, K=64, d=128, ef in {32, 64, 128, 512}) and
-     at 4-bit, bf16, uint8-dequant, odd-d and IP variants; time both with
-     CUDA events;
-  4. the main path: ``synthetic_workload(n, 128, n_queries=8192,
-     seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), build with
-     M=32 / efConstruction=100, ``check()``, ``enable_packed(bits=8)``,
-     exact ground truth from ``brute_force_topk`` on the card, then k=10
-     searches at ef in {32, 64, 128} packed and ef=64 unpacked. Requires
-     packed recall@10 >= 0.95 at the best ef, packed and unpacked within
-     0.01 at ef=64, and every kernel launched during the searches.
+  2. build the hand-written kernels (nvcc, sm_90a; one process per source)
+     and print the seconds;
+  3. hold each of the five kernels against its plain PyTorch version on
+     the card, at the main path's shapes (Q=8192, K=64, d=128, ef in {32,
+     64, 128, 512}) and at 4-bit, bf16, uint8-dequant, odd-d, IP, padded
+     word-segment, clamped-id and two-expansion variants; time both with
+     CUDA events and compute each kernel's bound from its inputs;
+  4. the main path, ``synthetic_workload(n, 128, n_queries=8192,
+     seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), in phases on
+     ONE index, each with the launch counts set to 0 just before it and
+     read just after (every kernel a phase needs must have launched):
+       a. build with M=32 / efConstruction=100 and ``check()`` (K3);
+       b. ``enable_packed(bits=8)`` (bytes rows), exact ground truth from
+          ``brute_force_topk`` on the card, k=10 searches at ef in {32, 64,
+          128} packed and ef=64 unpacked (K1, K2, K3). Requires packed
+          recall@10 >= 0.95 at the best ef and packed and unpacked within
+          0.01 at ef=64;
+       c. ``enable_packed(bits=8, layout="words")`` after
+          ``disable_packed()``; its table must equal the bytes table bit
+          for bit; the same packed searches (K1, K4, K3). Requires recall
+          >= 0.95 at the best ef and within 0.005 of bytes at each ef;
+       d. ``HNSW_TPU_PALLAS_HOP=1`` for this phase only: unpacked ef=64
+          (K5). Requires recall within 0.01 of the fused unpacked search;
+       e. the legacy beam at ef=64: n_expand=2 on the words rows (K4 with
+          two expansions), ``visited_mode="bitmap"`` unpacked, and a
+          filtered search with the even ids allowed. Prints recall, qps,
+          hops and ndis; requires the filtered result to hold only
+          allowed ids, no id twice in a row, and exact squared L2.
 
 ``--n N`` (N >= 300,000) cuts the main path's base to N vectors (the cut is
 printed); with no arguments it runs the full 1,000,000.
 
-The next-to-last lines are one JSON object with each kernel's launches,
-error and times, and the ``nvidia-smi`` name and power limit; the last line
-is ``{"ok": true, "device": {...}}``.
+The next-to-last lines are one JSON object with each kernel's launches
+(summed over the main path's phases), error, times and bound, and the
+``nvidia-smi`` name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -39,6 +57,25 @@ import numpy as np
 import torch
 
 NORTH_STAR_N = 1_000_000
+N_QUERIES, HOP_K = 8192, 64      # the main path's query batch and m0
+PACKED_ROWS = 300_000            # 8 KB rows: offsets cross 2^31 bytes
+# NVIDIA's H100 SXM data sheet: HBM bytes/s, and float32 operations/s
+# outside the tensor cores (none of these kernels uses them)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# (source, replaced TPU kernel) of each kernel, by its launch-count name
+KERNELS = {
+    "gathered_vec_dist": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
+                          "hnsw_tpu/ops/dist_kernel.py:308"),
+    "packed_row_dist": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
+                        "hnsw_tpu/ops/dist_kernel.py:129"),
+    "packed_row_dist_words": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
+                              "hnsw_tpu/ops/dist_kernel.py:227"),
+    "fused_gather_distances": ("hnsw_tpu_torch/csrc/hop_kernel.cu",
+                               "hnsw_tpu/ops/hop_kernel.py:118"),
+    "beam_update": ("hnsw_tpu_torch/csrc/beam_kernel.cu",
+                    "hnsw_tpu/ops/beam_kernel.py:204"),
+}
 
 
 def log(msg: str) -> None:
@@ -74,11 +111,33 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, *, rtol: float,
     return err
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the HBM rate and its operations over the f32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes}
+
+
+def gather_bound(ids: torch.Tensor, d: int, ip: bool) -> dict:
+    """K3 / K5: each distinct row once (d f32), ids, queries, the output;
+    2 operations a dim for the dot, 2 more for the norm (L2)."""
+    q, k = ids.shape
+    rows = torch.unique(ids.clamp(min=0)).numel()
+    return bound(rows * d * 4 + q * k * 4 + q * d * 4 + q * k * 4,
+                 q * k * d * (2 if ip else 4))
+
+
 def check_vec_dist(dev, gen) -> dict:
     """K3. Tolerance: rtol 1e-5 + atol 1e-3 — f32 sums of d terms taken in
-    another order than the plain version's."""
+    another order than the plain version's. No single PyTorch call gathers
+    rows by id and contracts them with a per-query vector: library_ms is
+    null."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
-    q, k, n = 8192, 64, NORTH_STAR_N
+    q, k, n = N_QUERIES, HOP_K, NORTH_STAR_N
     out = {}
     for d in (128, 100):
         table = torch.randn((n, d), generator=gen, device=dev)
@@ -94,6 +153,7 @@ def check_vec_dist(dev, gen) -> dict:
                 err = compare(tag, got, want, rtol=1e-5, atol=1e-3)
                 if d == 128 and kk == k and metric == "l2":
                     out["max_abs_err"] = err
+                    out.update(gather_bound(ids, d, ip=False))
                     out["ms"] = time_ms(lambda: dk.gathered_vec_dist_ids(
                         table, ids, qs, metric="l2"))
                     out["plain_ms"] = time_ms(
@@ -130,13 +190,15 @@ def check_vec_dist(dev, gen) -> dict:
 def check_packed_dist(dev, gen) -> dict:
     """K2 at the main path's row (64 neighbors x 128 dims x 8 bits = 8 KB)
     over a 300k-row table (2.46 GB, so row offsets cross 2^31), plus 4-bit,
-    odd d and IP. Tolerance: rtol 1e-5 + atol 1e-2 (f32 sums of up to 128
-    code * query terms, each up to ~500, in another order)."""
+    odd d, IP and two expansions a query (cur [Q/2, 2]). Tolerance: rtol
+    1e-5 + atol 1e-2 (f32 sums of up to 128 code * query terms, each up to
+    ~500, in another order). No single PyTorch call reads code rows by id
+    and contracts them: library_ms is null."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
-    q, k = 8192, 64
+    q, k, big = N_QUERIES, HOP_K, PACKED_ROWS
     out = {}
-    for d, bits, rows in ((128, 8, 300_000), (128, 4, 300_000),
-                          (101, 8, 20_000), (101, 4, 20_000)):
+    for d, bits, rows in ((128, 8, big), (128, 4, big), (101, 8, 20_000),
+                          (101, 4, 20_000)):
         db = d if bits == 8 else (d + 1) // 2
         codes = torch.randint(0, 256, (rows, k * db), generator=gen,
                               device=dev, dtype=torch.uint8)
@@ -155,6 +217,9 @@ def check_packed_dist(dev, gen) -> dict:
             err = compare(tag, got, want, rtol=1e-5, atol=1e-2)
             if (d, bits, metric) == (128, 8, "l2"):
                 out["max_abs_err"] = err
+                rows_read = torch.unique(cur).numel()
+                out.update(bound(rows_read * (k * db + k * 4) + q * 4
+                                 + q * d * 4 + q * k * 4, q * k * d * 2))
                 out["ms"] = time_ms(lambda: dk.packed_row_dist_ids(
                     codes, nbr_sq, cur, qs, bits=8, metric="l2"))
                 out["plain_ms"] = time_ms(lambda: dk.packed_row_dist_plain(
@@ -166,7 +231,95 @@ def check_packed_dist(dev, gen) -> dict:
                 dk.packed_row_dist_plain(codes, nbr_sq, cur[:256], qs[:256],
                                          bits=bits, metric="l2"),
                 rtol=1e-5, atol=1e-2)
+        cur2 = cur.view(q // 2, 2)
+        compare(f"packed_row_dist {bits}-bit d={d} two expansions",
+                dk.packed_row_dist_ids(codes, nbr_sq, cur2, qs[:q // 2],
+                                       bits=bits, metric="l2"),
+                dk.packed_row_dist_plain(codes, nbr_sq, cur2, qs[:q // 2],
+                                         bits=bits, metric="l2"),
+                rtol=1e-5, atol=1e-2)
         del codes, nbr_sq
+    return out
+
+
+def check_words_dist(dev, gen) -> dict:
+    """K4 at the main path's rows (64 neighbors x 32 words at d = 128
+    8-bit: 8 KB) over a 300k-row table (2.46 GB, so row offsets cross 2^31
+    bytes), at (d, bits) in {(128, 8), (128, 4), (100, 8)} (d = 100: 25 of
+    32 words carry values), with the table's last rows and two expansions
+    a query. Words are random int32 (every bit pattern). Tolerance: rtol
+    1e-5 + atol 1e-2, K2's: the same sums in another order. No single
+    PyTorch call reads word rows by id and contracts them: library_ms is
+    null."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    from hnsw_tpu_torch.ops.packed import word_width
+    q, k, rows = N_QUERIES, HOP_K, PACKED_ROWS
+    out = {}
+    for d, bits in ((128, 8), (128, 4), (100, 8)):
+        wp = word_width(d, bits)
+        words = torch.randint(-2**31, 2**31 - 1, (rows, k * wp),
+                              generator=gen, device=dev, dtype=torch.int32)
+        cur = torch.randint(0, rows, (q,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        cur[:64] = torch.arange(rows - 64, rows, device=dev,
+                                dtype=torch.int32)
+        qs = torch.randn((q, d), generator=gen, device=dev)
+        for cc, qq, tag in ((cur, qs, "one expansion"),
+                            (cur.view(q // 2, 2), qs[:q // 2],
+                             "two expansions")):
+            got = dk.packed_row_dist_words_ids(words, cc, qq, wp=wp,
+                                               bits=bits)
+            want = dk.packed_row_dist_words_plain(words, cc, qq, wp=wp,
+                                                  bits=bits)
+            err = compare(f"packed_row_dist_words {bits}-bit d={d} "
+                          f"rows={rows} {tag}", got, want, rtol=1e-5,
+                          atol=1e-2)
+            if (d, bits) == (128, 8) and cc is cur:
+                out["max_abs_err"] = err
+                nw = -(-d * bits // 32)
+                out.update(bound(torch.unique(cur).numel() * k * nw * 4
+                                 + q * 4 + q * d * 4 + q * k * 4,
+                                 q * k * d * 2))
+                out["ms"] = time_ms(lambda: dk.packed_row_dist_words_ids(
+                    words, cur, qs, wp=wp, bits=bits))
+                out["plain_ms"] = time_ms(
+                    lambda: dk.packed_row_dist_words_plain(
+                        words, cur, qs, wp=wp, bits=bits))
+        del words
+    return out
+
+
+def check_gather_dist(dev, gen) -> dict:
+    """K5 at the hop's shape (Q=8192, K=64) over 1M rows, d in {128, 100},
+    L2 and IP, with ~1% negative and ~1% past-the-end ids (the kernel's
+    clamp). Tolerance: rtol 1e-5 + atol 1e-3, K3's: f32 sums of d terms in
+    another order. No single PyTorch call gathers rows by id and contracts
+    them: library_ms is null."""
+    from hnsw_tpu_torch.ops import hop_kernel as hk
+    q, k, n = N_QUERIES, HOP_K, NORTH_STAR_N
+    out = {}
+    for d in (128, 100):
+        table = torch.randn((n, d), generator=gen, device=dev)
+        qs = torch.randn((q, d), generator=gen, device=dev)
+        ids = torch.randint(0, n, (q, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        r = torch.rand((q, k), generator=gen, device=dev)
+        ids = torch.where(r < 0.01, -1 - ids % 7, ids)
+        ids = torch.where(r > 0.99, n + ids % 7, ids)
+        for metric in ("l2", "ip"):
+            got = hk.fused_gather_distances(table, ids, qs, metric)
+            want = hk.fused_gather_distances_plain(table, ids, qs, metric)
+            err = compare(f"fused_gather_distances d={d} {metric}", got,
+                          want, rtol=1e-5, atol=1e-3)
+            if d == 128 and metric == "l2":
+                out["max_abs_err"] = err
+                out.update(gather_bound(ids.clamp(0, n - 1), d, ip=False))
+                out["ms"] = time_ms(lambda: hk.fused_gather_distances(
+                    table, ids, qs, "l2"))
+                out["plain_ms"] = time_ms(
+                    lambda: hk.fused_gather_distances_plain(table, ids, qs,
+                                                            "l2"))
+        del table
     return out
 
 
@@ -197,9 +350,13 @@ def beam_inputs(q: int, ef: int, k: int, dev, gen):
 
 def check_beam_update(dev, gen) -> dict:
     """K1: must equal the plain version exactly (both are a stable merge of
-    buffer ++ fresh candidates), at Q=8192, K=64."""
+    buffer ++ fresh candidates), at Q=8192, K=64. Its bound counts the
+    buffers in and out, the candidates in and cur / ndis out, and as
+    operations the K x ef membership compares plus a (ef + K) log2 (ef + K)
+    merge a query, at the f32 rate. No single PyTorch call does the hop's
+    dedup + merge + selection: library_ms is null."""
     from hnsw_tpu_torch.ops import beam_kernel as bk
-    q, k = 8192, 64
+    q, k = N_QUERIES, HOP_K
     out = {}
     for ef in (32, 64, 128, 512):
         for ef_live in sorted({ef, max(1, ef * 3 // 4)}):
@@ -219,94 +376,222 @@ def check_beam_update(dev, gen) -> dict:
                 f"(ndis mean {want[3].float().mean():.1f})")
             if ef == 64 and ef_live == ef:
                 out["max_abs_err"] = err
+                m = ef + k
+                out.update(bound(q * ef * 8 * 2 + q * k * 8 + q * 8,
+                                 q * (k * ef + m * m.bit_length())))
                 out["ms"] = time_ms(lambda: bk.beam_update(*args, ef_live))
                 out["plain_ms"] = time_ms(
                     lambda: bk.beam_update_plain(*args, ef_live))
     return out
 
 
-def main_path(n: int, dev) -> dict:
-    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+def phase(name: str, need: tuple, totals: dict, fn):
+    """Run one main-path phase with the launch counts set to 0 just before
+    it and read just after; every kernel in ``need`` must have launched.
+    Adds the phase's counts to ``totals``."""
     from hnsw_tpu_torch.ops import _cuda
+    _cuda.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    log(f"phase {name}: kernel launches {counts}")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"phase {name}: kernels never launched: "
+                             f"{missing}")
+    for k, c in counts.items():
+        totals[k] = totals.get(k, 0) + c
+    return result
+
+
+def main_path(n: int, dev, totals: dict) -> dict:
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
     from hnsw_tpu_torch.ops.distances import brute_force_topk
+    from hnsw_tpu_torch.search import hnsw_search
     from hnsw_tpu_torch.utils.recall import recall_at_k
 
     t0 = time.time()
-    wl = synthetic_workload(n, 128, n_queries=8192, seed=1234)
-    log(f"workload: {n} x 128 base, 8192 queries ({time.time() - t0:.1f} s)")
+    wl = synthetic_workload(n, 128, n_queries=N_QUERIES, seed=1234)
+    log(f"workload: {n} x 128 base, {N_QUERIES} queries "
+        f"({time.time() - t0:.1f} s)")
     torch.cuda.reset_peak_memory_stats()
     idx = HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
                     device=dev)
-    t0 = time.time()
-    idx.add(wl.base)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    log(f"build: {build_s:.1f} s ({n / build_s:.0f} inserts/s), back-link "
-        f"window drops {idx._builder.last_backlink_dropped}")
-    t0 = time.time()
-    stats = idx.check()
-    log(f"check: {time.time() - t0:.1f} s, errors {stats['errors']}, "
-        f"deg0_mean {stats['deg0_mean']:.2f}, reciprocity0 "
-        f"{stats['reciprocity0']:.4f}, max_level {stats['max_level']}")
-    if stats["errors"]:
-        raise AssertionError(f"graph invariants: {stats['errors']}")
-    t0 = time.time()
-    nbytes = idx.enable_packed(bits=8)
-    torch.cuda.synchronize()
-    log(f"enable_packed(bits=8): {nbytes} bytes ({nbytes / 1e9:.2f} GB) in "
-        f"{time.time() - t0:.1f} s")
 
+    def build():
+        t0 = time.time()
+        idx.add(wl.base)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        log(f"build: {build_s:.1f} s ({n / build_s:.0f} inserts/s), "
+            f"back-link window drops {idx._builder.last_backlink_dropped}")
+        t0 = time.time()
+        stats = idx.check()
+        log(f"check: {time.time() - t0:.1f} s, errors {stats['errors']}, "
+            f"deg0_mean {stats['deg0_mean']:.2f}, reciprocity0 "
+            f"{stats['reciprocity0']:.4f}, max_level {stats['max_level']}")
+        if stats["errors"]:
+            raise AssertionError(f"graph invariants: {stats['errors']}")
+        return build_s
+
+    build_s = phase("build", ("gathered_vec_dist",), totals, build)
     queries = torch.from_numpy(wl.queries).to(dev)
-    t0 = time.time()
-    gt_d, gt = brute_force_topk(queries, idx.vectors, 10, "l2", n_valid=n)
-    gt = gt.cpu().numpy()
-    log(f"ground truth (brute_force_topk on the card): "
-        f"{time.time() - t0:.1f} s")
 
-    def run(ef, packed):
+    def timed(fn, runs=2):
+        """(result, best synced wall seconds of ``runs`` runs)."""
         best = None
-        for _ in range(2):   # best of two synced wall-clock runs
+        for _ in range(runs):
             torch.cuda.synchronize()
             t = time.time()
-            d, i, st = idx.search(queries, 10, ef_search=ef, with_stats=True,
-                                  use_packed=packed, device_out=True)
+            res = fn()
             torch.cuda.synchronize()
             dt = time.time() - t
             best = dt if best is None else min(best, dt)
-        if tuple(i.shape) != (8192, 10) or not torch.isfinite(
-                d[i >= 0]).all():
-            raise AssertionError("search output malformed")
-        r = recall_at_k(i.cpu().numpy(), gt, 10)
-        log(f"search {'packed' if packed else 'unpacked'} ef={ef}: "
-            f"recall@10 {r:.4f}, {8192 / best:.0f} qps (best of 2, "
-            f"{best * 1e3:.1f} ms), hops {st.hops}, ndis mean "
-            f"{st.ndis.float().mean():.1f}")
-        return r, d, i
+        return res, best
 
-    before = _cuda.launch_counts()
-    recalls = {}
-    for ef in (32, 64, 128):
-        recalls[ef], d, i = run(ef, True)
-    unpacked, d_u, i_u = run(64, False)
-    grew = {k: n - before[k] for k, n in _cuda.launch_counts().items()}
-    log(f"kernel launches during the searches: {grew}")
-    if min(grew.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched by the searches: "
-                             f"{grew}")
-    # returned distances are exact squared L2 of the returned ids
-    x = idx.vectors[i[:, 0].long().clamp(min=0)]
-    exact = ((queries - x) ** 2).sum(1)
-    if not torch.allclose(d[:, 0], exact, rtol=1e-4, atol=1e-3):
-        raise AssertionError("returned distances are not exact squared L2")
-    best = max(recalls.values())
-    if best < 0.95:
-        raise AssertionError(f"packed recall@10 {best:.4f} < 0.95")
-    if abs(recalls[64] - unpacked) > 0.01:
-        raise AssertionError(f"packed {recalls[64]:.4f} vs unpacked "
-                             f"{unpacked:.4f} recall at ef=64 differ > 0.01")
+    def report(tag, res, secs, gt_ids, runs=2):
+        d, i, st = res
+        if tuple(i.shape) != (N_QUERIES, 10) or not torch.isfinite(
+                d[i >= 0]).all():
+            raise AssertionError(f"{tag}: search output malformed")
+        r = recall_at_k(i.cpu().numpy(), gt_ids, 10)
+        log(f"search {tag}: recall@10 {r:.4f}, {N_QUERIES / secs:.0f} qps "
+            f"(best of {runs}, {secs * 1e3:.1f} ms), hops {st.hops}, ndis "
+            f"mean {st.ndis.float().mean():.1f}")
+        return r
+
+    def run(ef, packed, tag):
+        res, secs = timed(lambda: idx.search(
+            queries, 10, ef_search=ef, with_stats=True, use_packed=packed,
+            device_out=True))
+        return report(f"{tag} ef={ef}", res, secs, gt), res
+
+    def check_exact(tag, d, i):
+        """returned distances are exact squared L2 of the returned ids"""
+        ok = i >= 0
+        x = idx.vectors[i.long().clamp(min=0)]
+        exact = ((queries[:, None, :] - x) ** 2).sum(-1)
+        if not torch.allclose(d[ok], exact[ok], rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"{tag}: returned distances are not exact "
+                                 f"squared L2")
+
+    gt = None
+
+    def bytes_phase():
+        nonlocal gt
+        t0 = time.time()
+        nbytes = idx.enable_packed(bits=8)
+        torch.cuda.synchronize()
+        log(f"enable_packed(bits=8): {nbytes} bytes ({nbytes / 1e9:.2f} GB) "
+            f"in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        _, gt_t = brute_force_topk(queries, idx.vectors, 10, "l2", n_valid=n)
+        gt = gt_t.cpu().numpy()
+        log(f"ground truth (brute_force_topk on the card): "
+            f"{time.time() - t0:.1f} s")
+        recalls = {ef: run(ef, True, "packed bytes")[0] for ef in (32, 64, 128)}
+        unpacked, (d, i, _) = run(64, False, "unpacked")
+        check_exact("unpacked ef=64", d[:, :1], i[:, :1])
+        best = max(recalls.values())
+        if best < 0.95:
+            raise AssertionError(f"packed recall@10 {best:.4f} < 0.95")
+        if abs(recalls[64] - unpacked) > 0.01:
+            raise AssertionError(f"packed {recalls[64]:.4f} vs unpacked "
+                                 f"{unpacked:.4f} recall at ef=64 differ > "
+                                 f"0.01")
+        return recalls, unpacked
+
+    recalls, unpacked = phase(
+        "bytes search", ("beam_update", "packed_row_dist",
+                         "gathered_vec_dist"), totals, bytes_phase)
+
+    def words_phase():
+        # the bytes table waits on the host, so two 8.45 GB tables never
+        # sit on the card at once
+        t0 = time.time()
+        host_bytes = idx._packed.nbr_codes.cpu()
+        idx.disable_packed()
+        nbytes = idx.enable_packed(bits=8, layout="words")
+        torch.cuda.synchronize()
+        words = idx._packed.nbr_codes.view(torch.uint8)
+        same = words.shape == host_bytes.shape and all(
+            torch.equal(words[r:r + 65536], host_bytes[r:r + 65536].to(dev))
+            for r in range(0, words.shape[0], 65536))
+        log(f"enable_packed(bits=8, layout='words'): {nbytes} bytes, equal "
+            f"to the bytes table bit for bit: {same} "
+            f"({time.time() - t0:.1f} s with the host copy and compare)")
+        if not same:
+            raise AssertionError("words table differs from the bytes table")
+        del host_bytes
+        out = {}
+        for ef in (32, 64, 128):
+            out[ef], (d, i, _) = run(ef, True, "packed words")
+            if abs(out[ef] - recalls[ef]) > 0.005:
+                raise AssertionError(f"words {out[ef]:.4f} vs bytes "
+                                     f"{recalls[ef]:.4f} at ef={ef} differ "
+                                     f"> 0.005")
+        if max(out.values()) < 0.95:
+            raise AssertionError(f"words recall@10 {max(out.values()):.4f} "
+                                 f"< 0.95")
+        return out
+
+    words = phase("words search", ("beam_update", "packed_row_dist_words",
+                                   "gathered_vec_dist"), totals, words_phase)
+
+    def pallas_phase():
+        os.environ["HNSW_TPU_PALLAS_HOP"] = "1"
+        try:
+            r, (d, i, _) = run(64, False, "unpacked HNSW_TPU_PALLAS_HOP=1")
+        finally:
+            del os.environ["HNSW_TPU_PALLAS_HOP"]
+        check_exact("pallas hop", d[:, :1], i[:, :1])
+        if abs(r - unpacked) > 0.01:
+            raise AssertionError(f"HNSW_TPU_PALLAS_HOP=1 recall {r:.4f} vs "
+                                 f"fused unpacked {unpacked:.4f} differ > "
+                                 f"0.01")
+        return r
+
+    pallas = phase("pallas hop", ("fused_gather_distances",), totals,
+                   pallas_phase)
+
+    def legacy_phase():
+        out = {}
+        idx.n_expand = 2
+        try:
+            out["n_expand=2 words"], _ = run(64, True, "words n_expand=2")
+        finally:
+            idx.n_expand = 1
+        res, secs = timed(lambda: hnsw_search(
+            idx.graph, idx.vectors, queries, k=10, ef_search=64,
+            with_stats=True, visited_mode="bitmap"), runs=1)
+        out["bitmap"] = report("unpacked visited_mode=bitmap ef=64", res,
+                               secs, gt, runs=1)
+        even = torch.arange(n, device=dev) % 2 == 0
+        _, gt_even = brute_force_topk(queries, idx.vectors[0::2].contiguous(),
+                                      10, "l2")
+        gt_even = (gt_even * 2).cpu().numpy()
+        res, secs = timed(lambda: idx.search(
+            queries, 10, ef_search=64, with_stats=True, allowed=even,
+            device_out=True), runs=1)
+        out["filtered"] = report("words filtered (even ids) ef=64", res,
+                                 secs, gt_even, runs=1)
+        d, i, _ = res
+        ok = i >= 0
+        if not bool(even[i[ok].long()].all()):
+            raise AssertionError("filtered search returned a disallowed id")
+        srt = torch.sort(torch.where(ok, i, -1 - torch.arange(
+            10, device=dev)[None, :]), dim=1).values
+        if bool((srt[:, 1:] == srt[:, :-1]).any()):
+            raise AssertionError("filtered search repeated an id in a row")
+        check_exact("filtered", d, i)
+        return out
+
+    legacy = phase("legacy beam", ("packed_row_dist_words",
+                                   "gathered_vec_dist"), totals, legacy_phase)
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return {"build_s": build_s, "recall": recalls, "unpacked": unpacked}
+    return {"build_s": build_s, "recall": recalls, "unpacked": unpacked,
+            "words": words, "pallas": pallas, "legacy": legacy}
 
 
 def main() -> None:
@@ -314,12 +599,13 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
                     help="base vectors of the main-path run")
     args = ap.parse_args()
-    if args.n < 300_000:   # smaller tables keep 8 KB row offsets below 2^31
-        raise SystemExit(f"chip_smoke: --n {args.n} is below 300,000")
+    if args.n < PACKED_ROWS:  # smaller tables keep row offsets below 2^31
+        raise SystemExit(f"chip_smoke: --n {args.n} is below {PACKED_ROWS}")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     import hnsw_tpu_torch  # noqa: F401  (sets exact-f32 matmul precision)
+    import hnsw_tpu_torch.search  # noqa: F401  (registers every kernel)
     from hnsw_tpu_torch.ops import _cuda
 
     card = subprocess.run(
@@ -340,32 +626,31 @@ def main() -> None:
     log("kernel vs plain PyTorch, on the card:")
     measured = {"gathered_vec_dist": check_vec_dist(dev, gen),
                 "packed_row_dist": check_packed_dist(dev, gen),
+                "packed_row_dist_words": check_words_dist(dev, gen),
+                "fused_gather_distances": check_gather_dist(dev, gen),
                 "beam_update": check_beam_update(dev, gen)}
     for name, m in measured.items():
-        log(f"  {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms")
+        log(f"  {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} "
+            f"ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']} "
+            f"({m['bytes'] / 1e6:.1f} MB)")
     torch.cuda.empty_cache()
 
     if args.n < NORTH_STAR_N:
         log(f"main path cut: n={args.n} of {NORTH_STAR_N}")
-    _cuda.reset_launch_counts()
-    main_path(args.n, dev)
-    counts = _cuda.launch_counts()
-    log(f"kernel launches during the main path: {counts}")
-    missing = [k for k in measured if counts.get(k, 0) == 0]
+    totals: dict = {}
+    main_path(args.n, dev, totals)
+    log(f"kernel launches over the main path's phases: {totals}")
+    missing = [k for k in KERNELS if totals.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    sources = {"gathered_vec_dist": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
-                                     "hnsw_tpu/ops/dist_kernel.py:308"),
-               "packed_row_dist": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
-                                   "hnsw_tpu/ops/dist_kernel.py:129"),
-               "beam_update": ("hnsw_tpu_torch/csrc/beam_kernel.cu",
-                               "hnsw_tpu/ops/beam_kernel.py:204")}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": counts[name],
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": totals[name],
          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-         "plain_ms": m["plain_ms"]} for name, m in measured.items()]}))
+         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+         "bound_by": m["bound_by"], "library_ms": None}
+        for name, m in measured.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

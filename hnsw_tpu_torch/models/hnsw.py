@@ -3,13 +3,15 @@ ported to PyTorch: ``HnswIndex(d, m, metric, capacity=…)`` → ``add(x)`` →
 ``enable_packed(bits=8)`` → ``search(q, k, ef_search=…)``.
 
 Vectors and graph live as tensors on one device (``device``; the default
-is the first CUDA device when there is one, else the CPU). ``add`` runs the
-batched device build; ``search`` the batched query pipeline.
+is the first CUDA device, and with no card the constructor and ``load``
+raise: pass ``device="cpu"`` to run on the CPU). ``add`` runs the batched
+device build; ``search`` the batched query pipeline, with filters
+(``allowed``), ``beam_keys`` and the ``n_expand`` attribute.
 
 Not ported yet (they raise NotImplementedError): ``build="host"``; sq8 /
-bf16 / pq storage; PQ and "words" packed rows; ``add`` while packed tables
-are enabled (incremental row maintenance); filtered search; ``n_expand >
-1``; deletion, ``save`` and the rest of the API breadth (ROADMAP.md Queue A).
+bf16 / pq storage; PQ packed rows; ``add`` while packed tables are enabled
+(incremental row maintenance); deletion (tombstones), ``save`` and the rest
+of the API breadth (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from ..search import hnsw_search
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device. Never a silent fall back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("HnswIndex: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 class HnswIndex:
@@ -52,6 +58,7 @@ class HnswIndex:
         self.ef_search = config.ef_search
         self.ef_construction = config.ef_construction
         self.n_expand = 1
+        self.beam_keys = "auto"  # default merge-key dtype (see search())
         self.entry_mode = "auto"
         self.r_window = 16  # back-link repair window; set before first add()
         self._graph: GraphArrays | None = None
@@ -103,9 +110,10 @@ class HnswIndex:
         """Build the packed neighbor-code tables ("sq" rows: d scalar-
         quantized dims per neighbor, 8 or 4 bits). The level-0 beam then
         routes on distances from ONE code row per expanded node; the final
-        buffer is re-ranked exactly. ``layout`` "auto" resolves to "bytes"
-        (the reference picks "words" only on a TPU). Returns the tables'
-        size in bytes."""
+        buffer is re-ranked exactly. ``layout``: "bytes" (uint8 rows, K2),
+        "words" (int32 rows holding the same bits, K4) or "auto", which
+        resolves to "bytes" (the reference picks "words" only on a TPU).
+        Returns the tables' size in bytes."""
         if mode not in (None, "sq"):
             raise NotImplementedError(
                 f"packed mode {mode!r} (PQ-coded rows) is not ported yet: "
@@ -128,18 +136,24 @@ class HnswIndex:
     # -- query ----------------------------------------------------------------
     def search(self, x, k: int, *, ef_search: int | None = None,
                with_stats: bool = False, allowed=None, max_hops: int = 0,
-               use_packed: bool | None = None, entry_mode: str | None = None,
-               device_out: bool = False):
+               use_packed: bool | None = None, beam_keys: str | None = None,
+               entry_mode: str | None = None, device_out: bool = False):
         """Batched k-NN. Returns (D [n, k] float32, I [n, k] int64) numpy
         arrays like faiss (I == -1 where fewer than k are reachable), or the
         device tensors (D f32, I int32) with ``device_out``. ``x`` is a
         numpy array or a tensor.
 
-        ``max_hops``: 0 caps the level-0 loop at ef_search + 8 hops, > 0
-        sets the cap, < 0 runs to convergence. ``use_packed``: None routes
-        on the packed tables when enabled, False bypasses them, True
-        requires them. ``entry_mode``: "auto" | "sample" | "seed" |
-        "descend" (see ``hnsw_search``)."""
+        ``allowed``: an id filter (faiss IDSelector), a bool mask over ids
+        or an int array of allowed ids, as numpy or as a tensor; traversal
+        is unfiltered, only allowed ids are returned.
+        ``max_hops``: 0 caps the level-0 loop at ef_search + 8 hops
+        (filtered searches run to convergence), > 0 sets the cap, < 0 runs
+        to convergence. ``use_packed``: None routes on the packed tables
+        when enabled, False bypasses them, True requires them.
+        ``beam_keys``: "auto" | "bf16" | "f32", the legacy beam's merge
+        keys; None uses ``self.beam_keys``. ``entry_mode``: "auto" |
+        "sample" | "seed" | "descend" (see ``hnsw_search``). The
+        ``n_expand`` attribute sets the expansions per hop."""
         if use_packed is None:
             packed = self._packed
         elif use_packed:
@@ -156,17 +170,60 @@ class HnswIndex:
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         x = x.to(self.device, torch.float32)
+        if allowed is not None:
+            allowed = self._normalize_allowed(allowed)
         out = hnsw_search(
             self._graph, self._vectors, x, k=k,
             ef_search=int(ef_search or self.ef_search),
             metric=self.config.metric,
             max_level_cap=self.config.max_level_cap, max_hops=max_hops,
             n_expand=self.n_expand, with_stats=with_stats, allowed=allowed,
-            packed=packed, entry_mode=entry_mode or self.entry_mode)
+            packed=packed, beam_keys=beam_keys or self.beam_keys,
+            entry_mode=entry_mode or self.entry_mode)
         if device_out:
             return out
         d, i = out[0].cpu().numpy(), out[1].cpu().numpy().astype(np.int64)
         return (d, i, out[2]) if with_stats else (d, i)
+
+    def _normalize_allowed(self, allowed) -> torch.Tensor:
+        """A user id filter as a bool [capacity] mask on the index's device,
+        by dtype and shape: a bool mask (1-d, at most capacity long; the
+        tail is False) or an int id list, as numpy or as a tensor. A numpy
+        id out of range raises (numpy indexing); tensor ids outside
+        [0, capacity) are dropped, as the reference drops them on device."""
+        cap = self.config.capacity
+        if isinstance(allowed, torch.Tensor):
+            a = allowed.to(self.device)
+            if a.dtype == torch.bool:
+                if a.dim() != 1 or a.shape[0] > cap:
+                    raise ValueError(
+                        f"allowed bool mask must be 1-d with length <= "
+                        f"capacity ({cap}), got shape {tuple(a.shape)}")
+                mask = torch.zeros(cap, dtype=torch.bool, device=self.device)
+                mask[:a.shape[0]] = a
+                return mask
+            if a.is_floating_point() or a.is_complex():
+                raise TypeError(f"allowed: expected bool mask or int id "
+                                f"list, got dtype {a.dtype}")
+            ids = a.reshape(-1).long()
+            mask = torch.zeros(cap, dtype=torch.bool, device=self.device)
+            mask[ids[(ids >= 0) & (ids < cap)]] = True
+            return mask
+        a = np.asarray(allowed)
+        if a.dtype == np.bool_:
+            if a.ndim != 1 or len(a) > cap:
+                raise ValueError(
+                    f"allowed bool mask must be 1-d with length <= capacity "
+                    f"({cap}), got shape {a.shape}")
+            mask = np.zeros(cap, np.bool_)
+            mask[:len(a)] = a
+        elif np.issubdtype(a.dtype, np.integer):
+            mask = np.zeros(cap, np.bool_)
+            mask[a.reshape(-1)] = True  # raises on out-of-range, on purpose
+        else:
+            raise TypeError(f"allowed: expected bool mask or int id list, "
+                            f"got dtype {a.dtype}")
+        return torch.from_numpy(mask).to(self.device)
 
     # -- maintenance ----------------------------------------------------------
     def check(self, strict: bool = True) -> dict:

@@ -1,8 +1,9 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The sources under ``hnsw_tpu_torch/csrc/`` have a plain C interface. On
-first use they are compiled by ``nvcc`` for ``sm_90a`` (Hopper) into one
-shared library under ``hnsw_tpu_torch/_build/`` and loaded with ``ctypes``.
+first use they are compiled by ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` process per source, all started together, and linked into one
+shared library under ``hnsw_tpu_torch/_build/``, loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an edit
 to any source builds a new one. Nothing here runs at import: the CPU-only
 tests import every module.
@@ -29,16 +30,21 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argument types of each C entry point, the trailing stream included
 _SIGNATURES = {
     # table, dtype, n_rows, d, ids, q, k, qs, offset, scale, ip, out, stream
     "hnsw_vec_dist": (_P, _I, _I64, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P),
-    # codes, n_rows, row_w, nbr_sq, k, d, bits, cur, q, qs, ip, out, stream
-    "hnsw_packed_dist": (_P, _I64, _I64, _P, _I, _I, _I, _P, _I, _P, _I, _P,
-                         _P),
+    # codes, n_rows, row_w, nbr_sq, k, d, bits, cur, q, t, qs, ip, out, stream
+    "hnsw_packed_dist": (_P, _I64, _I64, _P, _I, _I, _I, _P, _I, _I, _P, _I,
+                         _P, _P),
+    # words, n_rows, row_w, k, wp, d, bits, cur, q, t, qs, out, stream
+    "hnsw_words_dist": (_P, _I64, _I64, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                        _P),
+    # vectors, cap, d, ids, q, k, queries, ip, out, stream
+    "hnsw_gather_dist": (_P, _I64, _I, _P, _I, _I, _P, _I, _P, _P),
     # buf_d, buf_p, cand_i, cand_d, q, ef, k, ef_live,
     # out_d, out_p, cur, ndis, stream
     "hnsw_beam_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
@@ -73,26 +79,40 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile the kernels if this exact source set has no library yet.
-    Writes to a temporary name and renames, so concurrent builders never
-    load a half-written file."""
+    """Compile the kernels if this exact source set has no library yet: each
+    ``.cu`` to an object in its own ``nvcc`` process (all run at once),
+    then one link. Writes to a temporary name and renames, so concurrent
+    builders never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
     try:
+        jobs, objs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            objs.append(str(work / f"{src.stem}.o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:        # wait for every job before raising
+            so, se = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{so}{se}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

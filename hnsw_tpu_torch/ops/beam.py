@@ -4,18 +4,23 @@ as masked fixed-width tensors), ported from ``hnsw_tpu.ops.beam``.
 Each query keeps one ascending top-ef buffer with an "expanded" flag per
 slot; a candidate is fresh iff its id is not already in the buffer ("buffer"
 visited mode: a node displaced from the buffer is worse than the buffer's
-worst, so a re-encounter can never be expanded again).
+worst, so a re-encounter can never be expanded again) or, in "bitmap" mode,
+iff its bit in a [Q, ceil(capacity/32)] visited bitmap is clear.
 
 Two loops:
 
   * ``beam_search`` — the legacy multi-op hop with ``n_expand`` expansions
-    per query per hop. The build's insert beams use it. It runs a fixed
-    number of hops with no host read: a query whose buffer is fully expanded
-    no longer changes, so the extra hops leave every result as the
-    reference's run-to-convergence loop would.
+    per query per hop, "buffer" or "bitmap" visited mode, f32 or bf16 merge
+    keys, and an optional filtered result buffer (``allowed``). Two uses:
+    the build's insert beams run a fixed number of hops with no host read
+    (a query whose buffer is fully expanded no longer changes, so the extra
+    hops leave every result as the reference's run-to-convergence loop
+    would); the search (``early_exit``) reads once per hop whether any
+    query has an unexpanded entry, so ``hops`` equals the reference's.
   * ``beam_search_fused`` — one expansion per hop, with all bookkeeping in
-    the K1 kernel (``ops/beam_kernel.py``). Serving uses it. It reads
-    ``(cur >= 0).any()`` once per hop, so ``hops`` equals the reference's.
+    the K1 kernel (``ops/beam_kernel.py``). Serving uses it when no
+    legacy option is asked for. It reads ``(cur >= 0).any()`` once per
+    hop, so ``hops`` equals the reference's.
 """
 
 from __future__ import annotations
@@ -33,70 +38,168 @@ INF = float("inf")
 @dataclasses.dataclass
 class BeamState:
     buf_ids: torch.Tensor   # int32 [Q, ef] ascending by buf_dist; -1 empty
-    buf_dist: torch.Tensor  # f32   [Q, ef] (+inf for empty slots)
+    buf_dist: torch.Tensor  # f32 or bf16 [Q, ef] (+inf for empty slots)
     buf_exp: torch.Tensor   # bool  [Q, ef] (True == expanded OR empty)
     hops: int               # loop iterations run for the batch
     ndis: torch.Tensor      # int32 [Q] distances computed per query
+    visited: torch.Tensor | None = None   # int32 [Q, W] ("bitmap" mode)
+    # filtered search: allowed candidates also compete for this result
+    # top-k (f32 keys); None when no filter is active
+    res_ids: torch.Tensor | None = None   # int32 [Q, k]
+    res_dist: torch.Tensor | None = None  # f32   [Q, k]
 
 
-def init_beam(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
-              ef: int) -> BeamState:
-    """Seed each query's buffer with one (already visited) entry point. The
-    reference's ``active`` mask is not needed: the build passes only the
-    rows that take part."""
+def init_visited(q: int, capacity: int, device=None) -> torch.Tensor:
+    """[Q, ceil(capacity/32)] zeroed 32-bit words (int32: bit 31 is the
+    sign bit)."""
+    return torch.zeros((q, (capacity + 31) // 32), dtype=torch.int32,
+                       device=device)
+
+
+def mark_visited(visited: torch.Tensor, ids: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Set the bits of ids [Q, K] where mask, IN PLACE (the bitmap is ~1 GB
+    at 1M x 8192 queries; a copy per hop would double it), and return it.
+    Ids must be unique within a row: an add of distinct bits is their OR
+    (int32 adds wrap in two's complement, so bit 31 is exact too)."""
+    safe = torch.where(mask, ids, 0).long()
+    bit = torch.where(mask, 1 << (safe & 31), 0)                 # int64
+    bit = torch.where(bit >= 1 << 31, bit - (1 << 32), bit).to(torch.int32)
+    return visited.scatter_add_(1, safe >> 5, bit)
+
+
+def test_visited(visited: torch.Tensor, ids: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """bool [Q, K]: True where the id is already visited (or masked off)."""
+    safe = torch.where(mask, ids, 0).long()
+    w = torch.gather(visited, 1, safe >> 5)
+    seen = ((w >> (safe & 31)) & 1) == 1
+    return torch.where(mask, seen, True)
+
+
+def init_beam(entry_ids: torch.Tensor, entry_dists: torch.Tensor, ef: int,
+              capacity: int = 0, active: torch.Tensor | None = None, *,
+              visited_mode: str = "buffer",
+              key_dtype: torch.dtype = torch.float32) -> BeamState:
+    """Seed each query's buffer with one (already visited) entry point.
+
+    ``active`` (bool [Q]): inactive queries start fully expanded. ``capacity``
+    sizes the "bitmap" visited set. ``key_dtype``: the buffer distances'
+    dtype (bf16 merge keys where the search asks for them; the build keeps
+    f32, its buffer distances feed the neighbor selection)."""
     q = entry_ids.shape[0]
     dev = entry_ids.device
+    if active is None:
+        active = torch.ones(q, dtype=torch.bool, device=dev)
     buf_ids = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
-    buf_ids[:, 0] = entry_ids
-    buf_dist = torch.full((q, ef), INF, dtype=torch.float32, device=dev)
-    buf_dist[:, 0] = entry_dists.float()
+    buf_ids[:, 0] = torch.where(active, entry_ids, -1)
+    buf_dist = torch.full((q, ef), INF, dtype=key_dtype, device=dev)
+    buf_dist[:, 0] = torch.where(active, entry_dists.float(), INF)
     buf_exp = torch.ones((q, ef), dtype=torch.bool, device=dev)
-    buf_exp[:, 0] = False
+    buf_exp[:, 0] = ~active
+    visited = None
+    if visited_mode == "bitmap":
+        visited = mark_visited(init_visited(q, capacity, dev),
+                               entry_ids[:, None], active[:, None])
     return BeamState(buf_ids, buf_dist, buf_exp, 0,
-                     torch.zeros(q, dtype=torch.int32, device=dev))
+                     torch.zeros(q, dtype=torch.int32, device=dev), visited)
+
+
+def attach_result_buffer(state: BeamState, k: int,
+                         allowed: torch.Tensor) -> BeamState:
+    """Enable filtered search: a separate [Q, k] result top-k collects only
+    ids with allowed[id] True (the entry point too, when allowed). It keeps
+    f32 keys even when the beam merges in bf16: it selects the final k."""
+    q = state.buf_ids.shape[0]
+    dev = state.buf_ids.device
+    e_id = state.buf_ids[:, 0]
+    ok = (e_id >= 0) & allowed[e_id.clamp(min=0).long()]
+    res_ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    res_ids[:, 0] = torch.where(ok, e_id, -1)
+    res_dist = torch.full((q, k), INF, dtype=torch.float32, device=dev)
+    res_dist[:, 0] = torch.where(ok, state.buf_dist[:, 0].float(), INF)
+    return dataclasses.replace(state, res_ids=res_ids, res_dist=res_dist)
 
 
 def beam_search(state: BeamState,
                 gather_neighbors: Callable[[torch.Tensor], torch.Tensor],
                 distance_to: Callable[[torch.Tensor, torch.Tensor],
                                       torch.Tensor],
-                max_hops: int, n_expand: int = 1,
-                ef_live: int | None = None) -> BeamState:
-    """Run ``max_hops`` best-first hops ("buffer" visited mode, f32 keys).
-    ``max_hops`` is the hop cap: the reference's static bound and traced
-    ``hop_limit`` are one host int here.
+                max_hops: int, n_expand: int = 1, *,
+                visited_mode: str = "buffer",
+                allowed: torch.Tensor | None = None,
+                ef_live: int | None = None, hop_limit: int | None = None,
+                expand: Callable | None = None,
+                early_exit: bool = False) -> BeamState:
+    """Best-first hops until ``min(max_hops, hop_limit)``. With
+    ``early_exit`` (the search) the loop also stops once every buffer is
+    fully expanded, reading that once per hop; without it (the build) it
+    runs every hop with no host read.
 
     gather_neighbors: ids [Q, T] -> neighbor ids [Q, T, K] int32, -1-padded,
         duplicate-free per source node.
     distance_to: (ids [Q, T*K], fresh mask) -> f32 [Q, T*K] distances.
-    n_expand: buffer entries expanded per hop per query (T).
+    n_expand: buffer entries expanded per hop per query (T). With
+        ``early_exit`` ties among them break to the lower slot (a stable
+        sort, as the reference's ``lax.top_k``); the build keeps
+        ``torch.topk``.
+    visited_mode: "buffer" (membership in the buffer) or "bitmap" (the
+        exact visited set in ``state.visited``, updated in place; with
+        n_expand > 1 only an id's first occurrence in a hop is fresh).
+    allowed: bool [capacity]; fresh allowed candidates also merge into
+        ``state.res_ids`` / ``res_dist`` (``attach_result_buffer``), each id
+        once.
     ef_live: after each merge, slots >= ef_live are killed.
+    expand: (cur [Q, T], step_ok [Q, T]) -> (nbrs [Q, T, K], dist [Q, T*K])
+        replaces gather_neighbors + distance_to (packed rows: every
+        candidate's distance comes from the expanded node's code row).
+    The buffer keeps ``state.buf_dist``'s dtype (f32 or bf16 merge keys,
+        a stable sort of buffer ++ candidates); the result buffer is f32.
     """
-    buf_ids, buf_dist, buf_exp = state.buf_ids, state.buf_dist, state.buf_exp
-    ndis = state.ndis
+    s = state
+    buf_ids, buf_dist, buf_exp, ndis = s.buf_ids, s.buf_dist, s.buf_exp, s.ndis
+    visited, res_ids, res_dist = s.visited, s.res_ids, s.res_dist
     q, ef = buf_ids.shape
     pos = torch.arange(ef, device=buf_ids.device)[None, :]
-    for _ in range(max_hops):
+    limit = max_hops if hop_limit is None else min(max_hops, hop_limit)
+    hops = s.hops
+    while hops < limit:
+        if early_exit and not bool((~buf_exp).any()):
+            break
         key = torch.where(buf_exp, INF, buf_dist)
         if n_expand == 1:
-            j = torch.argmin(key, dim=1, keepdim=True)
+            j = torch.argmin(key, dim=1, keepdim=True)           # first on ties
             sel = torch.gather(key, 1, j)
+        elif early_exit:
+            sel, j = torch.sort(key, dim=1, stable=True)
+            sel, j = sel[:, :n_expand], j[:, :n_expand]
         else:
             sel, j = torch.topk(key, n_expand, dim=1, largest=False)
         step_ok = sel < INF                                      # [Q, T]
         cur = torch.where(step_ok, torch.gather(buf_ids, 1, j), 0)
         buf_exp = buf_exp.scatter(1, j, torch.gather(buf_exp, 1, j) | step_ok)
 
-        nbrs = gather_neighbors(cur)                             # [Q, T, K]
+        if expand is not None:
+            nbrs, pre_dist = expand(cur, step_ok)                # [Q, T, K]
+        else:
+            nbrs, pre_dist = gather_neighbors(cur), None
         k = nbrs.shape[2]
         nbrs = nbrs.reshape(q, -1)
         valid = (nbrs >= 0) & step_ok.repeat_interleave(k, dim=1)
-        member = (nbrs[:, :, None] == buf_ids[:, None, :]).any(2)
-        fresh = valid & ~member
-        dist = torch.where(fresh, distance_to(nbrs, fresh), INF)
+        if visited_mode == "bitmap":
+            fresh = valid & ~test_visited(visited, nbrs, valid)
+            if n_expand > 1:     # the same id under two parents in one hop
+                fresh &= _first_occurrence_mask(torch.where(fresh, nbrs, -1))
+            mark_visited(visited, nbrs, fresh)
+        else:
+            member = (nbrs[:, :, None] == buf_ids[:, None, :]).any(2)
+            fresh = valid & ~member
+        dist = torch.where(
+            fresh, pre_dist if pre_dist is not None
+            else distance_to(nbrs, fresh), INF)
         ndis = ndis + fresh.sum(1, dtype=torch.int32)
 
-        all_d = torch.cat([buf_dist, dist], 1)
+        all_d = torch.cat([buf_dist, dist.to(buf_dist.dtype)], 1)
         payload = torch.cat(
             [(buf_ids << 1) | buf_exp.to(torch.int32),
              (torch.where(fresh, nbrs, -1) << 1) | (~fresh).to(torch.int32)],
@@ -111,7 +214,24 @@ def beam_search(state: BeamState,
             buf_dist = torch.where(dead, INF, buf_dist)
             buf_ids = torch.where(dead, -1, buf_ids)
             buf_exp = buf_exp | dead
-    return BeamState(buf_ids, buf_dist, buf_exp, state.hops + max_hops, ndis)
+
+        if allowed is not None:
+            # dedup against the result buffer BEFORE the merge: a node
+            # displaced from the beam can be re-encountered, and its copy
+            # would evict a genuine rank-k entry
+            res_ok = fresh & allowed[torch.where(fresh, nbrs, 0).long()]
+            res_ok &= ~(nbrs[:, :, None] == res_ids[:, None, :]).any(2)
+            if n_expand > 1:
+                res_ok &= _first_occurrence_mask(
+                    torch.where(res_ok, nbrs, -1))
+            rd = torch.cat([res_dist, torch.where(res_ok, dist, INF)], 1)
+            ri = torch.cat([res_ids, torch.where(res_ok, nbrs, -1)], 1)
+            rd, o = torch.sort(rd, dim=1, stable=True)
+            kk = res_ids.shape[1]
+            res_dist, res_ids = rd[:, :kk], torch.gather(ri, 1, o[:, :kk])
+        hops += 1
+    return BeamState(buf_ids, buf_dist, buf_exp, hops, ndis, visited,
+                     res_ids, res_dist)
 
 
 def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
@@ -119,7 +239,8 @@ def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
                       ef_live: int, hop_limit: int) -> BeamState:
     """Level-0 search with one K1 launch per hop.
 
-    expand(cur [Q], step_ok [Q]) -> (nbrs int32 [Q, K], dist f32 [Q, K]).
+    expand(cur [Q, 1], step_ok [Q, 1]) -> (nbrs int32 [Q, 1, K], dist f32
+    [Q, K]), the contract of ``beam_search``'s expand with T = 1.
     Entries are [Q] or [Q, E] (E < ef), each row distance-sorted with -1 /
     inf for invalid seeds. Column 0 starts expanded with ``cur`` pointing at
     it; the other seeds wait unexpanded in the buffer. Seeds at columns >=
@@ -141,7 +262,9 @@ def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
     hops = 0
     while hops < min(max_hops, hop_limit) and bool((cur >= 0).any()):
         step_ok = cur >= 0
-        nbrs, dist = expand(torch.where(step_ok, cur, 0), step_ok)
+        nbrs, dist = expand(torch.where(step_ok, cur, 0)[:, None],
+                            step_ok[:, None])
+        nbrs = nbrs.reshape(q, -1)
         nbrs = torch.where((nbrs >= 0) & step_ok[:, None], nbrs, -1)
         buf_d, buf_p, cur, nd = beam_update(buf_d, buf_p, nbrs,
                                             dist.contiguous(), ef_live)
@@ -164,3 +287,12 @@ def dedup_sorted_buffer(buf_ids: torch.Tensor, buf_dist: torch.Tensor):
     ids = torch.where(dup, -1, ids)
     d, o = torch.sort(d, dim=1, stable=True)
     return torch.gather(ids, 1, o), d
+
+
+def _first_occurrence_mask(ids: torch.Tensor) -> torch.Tensor:
+    """bool [Q, K]: True at the first occurrence of each non-negative id in
+    its row (an O(K^2) compare; K = n_expand * m0 is small)."""
+    k = ids.shape[1]
+    before = torch.ones((k, k), dtype=torch.bool, device=ids.device).tril(-1)
+    earlier = ((ids[:, :, None] == ids[:, None, :]) & before).any(2)
+    return (ids >= 0) & ~earlier

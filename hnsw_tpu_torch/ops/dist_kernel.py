@@ -1,5 +1,6 @@
-"""Routing and rerank distances: K3 ``gathered_vec_dist`` and K2
-``packed_row_dist``, CUDA kernels in ``csrc/dist_kernel.cu``.
+"""Routing and rerank distances: K3 ``gathered_vec_dist``, K2
+``packed_row_dist`` and K4 ``packed_row_dist_words``, CUDA kernels in
+``csrc/dist_kernel.cu``.
 
 Each function has a plain PyTorch version beside it (``*_plain``). A wrapper
 runs the plain version when its tensors are on the CPU and launches the
@@ -16,6 +17,16 @@ kernel when they are on a CUDA device; there is no fallback between the two.
     packed code row ``cur[q]`` (8-bit: one byte per dim; 4-bit: even dim in
     the low nibble, odd dim in the high one). ``packed_row_dist`` keeps the
     reference's signature.
+  * ``packed_row_dist_words_ids(words, cur, qs, wp=, bits=)`` — the dots
+    ``Σ qs·u`` alone (the caller applies the metric) from int32 word row
+    ``cur[q]``: ``wp`` words per candidate, 32/bits values per word,
+    little-endian (``ops/packed.py`` ``pack_words``). ``packed_row_dist_words``
+    keeps the reference's signature, with the query ``qs`` in place of its
+    MXU query planes.
+
+The two packed-row kernels take ``cur`` as [Q] or [Q, T] (T expanded nodes
+per query, the legacy beam's ``n_expand``) and return [Q, T·k]: flattened
+row b reads code row ``cur.flat[b]`` against query b // T.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from ._cuda import SMEM_LIMIT, CudaKernel, check, on_cpu
 
 _VEC_DIST = CudaKernel("gathered_vec_dist", "hnsw_vec_dist")
 _PACKED_DIST = CudaKernel("packed_row_dist", "hnsw_packed_dist")
+_WORDS_DIST = CudaKernel("packed_row_dist_words", "hnsw_words_dist")
 _ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
@@ -113,27 +125,34 @@ def unpack_codes(rows: torch.Tensor, k: int, d: int, bits: int):
     return u[..., :d]
 
 
+def _check_cur(cur: torch.Tensor, q: int) -> int:
+    """cur int32 [Q] or [Q, T]; returns T."""
+    check(cur, "cur", torch.int32, (q,) if cur.dim() == 1 else (q, None))
+    return 1 if cur.dim() == 1 else cur.shape[1]
+
+
 def packed_row_dist_plain(codes, nbr_sq, cur, qs, *, bits, metric):
     k = nbr_sq.shape[1]
-    row = cur.long().clamp(0, codes.shape[0] - 1)
-    u = unpack_codes(codes[row], k, qs.shape[1], bits).float()   # [Q, k, d]
-    dots = (u * qs[:, None, :]).sum(-1)
+    q, d = qs.shape
+    row = cur.reshape(q, -1).long().clamp(0, codes.shape[0] - 1)  # [Q, T]
+    u = unpack_codes(codes[row.reshape(-1)], k, d, bits).float()
+    dots = (u.view(q, -1, k, d) * qs[:, None, None, :]).sum(-1).view(q, -1)
     if metric == IP:
         return -dots
-    return nbr_sq[row] - 2.0 * dots
+    return nbr_sq[row].view(q, -1) - 2.0 * dots
 
 
 def packed_row_dist_ids(codes: torch.Tensor, nbr_sq: torch.Tensor,
                         cur: torch.Tensor, qs: torch.Tensor, *, bits: int,
                         metric: str) -> torch.Tensor:
-    """codes uint8 [R, k*db], nbr_sq f32 [R, k], cur int32 [Q] (row of the
-    expanded node, already made safe), qs f32 [Q, d] (= q·scale). Returns
-    f32 [Q, k]."""
+    """codes uint8 [R, k*db], nbr_sq f32 [R, k], cur int32 [Q] or [Q, T]
+    (rows of the expanded nodes, already made safe), qs f32 [Q, d]
+    (= q·scale). Returns f32 [Q, T*k]."""
     _check_metric(metric)
     check(codes, "codes", torch.uint8, (None, None))
     check(nbr_sq, "nbr_sq", torch.float32, (codes.shape[0], None))
-    check(cur, "cur", torch.int32, (None,))
-    check(qs, "qs", torch.float32, (cur.shape[0], None))
+    check(qs, "qs", torch.float32, (None, None))
+    t = _check_cur(cur, qs.shape[0])
     (n, row_w), k, (q, d) = codes.shape, nbr_sq.shape[1], qs.shape
     if row_w != k * _code_bytes(d, bits):
         raise ValueError(f"codes: row width {row_w} != k*db = "
@@ -145,11 +164,11 @@ def packed_row_dist_ids(codes: torch.Tensor, nbr_sq: torch.Tensor,
                                      metric=metric)
     if (d + 1) * 4 > SMEM_LIMIT:
         raise ValueError(f"packed_row_dist: d={d} too wide for one block")
-    out = torch.empty((q, k), dtype=torch.float32, device=codes.device)
-    if q == 0 or k == 0:
+    out = torch.empty((q, t * k), dtype=torch.float32, device=codes.device)
+    if q == 0 or k == 0 or t == 0:
         return out
     _PACKED_DIST.launch(codes.data_ptr(), n, row_w, nbr_sq.data_ptr(), k, d,
-                        bits, cur.data_ptr(), q, qs.data_ptr(),
+                        bits, cur.data_ptr(), q, t, qs.data_ptr(),
                         int(metric == IP), out.data_ptr())
     return out
 
@@ -165,3 +184,56 @@ def packed_row_dist(rows: torch.Tensor, qs: torch.Tensor,
     cur = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
     return packed_row_dist_ids(rows, nbr_sq, cur, qs, bits=bits,
                                metric=metric)
+
+
+def packed_row_dist_words_plain(words, cur, qs, *, wp, bits):
+    from .packed import unpack_words
+
+    q, d = qs.shape
+    k = words.shape[1] // wp
+    row = cur.reshape(-1).long().clamp(0, words.shape[0] - 1)
+    u = unpack_words(words[row].view(-1, k, wp), bits, d).float()
+    return (u.view(q, -1, k, d) * qs[:, None, None, :]).sum(-1).view(q, -1)
+
+
+def packed_row_dist_words_ids(words: torch.Tensor, cur: torch.Tensor,
+                              qs: torch.Tensor, *, wp: int,
+                              bits: int) -> torch.Tensor:
+    """words int32 [R, k*wp] (``wp`` words per candidate, of which the
+    first ceil(d*bits/32) carry values), cur int32 [Q] or [Q, T] (rows of
+    the expanded nodes, already made safe), qs f32 [Q, d]. Returns the dots
+    f32 [Q, T*k]; dims >= d are never read."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    check(words, "words", torch.int32, (None, None))
+    check(qs, "qs", torch.float32, (None, None))
+    t = _check_cur(cur, qs.shape[0])
+    (n, row_w), (q, d) = words.shape, qs.shape
+    if wp <= 0 or row_w % wp:
+        raise ValueError(f"words: row width {row_w} is not k * wp "
+                         f"(wp={wp})")
+    if wp * (32 // bits) < d:
+        raise ValueError(f"words: {wp} words of {bits}-bit values hold "
+                         f"fewer than d={d} dims")
+    if n == 0:
+        raise ValueError("packed_row_dist_words: empty word table")
+    k = row_w // wp
+    if on_cpu(words, cur, qs):
+        return packed_row_dist_words_plain(words, cur, qs, wp=wp, bits=bits)
+    out = torch.empty((q, t * k), dtype=torch.float32, device=words.device)
+    if q == 0 or k == 0 or t == 0:
+        return out
+    _WORDS_DIST.launch(words.data_ptr(), n, row_w, k, wp, d, bits,
+                       cur.data_ptr(), q, t, qs.data_ptr(), out.data_ptr())
+    return out
+
+
+def packed_row_dist_words(rows: torch.Tensor, qs: torch.Tensor, *, k: int,
+                          wp: int, bits: int) -> torch.Tensor:
+    """The reference's signature: rows int32 [Q, k*wp] already gathered.
+    Runs the same kernel with cur = arange(Q). Returns f32 [Q, k] dots."""
+    if rows.dim() != 2 or rows.shape[1] != k * wp:
+        raise ValueError(f"rows: expected [Q, {k * wp}], got "
+                         f"{tuple(rows.shape)}")
+    cur = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+    return packed_row_dist_words_ids(rows, cur, qs, wp=wp, bits=bits)

@@ -1,0 +1,56 @@
+"""K5 ``fused_gather_distances``: the fused gather + distance of every hop
+under ``HNSW_TPU_PALLAS_HOP=1``, CUDA kernel in ``csrc/hop_kernel.cu``.
+
+[capacity, d] f32 table x [Q, K] ids x [Q, d] queries -> [Q, K] surrogate
+distances ``Σv² − 2 q·v`` (L2) or ``−q·v`` (IP) of the rows
+``vectors[clamp(ids, 0, capacity − 1)]``, gathered inside the kernel. Any
+Q and any d (the reference needs Q % 8 == 0 and d % 128 == 0).
+
+The plain PyTorch version sits beside it; the wrapper runs it for CPU
+tensors and launches the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import IP, L2
+from ._cuda import SMEM_LIMIT, CudaKernel, check, on_cpu
+
+_GATHER_DIST = CudaKernel("fused_gather_distances", "hnsw_gather_dist")
+
+
+def fused_gather_distances_plain(vectors, ids, queries, metric=L2):
+    v = vectors[ids.long().clamp(0, vectors.shape[0] - 1)]       # [Q, K, d]
+    dots = (v * queries[:, None, :]).sum(-1)
+    if metric == IP:
+        return -dots
+    return (v * v).sum(-1) - 2.0 * dots
+
+
+def fused_gather_distances(vectors: torch.Tensor, ids: torch.Tensor,
+                           queries: torch.Tensor,
+                           metric: str = L2) -> torch.Tensor:
+    """vectors f32 [capacity, d], ids int32 [Q, K] (negative and
+    out-of-range ids read the nearest end row; callers mask the result),
+    queries f32 [Q, d]. Returns f32 [Q, K]."""
+    if metric not in (L2, IP):
+        raise ValueError(f"metric must be {L2!r} or {IP!r}, got {metric!r}")
+    check(vectors, "vectors", torch.float32, (None, None))
+    cap, d = vectors.shape
+    check(ids, "ids", torch.int32, (None, None))
+    q, k = ids.shape
+    check(queries, "queries", torch.float32, (q, d))
+    if cap == 0:
+        raise ValueError("fused_gather_distances: empty table")
+    if on_cpu(vectors, ids, queries):
+        return fused_gather_distances_plain(vectors, ids, queries, metric)
+    if d * 4 > SMEM_LIMIT:
+        raise ValueError(f"fused_gather_distances: d={d} too wide for one "
+                         f"block")
+    out = torch.empty((q, k), dtype=torch.float32, device=vectors.device)
+    if q and k:
+        _GATHER_DIST.launch(vectors.data_ptr(), cap, d, ids.data_ptr(), q, k,
+                            queries.data_ptr(), int(metric == IP),
+                            out.data_ptr())
+    return out

@@ -1,11 +1,17 @@
-"""Packed neighbor-code rows ("bytes" layout), ported from
-``hnsw_tpu.ops.packed``.
+"""Packed neighbor-code rows, ported from ``hnsw_tpu.ops.packed``.
 
 For every node the quantized vectors of ALL its level-0 neighbors sit
 contiguously in one row, so a hop reads one adjacency row, one code row
 (m0 · d · bits/8 bytes) and one norm row per expanded node instead of one
-vector row per candidate. K2 (``ops/dist_kernel.py``) reads the code row by
-node id and computes all m0 routing distances from it.
+vector row per candidate. Two layouts hold the same bits:
+
+  * "bytes": uint8 rows, one byte per dim (8-bit) or two dims per byte
+    (4-bit, low nibble first). K2 (``ops/dist_kernel.py``) reads the code
+    row by node id and computes all m0 routing distances from it;
+  * "words": int32 rows, 32/bits values per word, little-endian, each
+    candidate's segment zero-padded to ``word_width(d, bits)`` words. With
+    no pad (d = 128) the words table is the bytes table seen as int32. K4
+    reads the word row by node id and returns the m0 dot products.
 
 Distance algebra, with the per-dim affine x̂ = offset + scale · u:
 
@@ -17,9 +23,9 @@ The q·offset term is constant per query, so the beam routes on
 scored distance that enters the beam (the entry point) is shifted by the
 same constant. The final buffer is re-ranked with exact f32 distances.
 
-Memory: ntotal · m0 · d · bits/8 bytes of codes plus ntotal · m0 · 4 bytes
-of norms. Not ported yet: the "words" layout (int32 rows, K4), PQ-coded
-rows, and incremental row maintenance after ``add()``.
+Memory: ntotal · m0 · d · bits/8 bytes of codes (bytes layout; words:
+ntotal · m0 · word_width · 4) plus ntotal · m0 · 4 bytes of norms. Not
+ported yet: PQ-coded rows, and incremental row maintenance after ``add()``.
 """
 
 from __future__ import annotations
@@ -29,12 +35,13 @@ import dataclasses
 import torch
 
 from ..config import IP
-from .dist_kernel import packed_row_dist_ids
+from .dist_kernel import packed_row_dist_ids, packed_row_dist_words_ids
 
 
 @dataclasses.dataclass
 class PackedNeighbors:
-    nbr_codes: torch.Tensor  # uint8 [n_rows, row_w]
+    nbr_codes: torch.Tensor  # uint8 [n_rows, row_w] (bytes layout) or int32
+    #                          [n_rows, m0 * word_width(d, bits)] (words)
     nbr_sq: torch.Tensor     # f32   [n_rows, m0]  ||x̂||² of each neighbor
     scale: torch.Tensor      # f32   [d]  per-dim dequant scale
     offset: torch.Tensor     # f32   [d]  per-dim dequant offset
@@ -43,8 +50,25 @@ class PackedNeighbors:
     def row_w(self) -> int:
         return self.nbr_codes.shape[1]
 
+    @property
+    def layout(self) -> str:
+        return "words" if self.nbr_codes.dtype == torch.int32 else "bytes"
+
     def bits_for(self, d: int, m0: int) -> int:
         w = self.row_w
+        if self.layout == "words":
+            w8, w4 = word_width(d, 8), word_width(d, 4)
+            if w8 and w8 == w4 and w == m0 * w8:
+                raise ValueError(
+                    f"word-packed row width {w} is ambiguous at d={d} "
+                    f"(8- and 4-bit segments both pad to {w8} words)")
+            if w8 and w == m0 * w8:
+                return 8
+            if w4 and w == m0 * w4:
+                return 4
+            raise ValueError(
+                f"word-packed row width {w} matches neither 8-bit "
+                f"({m0 * w8}) nor 4-bit ({m0 * w4}) at d={d}")
         if w == m0 * d:
             return 8
         if w == m0 * ((d + 1) // 2):
@@ -86,6 +110,56 @@ def _pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
     return codes[..., 0::2] | (codes[..., 1::2] << 4)
 
 
+def unpack_nibbles(rows: torch.Tensor, d: int) -> torch.Tensor:
+    """[..., ceil(d/2)] bytes -> [..., d] 4-bit values (uint8)."""
+    out = torch.stack([rows & 0x0F, (rows >> 4) & 0x0F], dim=-1)
+    return out.reshape(*rows.shape[:-1], -1)[..., :d]
+
+
+def word_width(d: int, bits: int) -> int:
+    """int32 words per candidate segment in the "words" layout: ceil(d /
+    (32/bits)) padded up to a divisor of 128 (the reference's kernel tiling;
+    kept so both packages build the same table). 0 when a segment would
+    exceed 128 words (use the bytes layout)."""
+    w = -(-d // (32 // bits))
+    for wp in (1, 2, 4, 8, 16, 32, 64, 128):
+        if wp >= w:
+            return wp
+    return 0
+
+
+def pack_words(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """[..., d] code values (< 2^bits) -> int32 [..., word_width(d, bits)],
+    value j at bits [bits*(j % vpw), bits*(j % vpw + 1)) of word j // vpw
+    (vpw = 32/bits): the little-endian byte / nibble order of the bytes
+    layout, so the words hold its exact bit pattern. Words are assembled in
+    int64 and wrapped to int32 at the end (no int32 overflow)."""
+    d = codes.shape[-1]
+    vpw = 32 // bits
+    wp = word_width(d, bits)
+    if not wp:
+        raise ValueError(f"word layout unsupported at d={d}, bits={bits} "
+                         f"(candidate segment exceeds 128 words)")
+    c = codes.to(torch.int64)
+    pad = wp * vpw - d
+    if pad:
+        c = torch.cat([c, c.new_zeros(c.shape[:-1] + (pad,))], -1)
+    c = c.view(*c.shape[:-1], wp, vpw)
+    w = torch.zeros(c.shape[:-1], dtype=torch.int64, device=c.device)
+    for j in range(vpw):
+        w |= c[..., j] << (bits * j)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_words(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
+    """int32 [..., wp] -> [..., d] code values (uint8); the inverse of
+    ``pack_words`` (the arithmetic shift's sign bits are masked off)."""
+    mask = (1 << bits) - 1
+    planes = [(words >> (bits * j)) & mask for j in range(32 // bits)]
+    out = torch.stack(planes, dim=-1).reshape(*words.shape[:-1], -1)
+    return out[..., :d].to(torch.uint8)
+
+
 def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
                    levels: torch.Tensor, *, bits: int = 8,
                    max_bytes: int | None = None, n_rows: int | None = None,
@@ -94,19 +168,26 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
 
     bits: 8 (one byte per dim) or 4 (two dims per byte). max_bytes: refuse
     (ValueError) a table larger than this. n_rows: rows only for ids <
-    n_rows (pass ntotal: only inserted nodes are ever expanded)."""
+    n_rows (pass ntotal: only inserted nodes are ever expanded). layout:
+    "bytes" (uint8 rows) or "words" (int32 rows, the same bits; module
+    docstring). The reference pads the row count to its assembly chunk;
+    the port holds exactly n_rows rows, and ``max_bytes`` counts those."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if layout == "words":
-        raise NotImplementedError(
-            "packed layout 'words' (int32 rows, kernel K4) is not ported "
-            "yet: ROADMAP.md Queue B, B4")
-    if layout != "bytes":
+    if layout not in ("bytes", "words"):
         raise ValueError(f"layout must be 'bytes' or 'words', got {layout!r}")
     cap, m0 = neighbors0.shape
     d = vectors.shape[1]
     n_rows = cap if n_rows is None else max(1, min(int(n_rows), cap))
-    row_bytes = m0 * d if bits == 8 else m0 * ((d + 1) // 2)
+    if layout == "words":
+        wp = word_width(d, bits)
+        if not wp:
+            raise ValueError(f"layout='words' unsupported at d={d}, "
+                             f"bits={bits} (segment > 128 words); "
+                             f"use layout='bytes'")
+        row_bytes = m0 * wp * 4
+    else:
+        row_bytes = m0 * d if bits == 8 else m0 * ((d + 1) // 2)
     total = n_rows * row_bytes + n_rows * m0 * 4
     if max_bytes is not None and total > max_bytes:
         raise ValueError(
@@ -118,7 +199,12 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
     offset, scale = quantization_params(vectors, levels >= 0, bits)
     codes_all = quantize_codes(vectors, offset, scale, bits)     # [cap, d]
     xhat_sq = compute_sqnorms(codes_all, (offset, scale))
-    payload = _pack_nibbles(codes_all) if bits == 4 else codes_all
+    if layout == "words":
+        payload = pack_words(codes_all, bits)
+    elif bits == 4:
+        payload = _pack_nibbles(codes_all)
+    else:
+        payload = codes_all
     safe = neighbors0[:n_rows].clamp(min=0).long()               # [n_rows, m0]
     nbr_codes = payload[safe].view(n_rows, m0 * payload.shape[1])
     return PackedNeighbors(nbr_codes, xhat_sq[safe], scale=scale,
@@ -127,21 +213,34 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
 
 def make_packed_expand(packed: PackedNeighbors, neighbors0: torch.Tensor,
                        queries: torch.Tensor, metric: str):
-    """Returns (expand, shift). expand(cur [Q], step_ok [Q]) -> (nbrs int32
-    [Q, m0], dist f32 [Q, m0]) computes every candidate distance of the
-    expanded node from its one packed code row (K2). shift [Q] is added to
+    """Returns (expand, shift). expand(cur [Q, T], step_ok [Q, T]) -> (nbrs
+    int32 [Q, T, m0], dist f32 [Q, T*m0]) computes every candidate distance
+    of the T expanded nodes from their packed code rows: K2 for the bytes
+    layout, K4 (dots; the metric is applied here) for words. The kernels
+    index the query of flattened row b as b // T, so the query rows are
+    never repeated. ``step_ok`` is not read: rows of masked slots are read
+    and their candidates masked by the caller. shift [Q] is added to
     exactly computed distances (the entry point) to put them on the same
     scale: 2 q·offset for L2, q·offset for IP."""
     qf = queries.float()
     qs = (qf * packed.scale).contiguous()                        # [Q, d]
     qoff = qf @ packed.offset                                    # [Q]
     shift = qoff if metric == IP else 2.0 * qoff
-    bits = packed.bits_for(qf.shape[1], neighbors0.shape[1])
+    m0 = neighbors0.shape[1]
+    bits = packed.bits_for(qf.shape[1], m0)
+    words = packed.layout == "words"
 
     def expand(cur: torch.Tensor, step_ok: torch.Tensor):
-        nbrs = neighbors0[cur]
-        dist = packed_row_dist_ids(packed.nbr_codes, packed.nbr_sq, cur, qs,
-                                   bits=bits, metric=metric)
-        return nbrs, dist
+        nbrs = neighbors0[cur]                                   # [Q, T, m0]
+        cur = cur.contiguous()
+        if not words:
+            return nbrs, packed_row_dist_ids(packed.nbr_codes, packed.nbr_sq,
+                                             cur, qs, bits=bits,
+                                             metric=metric)
+        dots = packed_row_dist_words_ids(packed.nbr_codes, cur, qs,
+                                         wp=packed.row_w // m0, bits=bits)
+        if metric == IP:
+            return nbrs, -dots
+        return nbrs, packed.nbr_sq[cur].reshape(dots.shape) - 2.0 * dots
 
     return expand, shift

@@ -1,28 +1,36 @@
-"""Batched HNSW query pipeline, ported from ``hnsw_tpu.search`` (its fused
-path: one expansion per hop, all beam bookkeeping in K1).
+"""Batched HNSW query pipeline, ported from ``hnsw_tpu.search``.
 
 ``IndexHNSW::search`` as batched tensor steps:
 
   1. entry: a dense scan of a strided sample of the live nodes
      (``_sample_seeds``; entry_mode "sample" / "seed") or the greedy
      upper-level descent (``greedy_descend``; "descend"), then an exact
-     rescore of the seeds with K3;
-  2. level 0: ``beam_search_fused``; each hop gathers the adjacency row and
-     computes the candidates' distances (K2 from the packed code row, or K3
-     from the vectors), then K1 updates the beam;
-  3. an exact rerank of the final [Q, ef] buffer with K3, duplicate
-     collapse, top-k, and the true squared L2 restored.
+     rescore of the seeds;
+  2. level 0, one of two engines, chosen as the reference chooses them:
+       * fused (the default): ``beam_search_fused``; each hop gathers the
+         adjacency row and computes the candidates' distances (K2 or K4
+         from the packed code row, or K3 from the vectors), then K1
+         updates the beam;
+       * legacy (``beam_search``), whenever the search asks for a filter
+         (``allowed``), ``n_expand > 1``, ``visited_mode="bitmap"`` or
+         ``HNSW_TPU_PALLAS_HOP=1``: a multi-op hop with bf16 or f32 merge
+         keys (``beam_keys``), and a separate top-k of allowed ids when
+         filtered;
+  3. an exact rerank with K3 of the final [Q, ef] buffer (or, filtered,
+     of the [Q, k] result buffer), duplicate collapse, top-k, and the true
+     squared L2 restored.
 
 Distances use the L2 surrogate ||x||² − 2 q·x in the loop; ||q||² is added
-back on the final top-k only.
+back on the final top-k only. Under ``HNSW_TPU_PALLAS_HOP=1`` every
+distance before the rerank (entry rescore, descent, hops) goes through K5
+``fused_gather_distances``, and the packed expand is unchanged.
 
-Not ported yet (they raise NotImplementedError): filtered search
-(``allowed``), ``n_expand > 1`` at search, ``visited_mode="bitmap"``, and
-sq8 / bf16 / pq storage.
+Not ported yet: sq8 / bf16 / pq storage.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -31,6 +39,7 @@ from .config import IP, L2
 from .graph import GraphArrays
 from .ops import beam as beam_ops
 from .ops.dist_kernel import gathered_vec_dist_ids
+from .ops.hop_kernel import fused_gather_distances
 from .ops.packed import PackedNeighbors, make_packed_expand
 
 INF = float("inf")
@@ -41,16 +50,25 @@ class SearchStats(NamedTuple):
     ndis: torch.Tensor   # int32 [Q] distance computations per query
 
 
+def _use_pallas_hop() -> bool:
+    """The reference's switch, read from the same variable: every distance
+    of the search before the rerank goes through K5."""
+    return os.environ.get("HNSW_TPU_PALLAS_HOP", "") == "1"
+
+
 def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
-                      metric: str):
+                      metric: str, pallas_hop: bool = False):
     """distance_to(ids [Q, K], mask) -> f32 [Q, K] exact surrogate distances
-    from K3 (its plain f32 version when the tensors are on the CPU). Masked
-    ids read row 0 and are to be ignored by the caller."""
+    from K3, or from K5 with ``pallas_hop`` (for every d: the reference's
+    d % 128 gate is a TPU lane limit). On CPU tensors each runs its plain
+    version. Masked ids read row 0 and are to be ignored by the caller."""
     qf = queries.float().contiguous()
+    dist_fn = (fused_gather_distances if pallas_hop
+               else gathered_vec_dist_ids)
 
     def distance_to(ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         safe = torch.where(mask, ids, 0).to(torch.int32)
-        return gathered_vec_dist_ids(vectors, safe, qf, metric=metric)
+        return dist_fn(vectors, safe, qf, metric=metric)
 
     return distance_to
 
@@ -140,29 +158,35 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
                 queries: torch.Tensor, *, k: int, ef_search: int,
                 metric: str = L2, max_level_cap: int = 6, max_hops: int = 0,
                 n_expand: int = 1, with_stats: bool = False,
-                visited_mode: str = "buffer", allowed=None,
+                visited_mode: str = "buffer",
+                allowed: torch.Tensor | None = None,
                 packed: PackedNeighbors | None = None,
-                entry_mode: str = "auto"):
+                beam_keys: str = "auto", entry_mode: str = "auto"):
     """Batched k-NN. Returns (dists [Q, k] f32, ids [Q, k] int32), ascending;
     ids are -1 (dist inf) past the reachable set. ``with_stats`` adds
     ``SearchStats``.
 
     ``ef_search`` is a runtime value inside a power-of-two buffer
-    (``ef_bucket``). ``max_hops``: 0 caps the level-0 loop at ef + 8 hops;
-    > 0 sets the cap; < 0 runs to convergence. ``packed``: route on the
-    packed 8/4-bit code rows (``ops/packed.py``); the final buffer is
-    re-ranked exactly either way. ``entry_mode``: "sample" (default via
-    "auto"), "seed" (the beam starts from up to 16 stratified seeds) or
-    "descend" (faiss's greedy upper-level walk)."""
-    if allowed is not None:
-        raise NotImplementedError(
-            "filtered search (allowed=) is not ported yet: ROADMAP.md A9")
-    if n_expand != 1:
-        raise NotImplementedError(
-            "n_expand > 1 at search is not ported yet: ROADMAP.md A3")
-    if visited_mode != "buffer":
-        raise NotImplementedError(
-            f"visited_mode={visited_mode!r} is not ported yet: ROADMAP.md A3")
+    (``ef_bucket``). ``max_hops``: 0 caps the level-0 loop at ef + 8 hops
+    (filtered: runs to convergence); > 0 sets the cap; < 0 runs to
+    convergence. ``packed``: route on the packed 8/4-bit code rows
+    (``ops/packed.py``); the final buffer is re-ranked exactly either way.
+    ``entry_mode``: "sample" (default via "auto"), "seed" (the fused beam
+    starts from up to 16 stratified seeds; the legacy beam from the best)
+    or "descend" (faiss's greedy upper-level walk).
+
+    ``allowed`` (bool [capacity]): filtered search (faiss IDSelector): the
+    graph is traversed unfiltered, only allowed ids are returned.
+    ``n_expand``: buffer entries expanded per hop (legacy beam when > 1).
+    ``visited_mode``: "buffer" or "bitmap" (the exact visited set; legacy
+    beam). ``beam_keys``: the legacy beam's merge keys, "auto" (bf16 when
+    routing is already quantized, i.e. packed; f32 otherwise), "bf16" or
+    "f32"; the fused beam always merges in f32."""
+    if beam_keys not in ("auto", "bf16", "f32"):
+        raise ValueError(f"beam_keys must be auto|bf16|f32, got {beam_keys!r}")
+    if visited_mode not in ("buffer", "bitmap"):
+        raise ValueError(f"visited_mode must be buffer|bitmap, got "
+                         f"{visited_mode!r}")
     if entry_mode not in ("auto", "sample", "seed", "descend"):
         raise ValueError(
             f"entry_mode must be auto|sample|seed|descend, got {entry_mode!r}")
@@ -170,7 +194,7 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
         entry_mode = "sample"
     ef = max(int(ef_search), k)
     if max_hops == 0:
-        hop_limit = ef + 8
+        hop_limit = (ef + 8) if allowed is None else 1 << 30
     elif max_hops > 0:
         hop_limit = max_hops
     else:
@@ -178,7 +202,10 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     ef_buf = ef_bucket(ef)
     queries = queries.float().contiguous()
     qn = queries.shape[0]
-    distance_to = _make_distance_fn(vectors, queries, metric)
+    pallas_hop = _use_pallas_hop()
+    fused = (n_expand == 1 and allowed is None and visited_mode == "buffer"
+             and not pallas_hop)
+    distance_to = _make_distance_fn(vectors, queries, metric, pallas_hop)
 
     ep = torch.full((qn,), graph.entry_point, dtype=torch.int32,
                     device=queries.device)
@@ -214,22 +241,46 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
         ep0, ep0_dist = e[:, None], e_d[:, None]
 
     neighbors0 = graph.neighbors0
+    expand = None
     if packed is not None:
         expand, shift = make_packed_expand(packed, neighbors0, queries,
                                            metric)
         ep0_dist = ep0_dist + shift[:, None]
+    if fused:
+        if expand is None:
+            def expand(cur, step_ok):
+                nbrs = neighbors0[cur]                           # [Q, T, m0]
+                valid = (nbrs >= 0) & step_ok[..., None]
+                return nbrs, distance_to(nbrs.reshape(qn, -1),
+                                         valid.reshape(qn, -1))
+
+        state = beam_ops.beam_search_fused(
+            ep0, ep0_dist, expand, ef=ef_buf, max_hops=4 * ef_buf + 16,
+            ef_live=ef, hop_limit=hop_limit)
     else:
-        def expand(cur, step_ok):
-            nbrs = neighbors0[cur]
-            return nbrs, distance_to(nbrs, (nbrs >= 0) & step_ok[:, None])
+        if beam_keys == "auto":
+            key_dtype = torch.bfloat16 if packed is not None \
+                else torch.float32
+        else:
+            key_dtype = torch.bfloat16 if beam_keys == "bf16" \
+                else torch.float32
+        # the legacy beam starts from the single best entry ("seed" is a
+        # fused-beam feature)
+        state = beam_ops.init_beam(ep0[:, 0], ep0_dist[:, 0], ef_buf,
+                                   vectors.shape[0],
+                                   visited_mode=visited_mode,
+                                   key_dtype=key_dtype)
+        if allowed is not None:
+            state = beam_ops.attach_result_buffer(state, k, allowed)
+        state = beam_ops.beam_search(
+            state, lambda ids: neighbors0[ids], distance_to,
+            max_hops=4 * ef_buf + 16, n_expand=n_expand,
+            visited_mode=visited_mode, allowed=allowed, ef_live=ef,
+            hop_limit=hop_limit, expand=expand, early_exit=True)
 
-    state = beam_ops.beam_search_fused(
-        ep0, ep0_dist, expand, ef=ef_buf, max_hops=4 * ef_buf + 16,
-        ef_live=ef, hop_limit=hop_limit)
-
-    # exact rerank of the final buffer: routing may have been quantized, the
-    # returned distances never are
-    src = state.buf_ids
+    # exact rerank of the final buffer (filtered: of the result buffer):
+    # routing may have been quantized, the returned distances never are
+    src = state.res_ids if allowed is not None else state.buf_ids
     ex = gathered_vec_dist_ids(vectors, src.clamp(min=0), queries,
                                metric=metric)
     ids, dist = beam_ops.dedup_sorted_buffer(

@@ -167,6 +167,58 @@ def test_load_reference_index_and_search_alike(built, tmp_path, monkeypatch):
     assert port._builder.rng.random() == ref._builder.rng.random()
 
 
+def test_default_device_requires_card(built, tmp_path, monkeypatch):
+    """With no device given the index takes the card; with no card it
+    raises and names device='cpu', in the constructor and in load()."""
+    _, ref, _ = built
+    path = tmp_path / "ref.npz"
+    ref.save(str(path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hnsw_tpu_torch.HnswIndex(8, 4, capacity=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hnsw_tpu_torch.HnswIndex.load(str(path))
+    assert hnsw_tpu_torch.HnswIndex.load(str(path), device="cpu").ntotal \
+        == ref.ntotal
+
+
+def test_api_filter_beam_keys_n_expand_match_reference(built, tmp_path,
+                                                       monkeypatch):
+    """HnswIndex.search(allowed=, beam_keys=) and the n_expand attribute,
+    against the reference's HnswIndex on the same loaded graph: allowed as
+    a numpy id list, a numpy bool mask (shorter than capacity) and a tensor
+    id list; only allowed ids come back, as the reference's (ids >= 99%
+    equal, hops equal)."""
+    wl, ref, _ = built
+    path = tmp_path / "ref.npz"
+    ref.save(str(path))
+    port = hnsw_tpu_torch.HnswIndex.load(str(path), device="cpu")
+    monkeypatch.setenv("HNSW_TPU_BEAM_KERNEL", "1")
+    ids = np.flatnonzero(np.random.default_rng(4).random(WL["n"]) < 0.4)
+    mask = np.zeros(WL["n"], bool)
+    mask[ids] = True
+    cases = [(ids, ids, "auto", 1), (mask, mask, "bf16", 2),
+             (ids, torch.from_numpy(ids), "f32", 2)]
+    for r_allowed, p_allowed, keys, n_expand in cases:
+        ref.n_expand = port.n_expand = n_expand
+        rd, ri, rst = ref.search(wl.queries, k=10, ef_search=40,
+                                 allowed=r_allowed, beam_keys=keys,
+                                 with_stats=True)
+        d, i, st = port.search(wl.queries, k=10, ef_search=40,
+                               allowed=p_allowed, beam_keys=keys,
+                               with_stats=True)
+        assert mask[i[i >= 0]].all()
+        same = i == ri
+        assert same.mean() >= 0.99, (keys, n_expand, same.mean())
+        np.testing.assert_allclose(d[same], rd[same], rtol=1e-5, atol=1e-5)
+        assert st.hops == int(rst.hops)
+    ref.n_expand = 1
+    with pytest.raises(TypeError):
+        port.search(wl.queries[:2], k=5, allowed=np.ones(5, np.float32))
+    with pytest.raises(ValueError, match="capacity"):
+        port.search(wl.queries[:2], k=5, allowed=np.ones(5000, bool))
+
+
 def test_ip_build_and_search():
     """Inner-product metric through the whole slice: build, invariants,
     unpacked and packed search (twin of test_device_build's IP case)."""

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel
+from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel, hop_kernel
 
 
 def beam_case(ef, k, qn, seed):
@@ -83,5 +83,44 @@ def test_kernels_match_plain_versions_on_card(card):
         for got, want in zip(beam_kernel.beam_update(*args, ef_live),
                              beam_kernel.beam_update_plain(*args, ef_live)):
             assert torch.equal(got, want)
-    assert _cuda.launch_counts() == {"gathered_vec_dist": 2,
-                                     "packed_row_dist": 2, "beam_update": 3}
+    assert _cuda.launch_counts() == {
+        "gathered_vec_dist": 2, "packed_row_dist": 2,
+        "packed_row_dist_words": 0, "beam_update": 3,
+        "fused_gather_distances": 0}
+
+
+@pytest.mark.cuda
+def test_words_and_gather_kernels_match_plain_versions_on_card(card):
+    """K4 (8/4-bit, padded segments, two expansions per query) and K5 (L2
+    and IP, negative and past-the-end ids, d with and without 16-byte
+    rows) against their plain versions; tolerances as in chip_smoke.py."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(1)
+    for d, bits, wp in ((128, 8, 32), (128, 4, 16), (100, 8, 32),
+                        (17, 4, 4)):
+        words = torch.randint(-2**31, 2**31 - 1, (3000, 24 * wp),
+                              generator=g, device=card, dtype=torch.int32)
+        qs = torch.randn((200, d), generator=g, device=card)
+        for shape in ((200,), (200, 2)):
+            cur = torch.randint(0, 3000, shape, generator=g, device=card,
+                                dtype=torch.int32)
+            torch.testing.assert_close(
+                dist_kernel.packed_row_dist_words_ids(words, cur, qs, wp=wp,
+                                                      bits=bits),
+                dist_kernel.packed_row_dist_words_plain(words, cur, qs,
+                                                        wp=wp, bits=bits),
+                rtol=1e-5, atol=1e-2)
+    for d in (128, 100, 33):
+        table = torch.randn((5000, d), generator=g, device=card)
+        ids = torch.randint(-50, 5050, (300, 64), generator=g, device=card,
+                            dtype=torch.int32)
+        qs = torch.randn((300, d), generator=g, device=card)
+        for metric in ("l2", "ip"):
+            torch.testing.assert_close(
+                hop_kernel.fused_gather_distances(table, ids, qs, metric),
+                hop_kernel.fused_gather_distances_plain(table, ids, qs,
+                                                        metric),
+                rtol=1e-5, atol=1e-3)
+    counts = _cuda.launch_counts()
+    assert counts["packed_row_dist_words"] == 8
+    assert counts["fused_gather_distances"] == 6

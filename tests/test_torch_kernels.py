@@ -1,7 +1,8 @@
-"""The port's three kernels (hnsw_tpu_torch: K1 beam_update, K2
-packed_row_dist, K3 gathered_vec_dist) against the reference Pallas kernels
-run in interpret mode, on the CPU, where each wrapper runs its plain
-PyTorch version. The same inputs, made with numpy from a seed, go to both.
+"""The port's five kernels (hnsw_tpu_torch: K1 beam_update, K2
+packed_row_dist, K3 gathered_vec_dist, K4 packed_row_dist_words, K5
+fused_gather_distances) against the reference Pallas kernels run in
+interpret mode, on the CPU, where each wrapper runs its plain PyTorch
+version. The same inputs, made with numpy from a seed, go to both.
 
 The CUDA kernels themselves are held against the plain versions on the
 card: by tests/test_torch_cuda.py (skipped without a card) and by
@@ -20,7 +21,13 @@ import torch
 from hnsw_tpu.ops.beam_kernel import beam_update as ref_beam_update
 from hnsw_tpu.ops.dist_kernel import gathered_vec_dist as ref_vec_dist
 from hnsw_tpu.ops.dist_kernel import packed_row_dist as ref_packed_dist
-from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel
+from hnsw_tpu.ops.dist_kernel import packed_row_dist_words as ref_words_dist
+from hnsw_tpu.ops.dist_kernel import words_query_planes
+from hnsw_tpu.ops.hop_kernel import BLOCK_Q
+from hnsw_tpu.ops.hop_kernel import fused_gather_distances as ref_gather_dist
+from hnsw_tpu.ops.packed import pack_words as ref_pack_words
+from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel, hop_kernel
+from hnsw_tpu_torch.ops.packed import word_width
 from test_torch_cuda import beam_case
 
 REPO = Path(__file__).resolve().parent.parent
@@ -120,6 +127,106 @@ def test_packed_row_dist_ids_reads_row_by_node():
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_packed_row_dist_t_axis(bits):
+    """cur [Q, T]: row b of the flattened T axis reads code row cur.flat[b]
+    against query b // T, as T separate calls would."""
+    rng = np.random.default_rng(9 + bits)
+    n, k, d, q, t = 200, 8, 21, 16, 3
+    db = d if bits == 8 else (d + 1) // 2
+    codes = torch.from_numpy(rng.integers(0, 256, size=(n, k * db),
+                                          dtype=np.uint8))
+    nbr_sq = torch.from_numpy(rng.uniform(1, 5, size=(n, k))
+                              .astype(np.float32))
+    cur = torch.from_numpy(rng.integers(0, n, size=(q, t), dtype=np.int32))
+    qs = torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32))
+    for metric in ("l2", "ip"):
+        got = dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, qs,
+                                              bits=bits, metric=metric)
+        want = torch.cat([dist_kernel.packed_row_dist_ids(
+            codes, nbr_sq, cur[:, i].contiguous(), qs, bits=bits,
+            metric=metric) for i in range(t)], 1)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d,bits", [(32, 8), (128, 4), (100, 8)])
+def test_packed_row_dist_words_matches_reference(d, bits):
+    """K4's plain version against the Pallas words kernel (interpret mode)
+    fed the reference's own query planes. m0 = 16 tiles the reference's
+    128 / wp candidate groups at each (d, bits). Tolerance RTOL/ATOL: f32
+    sums in another order."""
+    rng = np.random.default_rng(d * 10 + bits)
+    q, k = 64, 16
+    wp = word_width(d, bits)
+    vals = rng.integers(0, 1 << bits, size=(q, k, d), dtype=np.uint8)
+    vals[0] = (1 << bits) - 1                 # the wrapped high byte / nibble
+    qs = (rng.normal(size=(q, d)) * 0.01).astype(np.float32)
+    words = np.array(ref_pack_words(jnp.asarray(vals), bits)).reshape(q, -1)
+    want = ref_words_dist(jnp.asarray(words),
+                          words_query_planes(jnp.asarray(qs), bits=bits,
+                                             wp=wp),
+                          k=k, wp=wp, bits=bits, interpret=True)
+    got = dist_kernel.packed_row_dist_words(
+        torch.from_numpy(words), torch.from_numpy(qs), k=k, wp=wp, bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_packed_row_dist_words_ids_rows_and_t_axis():
+    """The ids entry point reads word row cur[q, t] by node: the values of
+    gathering those rows first, T columns side by side."""
+    rng = np.random.default_rng(12)
+    n, k, d, bits, q, t = 150, 6, 24, 8, 10, 2
+    wp = word_width(d, bits)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, k * wp),
+                                          dtype=np.int64).astype(np.int32))
+    cur = torch.from_numpy(rng.integers(0, n, size=(q, t), dtype=np.int32))
+    qs = torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32))
+    got = dist_kernel.packed_row_dist_words_ids(words, cur, qs, wp=wp,
+                                                bits=bits)
+    want = torch.cat([dist_kernel.packed_row_dist_words(
+        words[cur[:, i].long()], qs, k=k, wp=wp, bits=bits)
+        for i in range(t)], 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_fused_gather_distances_matches_reference(metric):
+    """K5's plain version against the Pallas kernel (interpret mode), with
+    negative and past-the-end ids, which both clamp. Tolerance RTOL/ATOL."""
+    rng = np.random.default_rng(0)
+    cap, d, q, k = 512, 128, 2 * BLOCK_Q, 16
+    vecs = rng.normal(size=(cap, d)).astype(np.float32)
+    ids = rng.integers(0, cap, size=(q, k), dtype=np.int32)
+    ids[0, :3] = (-1, -7, cap + 5)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    want = ref_gather_dist(jnp.asarray(vecs), jnp.asarray(ids),
+                           jnp.asarray(qs), metric, interpret=True)
+    got = hop_kernel.fused_gather_distances(
+        torch.from_numpy(vecs), torch.from_numpy(ids), torch.from_numpy(qs),
+        metric)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_fused_gather_distances_negative_ids_clamped():
+    """The reference's negative-id case: every -1 reads row 0."""
+    rng = np.random.default_rng(1)
+    cap, d, q, k = 64, 128, BLOCK_Q, 4
+    vecs = rng.normal(size=(cap, d)).astype(np.float32)
+    ids = np.full((q, k), -1, np.int32)
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    want = np.asarray(ref_gather_dist(jnp.asarray(vecs), jnp.asarray(ids),
+                                      jnp.asarray(qs), "l2", interpret=True))
+    got = hop_kernel.fused_gather_distances(
+        torch.from_numpy(vecs), torch.from_numpy(ids), torch.from_numpy(qs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    v0 = vecs[0]
+    np.testing.assert_allclose(got.numpy()[:, 0],
+                               (v0 ** 2).sum() - 2.0 * qs @ v0, rtol=RTOL,
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize("ef,k,ef_live", [(64, 64, 64), (32, 64, 32),
                                           (64, 64, 48), (128, 48, 100)])
 def test_beam_update_matches_reference(ef, k, ef_live):
@@ -148,8 +255,16 @@ def test_cpu_tensors_run_plain_versions_and_count_nothing():
     beam_kernel.beam_update(torch.zeros((4, 32)),
                             torch.full((4, 32), -1, dtype=torch.int32),
                             ids, torch.zeros((4, 3)), 32)
-    assert _cuda.launch_counts() == {"gathered_vec_dist": 0,
-                                     "packed_row_dist": 0, "beam_update": 0}
+    dist_kernel.packed_row_dist_ids(
+        torch.zeros((9, 24), dtype=torch.uint8), torch.zeros((9, 3)),
+        ids[:, 0].contiguous(), t[:4], bits=8, metric="l2")
+    dist_kernel.packed_row_dist_words_ids(
+        torch.zeros((9, 6), dtype=torch.int32), ids, t[:4], wp=2, bits=8)
+    hop_kernel.fused_gather_distances(t, ids, t[:4])
+    assert _cuda.launch_counts() == {
+        "gathered_vec_dist": 0, "packed_row_dist": 0,
+        "packed_row_dist_words": 0, "beam_update": 0,
+        "fused_gather_distances": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -175,6 +290,38 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         dist_kernel.gathered_vec_dist_ids(
             meta, ids.to("meta"), meta[:4], metric="l2")
+
+
+def test_words_and_gather_wrappers_refuse_what_the_kernels_do_not_take():
+    t = torch.zeros((50, 8))
+    ids = torch.zeros((4, 3), dtype=torch.int32)
+    words = torch.zeros((9, 6), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        dist_kernel.packed_row_dist_words_ids(words.to(torch.uint8), ids,
+                                              t[:4], wp=2, bits=8)
+    with pytest.raises(ValueError, match="not k \\* wp"):
+        dist_kernel.packed_row_dist_words_ids(words, ids, t[:4], wp=4,
+                                              bits=8)
+    with pytest.raises(ValueError, match="fewer than d"):
+        dist_kernel.packed_row_dist_words_ids(words, ids, t[:4], wp=1,
+                                              bits=8)
+    with pytest.raises(ValueError, match="shape"):
+        dist_kernel.packed_row_dist_words_ids(words, ids, t[:5], wp=2,
+                                              bits=8)
+    with pytest.raises(ValueError, match="bits"):
+        dist_kernel.packed_row_dist_words_ids(words, ids, t[:4], wp=2,
+                                              bits=2)
+    with pytest.raises(ValueError, match="float32"):
+        hop_kernel.fused_gather_distances(t.double(), ids, t[:4])
+    with pytest.raises(ValueError, match="int32"):
+        hop_kernel.fused_gather_distances(t, ids.long(), t[:4])
+    with pytest.raises(ValueError, match="shape"):
+        hop_kernel.fused_gather_distances(t, ids, t[:4, :5])
+    with pytest.raises(ValueError, match="metric"):
+        hop_kernel.fused_gather_distances(t, ids, t[:4], "cos")
+    meta = torch.empty((50, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        hop_kernel.fused_gather_distances(meta, ids.to("meta"), meta[:4])
 
 
 def test_imports_without_jax():
