@@ -11,14 +11,18 @@ Phases (any failure raises, and the exit code is not 0):
      and print the seconds;
   3. hold each of the five kernels against its plain PyTorch version on
      the card, at the main path's shapes (Q=8192, K=64, d=128, ef in {32,
-     64, 128, 512}) and at 4-bit, bf16, uint8-dequant, odd-d, IP, padded
-     word-segment, clamped-id and two-expansion variants; time both with
-     CUDA events and compute each kernel's bound from its inputs;
+     64, 128, 256, 512}; K1 also with no fresh candidate and converged)
+     and at 4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
+     clamped-id and two-expansion variants, and Q=8191 for K4's persistent
+     grid; time both with CUDA events and compute each kernel's bound from
+     its inputs;
   4. the main path, ``synthetic_workload(n, 128, n_queries=8192,
      seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), in phases on
      ONE index, each with the launch counts set to 0 just before it and
      read just after (every kernel a phase needs must have launched):
-       a. build with M=32 / efConstruction=100 and ``check()`` (K3);
+       a. build with M=32 / efConstruction=100 and ``check()`` (K3); K3's
+          launches counted by K, and K3 timed against its bound on the
+          last insert batch's own ids at each K (the build's shapes);
        b. ``enable_packed(bits=8)`` (bytes rows), exact ground truth from
           ``brute_force_topk`` on the card, k=10 searches at ef in {32, 64,
           128} packed and ef=64 unpacked (K1, K2, K3). Requires packed
@@ -37,7 +41,11 @@ Phases (any failure raises, and the exit code is not 0):
           allowed ids, no id twice in a row, and exact squared L2.
 
 ``--n N`` (N >= 300,000) cuts the main path's base to N vectors (the cut is
-printed); with no arguments it runs the full 1,000,000.
+printed); with no arguments it runs the full 1,000,000. ``--profile`` adds
+one ``torch.profiler`` window of packed ef=64 search on bytes and on words
+rows (2 warm-ups, 10 unprofiled walls, one profiled call: device busy,
+busy share, the top ops by device time); its searches count as main-path
+launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
 (summed over the main path's phases), error, times and bound, and the
@@ -63,6 +71,7 @@ PACKED_ROWS = 300_000            # 8 KB rows: offsets cross 2^31 bytes
 # outside the tensor cores (none of these kernels uses them)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SPIN_CYCLES = 400_000_000        # ~0.2 s of torch.cuda._sleep (time_ms)
 # (source, replaced TPU kernel) of each kernel, by its launch-count name
 KERNELS = {
     "gathered_vec_dist": ("hnsw_tpu_torch/csrc/dist_kernel.cu",
@@ -83,17 +92,28 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Mean device time of one call, by CUDA events around ``iters`` calls.
+    A wrapper's host work (checks, output allocation, the ctypes call)
+    takes 30-70 us, longer than K1's kernel, so the stream first runs a
+    spin kernel (~0.2 s) while the host queues every call: the events then
+    time the kernels back to back, not the host's launch rate. Raises if
+    the host was still queueing when the spin ended."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    pre, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    pre.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t = time.time()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.time() - t) * 1e3
     torch.cuda.synchronize()
+    if host_ms >= pre.elapsed_time(start):
+        raise AssertionError(f"time_ms: the host took {host_ms:.1f} ms to "
+                             f"queue {iters} calls, longer than the spin")
     return start.elapsed_time(end) / iters
 
 
@@ -246,11 +266,11 @@ def check_words_dist(dev, gen) -> dict:
     """K4 at the main path's rows (64 neighbors x 32 words at d = 128
     8-bit: 8 KB) over a 300k-row table (2.46 GB, so row offsets cross 2^31
     bytes), at (d, bits) in {(128, 8), (128, 4), (100, 8)} (d = 100: 25 of
-    32 words carry values), with the table's last rows and two expansions
-    a query. Words are random int32 (every bit pattern). Tolerance: rtol
-    1e-5 + atol 1e-2, K2's: the same sums in another order. No single
-    PyTorch call reads word rows by id and contracts them: library_ms is
-    null."""
+    32 words carry values), with the table's last rows, two expansions a
+    query and Q = 8191, which no persistent grid divides. Words are random
+    int32 (every bit pattern). Tolerance: rtol 1e-5 + atol 1e-2, K2's: the
+    same sums in another order. No single PyTorch call reads word rows by
+    id and contracts them: library_ms is null."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
     from hnsw_tpu_torch.ops.packed import word_width
     q, k, rows = N_QUERIES, HOP_K, PACKED_ROWS
@@ -266,7 +286,9 @@ def check_words_dist(dev, gen) -> dict:
         qs = torch.randn((q, d), generator=gen, device=dev)
         for cc, qq, tag in ((cur, qs, "one expansion"),
                             (cur.view(q // 2, 2), qs[:q // 2],
-                             "two expansions")):
+                             "two expansions"),
+                            (cur[:q - 1], qs[:q - 1],
+                             f"Q={q - 1} (no multiple of the grid)")):
             got = dk.packed_row_dist_words_ids(words, cc, qq, wp=wp,
                                                bits=bits)
             want = dk.packed_row_dist_words_plain(words, cc, qq, wp=wp,
@@ -348,9 +370,28 @@ def beam_inputs(q: int, ef: int, k: int, dev, gen):
     return buf_d, buf_p, cand_i, cand_d
 
 
+def beam_edge(kind: str, args):
+    """The K1 branches a random hop does not reach: "no fresh" (every
+    candidate already in the buffer or invalid) and "converged" (every slot
+    expanded, every candidate -1: what the hop loop sends a finished
+    query)."""
+    buf_d, buf_p, cand_i, cand_d = args
+    if kind == "no fresh":
+        fill = (buf_p >= 0).sum(1, keepdim=True)
+        pick = torch.arange(cand_i.shape[1], device=buf_p.device)[None] % fill
+        cand_i = torch.where(cand_i >= 0, torch.gather(buf_p, 1, pick) >> 1,
+                             -1)
+    elif kind == "converged":
+        buf_p = buf_p | 1
+        cand_i = torch.full_like(cand_i, -1)
+    return buf_d, buf_p, cand_i, cand_d
+
+
 def check_beam_update(dev, gen) -> dict:
     """K1: must equal the plain version exactly (both are a stable merge of
-    buffer ++ fresh candidates), at Q=8192, K=64. Its bound counts the
+    buffer ++ fresh candidates), at Q=8192, K=64, at ef in {32, 64, 128}
+    (the warp path: ef + K <= 256) and {256, 512} (the block path), and on
+    the no-fresh-candidate and converged fast paths. Its bound counts the
     buffers in and out, the candidates in and cur / ndis out, and as
     operations the K x ef membership compares plus a (ef + K) log2 (ef + K)
     merge a query, at the f32 rate. No single PyTorch call does the hop's
@@ -358,9 +399,11 @@ def check_beam_update(dev, gen) -> dict:
     from hnsw_tpu_torch.ops import beam_kernel as bk
     q, k = N_QUERIES, HOP_K
     out = {}
-    for ef in (32, 64, 128, 512):
-        for ef_live in sorted({ef, max(1, ef * 3 // 4)}):
-            args = beam_inputs(q, ef, k, dev, gen)
+    for ef in (32, 64, 128, 256, 512):
+        cases = [(kind, ef_live) for ef_live in sorted({ef, ef * 3 // 4})
+                 for kind in ("random", "no fresh", "converged")]
+        for kind, ef_live in cases:
+            args = beam_edge(kind, beam_inputs(q, ef, k, dev, gen))
             got = bk.beam_update(*args, ef_live)
             want = bk.beam_update_plain(*args, ef_live)
             torch.cuda.synchronize()
@@ -368,13 +411,17 @@ def check_beam_update(dev, gen) -> dict:
             for name, g, w in zip(names, got, want):
                 if not torch.equal(g, w):
                     bad = int((g != w).sum())
-                    raise AssertionError(f"beam_update ef={ef} ef_live="
-                                         f"{ef_live}: {name} differs in "
-                                         f"{bad} places")
+                    raise AssertionError(f"beam_update {kind} ef={ef} "
+                                         f"ef_live={ef_live}: {name} "
+                                         f"differs in {bad} places")
             err = float((got[0] - want[0]).nan_to_num(0.0).abs().max())
-            log(f"  beam_update ef={ef} ef_live={ef_live}: exact "
+            log(f"  beam_update {kind} ef={ef} ef_live={ef_live}: exact "
                 f"(ndis mean {want[3].float().mean():.1f})")
-            if ef == 64 and ef_live == ef:
+            if ef == 64 and ef_live == ef and kind == "converged":
+                log(f"  beam_update converged ef=64: kernel "
+                    f"{time_ms(lambda: bk.beam_update(*args, ef_live)):.4f}"
+                    f" ms (the fast path)")
+            if ef == 64 and ef_live == ef and kind == "random":
                 out["max_abs_err"] = err
                 m = ef + k
                 out.update(bound(q * ef * 8 * 2 + q * k * 8 + q * 8,
@@ -383,6 +430,56 @@ def check_beam_update(dev, gen) -> dict:
                 out["plain_ms"] = time_ms(
                     lambda: bk.beam_update_plain(*args, ef_live))
     return out
+
+
+def profile_window(tag: str, fn, top: int = 8) -> None:
+    """Where the time of ``fn`` (one search) goes: 2 warm-ups, 10 synced
+    walls without the profiler, then one call under ``torch.profiler``.
+    Device busy = the union of that window's CUDA events; busy share = busy
+    / median unprofiled wall. Prints the ``top`` ops by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t) * 1e3)
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_wall = (time.time() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy = max(busy / 1e3, 1e-9)
+    wall = float(np.median(walls))
+    log(f"profile {tag}: unprofiled wall median {wall:.1f} ms (range "
+        f"{min(walls):.1f}-{max(walls):.1f}), profiled wall {prof_wall:.1f} "
+        f"ms, device busy {busy:.2f} ms, busy share {busy / wall:.3f} / "
+        f"{busy / prof_wall:.3f} (of the profiled wall)")
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    ops = sorted(prof.key_averages(), key=dev_us, reverse=True)[:top]
+    for e in ops:
+        us = dev_us(e)
+        log(f"  {e.key[:60]}: {us / 1e3:.3f} ms device ({us / 1e3 / busy:.1%}"
+            f" of busy), {e.count} calls")
 
 
 def phase(name: str, need: tuple, totals: dict, fn):
@@ -404,7 +501,53 @@ def phase(name: str, need: tuple, totals: dict, fn):
     return result
 
 
-def main_path(n: int, dev, totals: dict) -> dict:
+def capture_build_k3(build, k3_build: dict):
+    """Run ``build`` with K3's entry point wrapped: count its launches by
+    K (candidates a query) and keep each K's last call at its widest Q
+    (a late insert batch, at ~n points), which ``measure_build_k3``
+    times."""
+    import hnsw_tpu_torch.search as search
+    orig = search.gathered_vec_dist_ids
+
+    def recording(table, ids, qs, dequant=None, *, metric):
+        k = ids.shape[1]
+        rec = k3_build.setdefault(k, {"launches": 0, "args": None})
+        rec["launches"] += 1
+        if rec["args"] is None or ids.shape[0] >= rec["args"][1].shape[0]:
+            rec["args"] = (table, ids, qs, metric)   # the last widest call
+        return orig(table, ids, qs, dequant, metric=metric)
+
+    search.gathered_vec_dist_ids = recording
+    try:
+        return build()
+    finally:
+        search.gathered_vec_dist_ids = orig
+
+
+def measure_build_k3(k3_build: dict) -> None:
+    """K3 at the build's shapes (PERF.md's build row): per K, its launches
+    in the build, and on the last call's own ids the kernel and plain times
+    and the bound (each distinct row once). Ids the caller masked read row
+    0; their share is printed."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    for k in sorted(k3_build):
+        rec = k3_build[k]
+        table, ids, qs, metric = rec["args"]
+        b = gather_bound(ids, table.shape[1], ip=metric == "ip")
+        ms = time_ms(lambda: dk.gathered_vec_dist_ids(table, ids, qs,
+                                                      metric=metric))
+        plain = time_ms(lambda: dk.gathered_vec_dist_plain(table, ids, qs,
+                                                           metric=metric))
+        rows = torch.unique(ids).numel()
+        log(f"K3 at the build's shape Q={ids.shape[0]} K={k}: "
+            f"{rec['launches']} launches in the build; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {rows} distinct "
+            f"rows, row-0 share {float((ids == 0).float().mean()):.3f}), "
+            f"share of bound {b['bound_ms'] / ms:.2f}")
+
+
+def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     from hnsw_tpu_torch import HnswIndex, synthetic_workload
     from hnsw_tpu_torch.ops.distances import brute_force_topk
     from hnsw_tpu_torch.search import hnsw_search
@@ -417,6 +560,7 @@ def main_path(n: int, dev, totals: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     idx = HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
                     device=dev)
+    k3_build: dict = {}
 
     def build():
         t0 = time.time()
@@ -434,8 +578,11 @@ def main_path(n: int, dev, totals: dict) -> dict:
             raise AssertionError(f"graph invariants: {stats['errors']}")
         return build_s
 
-    build_s = phase("build", ("gathered_vec_dist",), totals, build)
+    build_s = phase("build", ("gathered_vec_dist",), totals,
+                    lambda: capture_build_k3(build, k3_build))
     queries = torch.from_numpy(wl.queries).to(dev)
+    measure_build_k3(k3_build)
+    del k3_build
 
     def timed(fn, runs=2):
         """(result, best synced wall seconds of ``runs`` runs)."""
@@ -466,6 +613,11 @@ def main_path(n: int, dev, totals: dict) -> dict:
             device_out=True))
         return report(f"{tag} ef={ef}", res, secs, gt), res
 
+    def profiled(ef, tag):
+        if profile:
+            profile_window(f"{tag} ef={ef}", lambda: idx.search(
+                queries, 10, ef_search=ef, use_packed=True, device_out=True))
+
     def check_exact(tag, d, i):
         """returned distances are exact squared L2 of the returned ids"""
         ok = i >= 0
@@ -490,6 +642,7 @@ def main_path(n: int, dev, totals: dict) -> dict:
         log(f"ground truth (brute_force_topk on the card): "
             f"{time.time() - t0:.1f} s")
         recalls = {ef: run(ef, True, "packed bytes")[0] for ef in (32, 64, 128)}
+        profiled(64, "packed bytes")
         unpacked, (d, i, _) = run(64, False, "unpacked")
         check_exact("unpacked ef=64", d[:, :1], i[:, :1])
         best = max(recalls.values())
@@ -533,6 +686,7 @@ def main_path(n: int, dev, totals: dict) -> dict:
         if max(out.values()) < 0.95:
             raise AssertionError(f"words recall@10 {max(out.values()):.4f} "
                                  f"< 0.95")
+        profiled(64, "packed words")
         return out
 
     words = phase("words search", ("beam_update", "packed_row_dist_words",
@@ -598,6 +752,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
                     help="base vectors of the main-path run")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile packed ef=64 search, bytes and words "
+                         "rows (adds their runs to the launch counts)")
     args = ap.parse_args()
     if args.n < PACKED_ROWS:  # smaller tables keep row offsets below 2^31
         raise SystemExit(f"chip_smoke: --n {args.n} is below {PACKED_ROWS}")
@@ -638,7 +795,7 @@ def main() -> None:
     if args.n < NORTH_STAR_N:
         log(f"main path cut: n={args.n} of {NORTH_STAR_N}")
     totals: dict = {}
-    main_path(args.n, dev, totals)
+    main_path(args.n, dev, totals, args.profile)
     log(f"kernel launches over the main path's phases: {totals}")
     missing = [k for k in KERNELS if totals.get(k, 0) == 0]
     if missing:

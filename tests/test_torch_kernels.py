@@ -28,7 +28,7 @@ from hnsw_tpu.ops.hop_kernel import fused_gather_distances as ref_gather_dist
 from hnsw_tpu.ops.packed import pack_words as ref_pack_words
 from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel, hop_kernel
 from hnsw_tpu_torch.ops.packed import word_width
-from test_torch_cuda import beam_case
+from test_torch_cuda import BEAM_EDGES, beam_case, beam_edge_case
 
 REPO = Path(__file__).resolve().parent.parent
 # f32 sums taken in another order than the reference's
@@ -149,15 +149,16 @@ def test_packed_row_dist_t_axis(bits):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("d,bits", [(32, 8), (128, 4), (100, 8)])
+@pytest.mark.parametrize("d,bits", [(32, 8), (128, 4), (100, 8), (17, 4)])
 def test_packed_row_dist_words_matches_reference(d, bits):
     """K4's plain version against the Pallas words kernel (interpret mode)
-    fed the reference's own query planes. m0 = 16 tiles the reference's
-    128 / wp candidate groups at each (d, bits). Tolerance RTOL/ATOL: f32
-    sums in another order."""
+    fed the reference's own query planes. m0 tiles the reference's 128 / wp
+    candidate groups at each (d, bits): 16, or 32 at d = 17 4-bit (4 words
+    a segment, 3 of them carrying values). Tolerance RTOL/ATOL: f32 sums in
+    another order."""
     rng = np.random.default_rng(d * 10 + bits)
-    q, k = 64, 16
     wp = word_width(d, bits)
+    q, k = 64, max(16, 128 // wp)
     vals = rng.integers(0, 1 << bits, size=(q, k, d), dtype=np.uint8)
     vals[0] = (1 << bits) - 1                 # the wrapped high byte / nibble
     qs = (rng.normal(size=(q, d)) * 0.01).astype(np.float32)
@@ -170,6 +171,28 @@ def test_packed_row_dist_words_matches_reference(d, bits):
         torch.from_numpy(words), torch.from_numpy(qs), k=k, wp=wp, bits=bits)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("d,bits", [(128, 8), (100, 8), (17, 4)])
+def test_packed_row_dist_words_t_axis_matches_reference(d, bits):
+    """Two expansions a query (cur [Q, 2], the legacy beam's n_expand = 2):
+    the ids entry point against the Pallas words kernel (interpret mode) run
+    on each expansion's gathered rows, side by side. Tolerance RTOL/ATOL."""
+    rng = np.random.default_rng(d + bits)
+    wp = word_width(d, bits)
+    n, q, k, t = 40, 32, max(16, 128 // wp), 2
+    vals = rng.integers(0, 1 << bits, size=(n, k, d), dtype=np.uint8)
+    words = np.array(ref_pack_words(jnp.asarray(vals), bits)).reshape(n, -1)
+    cur = rng.integers(0, n, size=(q, t), dtype=np.int32)
+    qs = (rng.normal(size=(q, d)) * 0.01).astype(np.float32)
+    planes = words_query_planes(jnp.asarray(qs), bits=bits, wp=wp)
+    want = np.concatenate([np.asarray(ref_words_dist(
+        jnp.asarray(words[cur[:, i]]), planes, k=k, wp=wp, bits=bits,
+        interpret=True)) for i in range(t)], 1)
+    got = dist_kernel.packed_row_dist_words_ids(
+        torch.from_numpy(words), torch.from_numpy(cur), torch.from_numpy(qs),
+        wp=wp, bits=bits)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_packed_row_dist_words_ids_rows_and_t_axis():
@@ -227,11 +250,12 @@ def test_fused_gather_distances_negative_ids_clamped():
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("ef,k,ef_live", [(64, 64, 64), (32, 64, 32),
-                                          (64, 64, 48), (128, 48, 100)])
-def test_beam_update_matches_reference(ef, k, ef_live):
-    qn = 128
-    buf_d, buf_p, cand_i, cand_d = beam_case(ef, k, qn, ef * 1000 + k)
+def _check_beam_against_reference(arrays, ef, ef_live):
+    """The port's beam_update (plain version on the CPU) against the Pallas
+    kernel in interpret mode: cur and ndis exactly, and each row's (key,
+    payload) multiset (the bitonic network may reorder equal keys)."""
+    buf_d, buf_p, cand_i, cand_d = arrays
+    qn = buf_d.shape[1]
     rd, rp, rcur, rndis = (np.asarray(a) for a in ref_beam_update(
         jnp.asarray(buf_d), jnp.asarray(buf_p), jnp.asarray(cand_i),
         jnp.asarray(cand_d), jnp.int32(ef_live), ef=ef, bq=128,
@@ -242,8 +266,27 @@ def test_beam_update_matches_reference(ef, k, ef_live):
     assert np.array_equal(cur.numpy(), rcur)
     assert np.array_equal(ndis.numpy(), rndis)
     od, op = od.numpy(), op.numpy()
-    for q in range(qn):   # the bitonic network may reorder equal keys
+    for q in range(qn):
         assert sorted(zip(od[q], op[q])) == sorted(zip(rd[:, q], rp[:, q])), q
+
+
+@pytest.mark.parametrize("ef,k,ef_live", [(64, 64, 64), (32, 64, 32),
+                                          (64, 64, 48), (128, 48, 100)])
+def test_beam_update_matches_reference(ef, k, ef_live):
+    _check_beam_against_reference(beam_case(ef, k, 128, ef * 1000 + k), ef,
+                                  ef_live)
+
+
+@pytest.mark.parametrize("ef,k", [(32, 16), (32, 64), (256, 16), (256, 64)])
+@pytest.mark.parametrize("kind", BEAM_EDGES)
+def test_beam_update_edges_match_reference(kind, ef, k):
+    """The edges the K1 kernel branches on (no valid candidate, no fresh
+    one, a converged buffer, keys tied across buffer and candidates,
+    ef_live < ef), on both sides of its warp / block switch (ef + K = 256),
+    at Q = 128 as the reference requires. The card holds the kernel to the
+    plain version on the same edges (test_torch_cuda.py)."""
+    arrays, ef_live = beam_edge_case(kind, ef, k, 128, ef * 100 + k)
+    _check_beam_against_reference(arrays, ef, ef_live)
 
 
 def test_cpu_tensors_run_plain_versions_and_count_nothing():
