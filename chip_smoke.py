@@ -11,18 +11,21 @@ Phases (any failure raises, and the exit code is not 0):
      and print the seconds;
   3. hold each of the five kernels against its plain PyTorch version on
      the card, at the main path's shapes (Q=8192, K=64, d=128, ef in {32,
-     64, 128, 256, 512}; K1 also with no fresh candidate and converged)
-     and at 4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
-     clamped-id and two-expansion variants, and Q=8191 for K4's persistent
-     grid; time both with CUDA events and compute each kernel's bound from
-     its inputs;
+     64, 128, 256, 512}; K1 also with no fresh candidate and converged;
+     K3 also at the build's upper-level beam, Q=86 and K=128) and at
+     4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
+     clamped-id and two-expansion variants, and Q=8191 for K2's and K4's
+     persistent grid; K2 must equal ``nbr_sq[cur] - 2 * K4 dots`` on the
+     same bits exactly (one engine); time both with CUDA events and
+     compute each kernel's bound from its inputs;
   4. the main path, ``synthetic_workload(n, 128, n_queries=8192,
      seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), in phases on
      ONE index, each with the launch counts set to 0 just before it and
      read just after (every kernel a phase needs must have launched):
        a. build with M=32 / efConstruction=100 and ``check()`` (K3); K3's
-          launches counted by K, and K3 timed against its bound on the
-          last insert batch's own ids at each K (the build's shapes);
+          launches counted by K, and on the last insert batch's own ids at
+          each K (the build's shapes) K3 held against its plain version
+          and timed against its bound;
        b. ``enable_packed(bits=8)`` (bytes rows), exact ground truth from
           ``brute_force_topk`` on the card, k=10 searches at ef in {32, 64,
           128} packed and ef=64 unpacked (K1, K2, K3). Requires packed
@@ -179,6 +182,18 @@ def check_vec_dist(dev, gen) -> dict:
                     out["plain_ms"] = time_ms(
                         lambda: dk.gathered_vec_dist_plain(
                             table, ids, qs, metric="l2"))
+        # the build's upper-level beam: 86 queries (a grid that one block
+        # per query would leave on 86 SMs), most ids masked to row 0
+        ids = torch.randint(0, n, (86, 128), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[torch.rand((86, 128), generator=gen, device=dev) < 0.84] = 0
+        for metric in ("l2", "ip"):
+            compare(f"gathered_vec_dist f32 d={d} Q=86 K=128 {metric}",
+                    dk.gathered_vec_dist_ids(table, ids, qs[:86],
+                                             metric=metric),
+                    dk.gathered_vec_dist_plain(table, ids, qs[:86],
+                                               metric=metric),
+                    rtol=1e-5, atol=1e-3)
         ids = torch.randint(0, n, (q, k), generator=gen, device=dev,
                             dtype=torch.int32)
         bf = table.to(torch.bfloat16)
@@ -251,15 +266,46 @@ def check_packed_dist(dev, gen) -> dict:
                 dk.packed_row_dist_plain(codes, nbr_sq, cur[:256], qs[:256],
                                          bits=bits, metric="l2"),
                 rtol=1e-5, atol=1e-2)
-        cur2 = cur.view(q // 2, 2)
-        compare(f"packed_row_dist {bits}-bit d={d} two expansions",
-                dk.packed_row_dist_ids(codes, nbr_sq, cur2, qs[:q // 2],
-                                       bits=bits, metric="l2"),
-                dk.packed_row_dist_plain(codes, nbr_sq, cur2, qs[:q // 2],
-                                         bits=bits, metric="l2"),
-                rtol=1e-5, atol=1e-2)
+        for cc, qq, tag in ((cur.view(q // 2, 2), qs[:q // 2],
+                             "two expansions"),
+                            (cur[:q - 1], qs[:q - 1],
+                             f"Q={q - 1} (no multiple of the grid)")):
+            compare(f"packed_row_dist {bits}-bit d={d} {tag}",
+                    dk.packed_row_dist_ids(codes, nbr_sq, cc, qq, bits=bits,
+                                           metric="l2"),
+                    dk.packed_row_dist_plain(codes, nbr_sq, cc, qq,
+                                             bits=bits, metric="l2"),
+                    rtol=1e-5, atol=1e-2)
+        if (d, bits) == (128, 8):
+            k2_equals_k4(codes, nbr_sq, cur, qs)
         del codes, nbr_sq
     return out
+
+
+def k2_equals_k4(codes, nbr_sq, cur, qs) -> None:
+    """K2 on bytes rows and K4 on the ``pack_words`` table of the same codes
+    (d = 128, 8-bit) share one engine and one order of summation: K2's L2
+    output must equal ``nbr_sq[cur] - 2 * dots`` and its IP output
+    ``-dots`` bit for bit. The words table is packed 16,384 rows at a time
+    and must hold the bytes table's bits."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    from hnsw_tpu_torch.ops.packed import pack_words
+    rows, k, d = codes.shape[0], nbr_sq.shape[1], qs.shape[1]
+    words = torch.cat([pack_words(codes[r:r + 16384].view(-1, k, d), 8)
+                       .view(-1, k * (d // 4))
+                       for r in range(0, rows, 16384)])
+    if not torch.equal(words, codes.view(torch.int32)):
+        raise AssertionError("pack_words table differs from the bytes table")
+    dots = dk.packed_row_dist_words_ids(words, cur, qs, wp=d // 4, bits=8)
+    l2 = dk.packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=8, metric="l2")
+    ip = dk.packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=8, metric="ip")
+    torch.cuda.synchronize()
+    if not torch.equal(l2, nbr_sq[cur.long()] - 2.0 * dots):
+        raise AssertionError("packed_row_dist l2 != nbr_sq - 2 * K4 dots")
+    if not torch.equal(ip, -dots):
+        raise AssertionError("packed_row_dist ip != -K4 dots")
+    log(f"  packed_row_dist 8-bit d={d} rows={rows}: l2 equals nbr_sq - 2 * "
+        f"K4 dots and ip equals -dots bit for bit (torch.equal)")
 
 
 def check_words_dist(dev, gen) -> dict:
@@ -526,13 +572,18 @@ def capture_build_k3(build, k3_build: dict):
 
 def measure_build_k3(k3_build: dict) -> None:
     """K3 at the build's shapes (PERF.md's build row): per K, its launches
-    in the build, and on the last call's own ids the kernel and plain times
-    and the bound (each distinct row once). Ids the caller masked read row
-    0; their share is printed."""
+    in the build, and on the last call's own ids the kernel held against
+    its plain version (check_vec_dist's tolerance), the kernel and plain
+    times and the bound (each distinct row once). Ids the caller masked
+    read row 0; their share is printed."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
     for k in sorted(k3_build):
         rec = k3_build[k]
         table, ids, qs, metric = rec["args"]
+        compare(f"gathered_vec_dist at the build's Q={ids.shape[0]} K={k}",
+                dk.gathered_vec_dist_ids(table, ids, qs, metric=metric),
+                dk.gathered_vec_dist_plain(table, ids, qs, metric=metric),
+                rtol=1e-5, atol=1e-3)
         b = gather_bound(ids, table.shape[1], ip=metric == "ip")
         ms = time_ms(lambda: dk.gathered_vec_dist_ids(table, ids, qs,
                                                       metric=metric))

@@ -5,53 +5,74 @@
 //   * gathered_vec_dist (_vec_dist_kernel; pallas_call at :308) ->
 //     vec_dist_kernel below;
 //   * packed_row_dist (_packed_dist_kernel; pallas_call at :129) ->
-//     packed_dist_kernel below;
+//     words_dist_kernel below with the L2 or IP epilogue (packed_dist_kernel
+//     for rows the word engine cannot read);
 //   * packed_row_dist_words (_words_dist_kernel; pallas_call at :227) ->
-//     words_dist_kernel below.
+//     words_dist_kernel below, dots only.
 //
 // What bounds them on the H100: bytes of scattered rows. Each query reads K
 // rows from random places in a table of up to several GB (K3: K vector rows
-// of d * itemsize bytes; K2: one packed code row of K * d * bits/8 bytes
-// plus K norms). At 2 FLOP per byte or less the arithmetic is nothing beside
-// the reads, and each row is a separate burst of 128 to 8192 bytes.
+// of d * itemsize bytes; K2 and K4: one packed code row of K * d * bits/8
+// bytes, plus K norms for K2). At 2 FLOP per byte or less the arithmetic is
+// nothing beside the reads, and each row is a separate burst of 128 to 8192
+// bytes. HBM reaches its 3.35 TB/s only with ~25 KB of such reads in flight
+// per SM, so every design below is about keeping rows in flight. Every row
+// offset is int64: row * row_w crosses 2^31 at node 262,144 for 8 KB packed
+// rows (the reference's round-2 corruption bug). Any d and any K: there is
+// no shape padding.
 //
-// What the design does about it (K3 and K2; K4 below):
-//   * the row gather happens inside the kernel, from ids, so the [Q, K, d]
-//     intermediate that the TPU path builds in XLA is never written;
-//   * one block per query holds that query's vector (and the dequant affine)
-//     in shared memory; one warp per candidate row reads the row with
-//     consecutive lanes on consecutive addresses and sums with shuffles, so
-//     every row is read once, coalesced, and the sums stay in registers;
-//   * K2 reads 4 bytes per lane when the code segments are 4-byte aligned
-//     (8-bit d = 128: one 128-byte transaction per candidate);
-//   * every row offset is int64: row * row_w crosses 2^31 at node 262,144
-//     for 8 KB packed rows (the reference's round-2 corruption bug).
-// Any d and any K: there is no shape padding.
+// K3 (vec_dist_kernel). The first port gave each query a block that staged
+// the query in shared memory behind a barrier, then had each warp walk its
+// candidates one at a time: load the id, then the row, then two shuffle
+// trees. Each row cost two dependent round trips and a warp had about one
+// row in flight, so a build launch of K = 256 ran 32 rows in series a warp
+// and a launch of 86 queries filled 86 SMs. Now:
+//   * one warp owns a chunk of up to 8 candidates of one query, and the flat
+//     grid walks (query, chunk) pairs (Q * ceil(K / 8) warps; 4 a block, so
+//     small launches still spread over the SMs; a persistent grid, with or
+//     without the next chunk's ids fetched ahead, measured slower at every
+//     main-path shape on the H100);
+//   * the warp loads the chunk's 8 ids in one load, broadcasts them with
+//     shuffles, and issues every row load of a 128-dim pass (8 rows x 4
+//     loads a lane: 4 KB in flight a warp at f32) before the first FMA;
+//     rows are read evict-first (__ldcs): a row is read once, and the
+//     reused lines (the query, the ids, row 0 that masked ids read) stay
+//     cached. That put the serving hop and the build's level-0 hop within a
+//     few per cent of a gather with 16-byte loads and no arithmetic
+//     (scripts/torch_kernel_ab.py);
+//   * no shared memory and no barrier: lane j keeps the query values of dims
+//     j, j + 32, j + 64, j + 96 of the pass (and the dequant affine) in
+//     registers; a wider d walks in passes of 128 dims;
+//   * order of summation: the first port's, kept on purpose (lane j sums
+//     dims j, j + 32, ... in that order, then the xor tree 16, ..., 1), so
+//     f32 results equal it bit for bit and the build's graph cannot drift.
+//     That is why a lane loads 4 bytes, not 16: each warp load is one
+//     coalesced 128-byte line. The 8 candidates' trees share their first
+//     levels as a reduce-scatter (9 shuffles a tree set instead of 40).
+// Rows are not bulk-copied: a K3 row is one 512-byte copy per candidate,
+// which would make one producer thread the bottleneck.
 //
-// K4 (words_dist_kernel). The TPU kernel lane-split each int32 word row to
-// [rows, 128], multiplied each byte plane against G-tiled query planes and
-// summed each candidate's wp lanes with a 0/1 selector matmul on the MXU;
-// it needed m0 % (128 / wp) == 0. On Hopper none of that is needed.
-//
-// What bounds it on the H100: bytes of scattered rows, and then the
-// instructions that turn them into sums. Each (query, expansion) reads one
-// word row (8 KB at d = 128 8-bit, K = 64); HBM reaches its 3.35 TB/s only
-// with ~25 KB of such reads in flight per SM. The first port gave each
-// (query, expansion) a block that staged the query behind a barrier before
-// its first row load and had each warp walk its candidates one 128-byte
-// load and one 5-shuffle reduction at a time: ~8 KB in flight per SM, ~1
-// TB/s. Once the copies overlap, the sums are the next limit: 8,192
-// values a row, each an extract, a convert and an FMA, plus the shuffle
-// trees, take about as long as the row copies themselves on the H100, so
-// the sums are written to be cheap as well:
+// K4 and K2 (words_dist_kernel). The TPU kernel lane-split each int32 word
+// row to [rows, 128], multiplied each byte plane against G-tiled query
+// planes and summed each candidate's wp lanes with a 0/1 selector matmul on
+// the MXU; it needed m0 % (128 / wp) == 0. On Hopper none of that is
+// needed. Each (query, expansion) reads one row (8 KB at d = 128 8-bit, K =
+// 64). The first port gave each a block that staged the query behind a
+// barrier before its first row load and had each warp walk its candidates
+// one 128-byte load and one 5-shuffle reduction at a time: ~8 KB in flight
+// per SM, ~1 TB/s. Once the copies overlap, the sums are the next limit:
+// 8,192 values a row, each an extract, a convert and an FMA, plus the
+// shuffle trees, take about as long as the row copies themselves on the
+// H100, so the sums are written to be cheap as well:
 //   * persistent grid (SMs x resident blocks); blocks walk rows b =
 //     blockIdx.x, b += gridDim.x over the Q * T (query, expansion) pairs;
 //   * a RowRing (common.cuh) of two shared-memory stages a block: one
 //     producer warp reads 32 cur[] ids at once and, for each row, one lane
-//     issues two cp.async.bulk copies into the next free stage, the whole
-//     word row (pad words included; copied, never summed) and the query
-//     row b / t; completion lands on the stage's mbarrier, so the next row
-//     is in flight while this one is summed (~70 KB an SM at d = 128);
+//     issues cp.async.bulk copies into the next free stage: the whole word
+//     row (pad words included; copied, never summed), the query row b / t
+//     and, for K2's L2, the row's K norms; completion lands on the stage's
+//     mbarrier, so the next row is in flight while this one is summed (~70
+//     KB an SM at d = 128);
 //   * eight consumer warps sum from shared memory: lanes per candidate lpc
 //     = the least power of two >= the words that carry values (ceil(d *
 //     bits / 32), at most 32); where a lane owns at most one word of a
@@ -63,17 +84,25 @@
 //   * order of summation: the first port's, kept on purpose and checked bit
 //     for bit on the card (lane sl sums word sl's values in value order,
 //     then words sl + lpc, ...; then the same xor tree), so the words
-//     search cannot drift from the bytes search (K2 sums the same bits in
-//     the same order). That is why the consumers read 4-byte words: a
-//     16-byte read would make lane i sum words 4i..4i+3 and change it;
+//     search cannot drift from the bytes search. That is why the consumers
+//     read 4-byte words: a 16-byte read would make lane i sum words
+//     4i..4i+3 and change it;
 //   * the query stage is zero past d (written once, before any copy), so
 //     dims >= d never meet a query value;
-//   * rows the bulk engine cannot take (row bytes, d * 4 or an address not
-//     a multiple of 16: odd d, d = 17 at 4-bit, unaligned views) take the
-//     plain-load path of the same kernel: the same persistent walk and
-//     sums, the query staged by the block, the row read with 4-byte __ldg.
-// Returns dots only: the caller applies the metric. Any m0 and any d with
-// word_width(d, bits) words per segment.
+//   * rows the bulk engine cannot take (row bytes, d * 4, K * 4 for the
+//     norms or an address not a multiple of 16: odd d, d = 17 at 4-bit,
+//     unaligned views) take the plain-load path of the same kernel: the
+//     same persistent walk and sums, the query staged by the block, the row
+//     read with 4-byte __ldg.
+// K4 returns dots (its caller applies the metric). K2 is the same kernel
+// with an epilogue: a bytes code row whose candidate segments are db = d
+// (8-bit) or ceil(d / 2) (4-bit) bytes with db % 4 == 0 is a word row of wp
+// = db / 4 words a candidate (8-bit: 4 dims a word, little-endian; 4-bit: 8
+// nibbles, even dim low), so the kernel writes nbr_sq - 2 * dot (L2) or
+// -dot (IP) from the same sums: bit for bit the first port's K2, whose
+// 4-byte path summed in this order. K2 rows with db % 4 != 0 (d = 101) or a
+// table not 4-byte aligned keep the first port's packed_dist_kernel (one
+// block a row, one warp a candidate, byte loads), unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,49 +115,101 @@ namespace hnsw {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 
+// Sums kM per-lane partial sums v[] each over the lpc lanes of a lane group
+// (lpc >= kM, both powers of two) along the xor tree o = lpc / 2, ..., 1:
+// the first port's order, bit for bit. The kM trees share their first
+// log2(kM) levels as a reduce-scatter (at each level a lane keeps the half
+// of the values on its side of the pair and sends the other half), so 8
+// trees over 32 lanes take 4 + 2 + 1 + 2 shuffles instead of 40. Each pair
+// still adds the same two partial sums, so every tree, and its result, is
+// unchanged. Returns the lane's sum: that of value (sl / (lpc / kM)) % kM.
+template <int kM>
+__device__ __forceinline__ float reduce_scatter(float (&v)[kM], int sl, int lpc) {
+  int o = lpc / 2;
+#pragma unroll
+  for (int m = kM; m > 1; m >>= 1, o >>= 1) {  // kM -> ... -> 1 values
+    const bool up = (sl & o) != 0;
+#pragma unroll
+    for (int j = 0; j < m / 2; ++j) {
+      const float send = up ? v[j] : v[j + m / 2];
+      const float keep = up ? v[j + m / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+  for (; o > 0; o >>= 1) v[0] += __shfl_xor_sync(kFull, v[0], o);
+  return v[0];
+}
+
+constexpr int kVecChunk = 8;  // candidates a warp owns
+constexpr int kVecWarps = 4;  // warps a block
+constexpr int kVecPass = 4;   // loads a lane per row and pass: 4 x 32 = 128 dims
+
 // out[q, c] = sum_j v_j^2 - 2 sum_j qs[q, j] v_j   (L2 surrogate)
 //           = -sum_j qs[q, j] v_j                   (IP)
 // with v = table[ids[q, c]] (dequantized as offset + scale * u when asked).
+// Warp w of the grid owns query w / chunks, candidates c0 = (w % chunks) *
+// 8, ..., c0 + 7 (those < k).
 template <typename T, bool kDequant, bool kIP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kVecWarps * kWarp)
 vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
-                const int32_t* __restrict__ ids, int k,
+                const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
                 const float* __restrict__ qs, const float* __restrict__ offset,
                 const float* __restrict__ scale, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* q_s = smem;           // [d]
-  float* off_s = smem + d;     // [d] when kDequant
-  float* sc_s = smem + 2 * d;  // [d] when kDequant
-  const int64_t qi = blockIdx.x;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    q_s[j] = qs[qi * d + j];
-    if (kDequant) {
-      off_s[j] = offset[j];
-      sc_s[j] = scale[j];
+  const int lane = threadIdx.x % kWarp;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
+  if (w >= n_work) return;  // warp-uniform
+  const int64_t qi = w / chunks;
+  const int c0 = static_cast<int>(w % chunks) * kVecChunk;
+  const int live = min(kVecChunk, k - c0);
+  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  const T* row[kVecChunk];
+#pragma unroll
+  for (int u = 0; u < kVecChunk; ++u)
+    row[u] = table + clamp_row(__shfl_sync(kFull, id, u), n_rows) * static_cast<int64_t>(d);
+  const float* q = qs + qi * d;
+  float dot[kVecChunk], sq[kVecChunk];
+#pragma unroll
+  for (int u = 0; u < kVecChunk; ++u) dot[u] = sq[u] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kVecPass * kWarp) {
+    // every load of the pass first (rows evict-first); dims >= d and
+    // candidates >= live read nothing and sum 0 * 0 = +0, which leaves a
+    // partial sum unchanged
+    float qv[kVecPass], ov[kVecPass], sv[kVecPass], x[kVecChunk][kVecPass];
+#pragma unroll
+    for (int i = 0; i < kVecPass; ++i) {
+      const int j = d0 + lane + i * kWarp;
+      const bool in = j < d;
+      qv[i] = in ? __ldg(q + j) : 0.f;
+      if (kDequant) {
+        ov[i] = in ? __ldg(offset + j) : 0.f;
+        sv[i] = in ? __ldg(scale + j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kVecChunk; ++u)
+        x[u][i] = in && u < live ? to_f32(__ldcs(row[u] + j)) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kVecChunk; ++u) {
+#pragma unroll
+      for (int i = 0; i < kVecPass; ++i) {
+        float v = x[u][i];
+        if (kDequant) v = ov[i] + sv[i] * v;
+        dot[u] += qv[i] * v;
+        if (!kIP) sq[u] += v * v;
+      }
     }
   }
-  __syncthreads();
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  for (int c = warp; c < k; c += n_warps) {
-    const int64_t row = clamp_row(ids[qi * k + c], n_rows);
-    const T* v = table + row * static_cast<int64_t>(d);
-    float dot = 0.f, sq = 0.f;
-    for (int j = lane; j < d; j += kWarp) {
-      float x = to_f32(v[j]);
-      if (kDequant) x = off_s[j] + sc_s[j] * x;
-      dot += q_s[j] * x;
-      if (!kIP) sq += x * x;
-    }
-    dot = warp_sum(dot);
-    if (!kIP) sq = warp_sum(sq);
-    if (lane == 0) out[qi * k + c] = kIP ? -dot : sq - 2.f * dot;
-  }
+  const float dsum = reduce_scatter<kVecChunk>(dot, lane, kWarp);
+  const float ssum = kIP ? 0.f : reduce_scatter<kVecChunk>(sq, lane, kWarp);
+  constexpr int kSpan = kWarp / kVecChunk;  // lanes that end with the same candidate
+  const int c = lane / kSpan;
+  if (lane % kSpan == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
 }
 
 template <typename T>
@@ -136,27 +217,27 @@ void launch_vec(const void* table, int64_t n_rows, int d, const int32_t* ids,
                 int q, int k, const float* qs, const float* offset,
                 const float* scale, bool ip, float* out, cudaStream_t s) {
   const T* t = static_cast<const T*>(table);
-  const size_t smem = (offset ? 3 : 1) * static_cast<size_t>(d) * sizeof(float);
-  if (offset) {
-    if (ip)
-      vec_dist_kernel<T, true, true><<<q, kThreads, smem, s>>>(t, n_rows, d, ids, k, qs, offset, scale, out);
-    else
-      vec_dist_kernel<T, true, false><<<q, kThreads, smem, s>>>(t, n_rows, d, ids, k, qs, offset, scale, out);
-  } else {
-    if (ip)
-      vec_dist_kernel<T, false, true><<<q, kThreads, smem, s>>>(t, n_rows, d, ids, k, qs, offset, scale, out);
-    else
-      vec_dist_kernel<T, false, false><<<q, kThreads, smem, s>>>(t, n_rows, d, ids, k, qs, offset, scale, out);
-  }
+  const int chunks = (k + kVecChunk - 1) / kVecChunk;
+  const int64_t work = static_cast<int64_t>(q) * chunks;
+  const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
+  const auto run = [&](auto kern) {
+    kern<<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, d, ids, k, chunks, work, qs, offset, scale,
+                                            out);
+  };
+  if (offset)
+    ip ? run(vec_dist_kernel<T, true, true>) : run(vec_dist_kernel<T, true, false>);
+  else
+    ip ? run(vec_dist_kernel<T, false, true>) : run(vec_dist_kernel<T, false, false>);
 }
 
-// out[q, c] = nbr_sq[r, c] - 2 sum_j qs[q, j] u_j   (L2)  or  -sum_j qs u (IP)
-// where r = cur[q] and u is candidate c's code segment in packed row r:
-// bytes [c * db, (c + 1) * db) with db = d (8-bit) or ceil(d / 2) (4-bit:
-// even dim in the low nibble, odd dim in the high nibble).
-// Block b = (query b / t, expansion b % t) reads row cur[b] and writes out
-// row b (t = expanded nodes per query).
-template <int kBits, bool kIP, bool kVec>
+// K2 for rows the word engine cannot read (db % 4 != 0, or a table that is
+// not 4-byte aligned): out[q, c] = nbr_sq[r, c] - 2 sum_j qs[q, j] u_j (L2)
+// or -sum_j qs u (IP) where r = cur[q] and u is candidate c's code segment
+// in packed row r: bytes [c * db, (c + 1) * db) with db = d (8-bit) or
+// ceil(d / 2) (4-bit: even dim in the low nibble, odd dim in the high
+// nibble). Block b = (query b / t, expansion b % t) reads row cur[b] and
+// writes out row b (t = expanded nodes per query).
+template <int kBits, bool kIP>
 __global__ void __launch_bounds__(kThreads)
 packed_dist_kernel(const uint8_t* __restrict__ codes, int64_t n_rows,
                    int64_t row_w, const float* __restrict__ nbr_sq, int k,
@@ -178,29 +259,13 @@ packed_dist_kernel(const uint8_t* __restrict__ codes, int64_t n_rows,
   for (int c = warp; c < k; c += n_warps) {
     const uint8_t* seg = r + static_cast<int64_t>(c) * db;
     float dot = 0.f;
-    if (kVec) {
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(seg);
-      for (int i = lane; i < db / 4; i += kWarp) {
-        const uint32_t u = __ldg(w + i);
-        if (kBits == 8) {
-          const float* qq = q_s + 4 * i;
-#pragma unroll
-          for (int v = 0; v < 4; ++v) dot += qq[v] * static_cast<float>((u >> (8 * v)) & 0xffu);
-        } else {
-          const float* qq = q_s + 8 * i;
-#pragma unroll
-          for (int v = 0; v < 8; ++v) dot += qq[v] * static_cast<float>((u >> (4 * v)) & 0xfu);
-        }
-      }
-    } else {
-      for (int j = lane; j < db; j += kWarp) {
-        const uint32_t u = seg[j];
-        if (kBits == 8)
-          dot += q_s[j] * static_cast<float>(u);
-        else
-          dot += q_s[2 * j] * static_cast<float>(u & 0xfu) +
-                 q_s[2 * j + 1] * static_cast<float>(u >> 4);
-      }
+    for (int j = lane; j < db; j += kWarp) {
+      const uint32_t u = seg[j];
+      if (kBits == 8)
+        dot += q_s[j] * static_cast<float>(u);
+      else
+        dot += q_s[2 * j] * static_cast<float>(u & 0xfu) +
+               q_s[2 * j + 1] * static_cast<float>(u >> 4);
     }
     dot = warp_sum(dot);
     if (lane == 0) out[b * k + c] = kIP ? -dot : sq_row[c] - 2.f * dot;
@@ -214,13 +279,8 @@ void launch_packed(const uint8_t* codes, int64_t n_rows, int64_t row_w,
   const int db = kBits == 8 ? d : (d + 1) / 2;
   const int dq = kBits == 8 ? d : 2 * db;
   const size_t smem = static_cast<size_t>(dq) * sizeof(float);
-  const bool vec = db % 4 == 0 && row_w % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(codes) % 4 == 0;
   const unsigned grid = static_cast<unsigned>(q) * static_cast<unsigned>(t);
-  if (vec)
-    packed_dist_kernel<kBits, kIP, true><<<grid, kThreads, smem, s>>>(codes, n_rows, row_w, nbr_sq, k, d, cur, t, qs, out);
-  else
-    packed_dist_kernel<kBits, kIP, false><<<grid, kThreads, smem, s>>>(codes, n_rows, row_w, nbr_sq, k, d, cur, t, qs, out);
+  packed_dist_kernel<kBits, kIP><<<grid, kThreads, smem, s>>>(codes, n_rows, row_w, nbr_sq, k, d, cur, t, qs, out);
 }
 
 // Value j (< 32 / kBits) of word w as an exact float without an int-to-float
@@ -233,6 +293,17 @@ __device__ __forceinline__ float code_value(uint32_t w, int j) {
   const uint32_t bits = kBits == 8 ? __byte_perm(w, kTwo23, 0x7440 | j)
                                    : (((w >> (4 * j)) & 0xFu) | kTwo23);
   return __uint_as_float(bits) - 8388608.f;
+}
+
+// What words_dist_kernel writes from a candidate's dot: the dot itself (K4),
+// nbr_sq - 2 * dot (K2, L2) or -dot (K2, IP).
+enum Epilogue { kEpiDots, kEpiL2, kEpiIP };
+
+template <int kEpi>
+__device__ __forceinline__ float epilogue(float dot, const float* sq_row, int c) {
+  if constexpr (kEpi == kEpiL2) return sq_row[c] - 2.f * dot;
+  if constexpr (kEpi == kEpiIP) return -dot;
+  return dot;
 }
 
 // How a warp's lanes split a word row's candidates, fixed for a launch:
@@ -252,33 +323,17 @@ struct WordLanes {
 };
 
 // out_row[c] for the kM candidates c = c0 + u * step + sub from each lane's
-// partial sums dot[u], along the xor tree o = lpc / 2, ..., 1: the first
-// port's order, bit for bit. Where lpc >= kM the kM trees share their first
-// log2(kM) levels as a reduce-scatter (at each level a lane keeps the half
-// of the candidates on its side of the pair and sends the other half), so
-// 8 trees over 32 lanes take 4 + 2 + 1 + 2 shuffles instead of 40. Each
-// pair still adds the same two partial sums, so every candidate's tree,
-// and its result, is unchanged.
-template <int kM>
+// partial sums dot[u], along the xor tree o = lpc / 2, ..., 1 (the first
+// port's order, bit for bit; reduce_scatter where lpc >= kM), through the
+// epilogue (sq_row: the row's K norms, read for kEpiL2 only).
+template <int kM, int kEpi>
 __device__ __forceinline__ void store_dots(float (&dot)[kM], const WordLanes& L, int c0, int k,
-                                           float* __restrict__ out_row) {
-  constexpr unsigned kFull = 0xffffffffu;
+                                           const float* sq_row, float* __restrict__ out_row) {
   if (L.lpc >= kM) {
-    int o = L.lpc / 2;
-#pragma unroll
-    for (int m = kM; m > 1; m >>= 1, o >>= 1) {  // kM -> ... -> 1 values
-      const bool up = (L.sl & o) != 0;
-#pragma unroll
-      for (int j = 0; j < m / 2; ++j) {
-        const float send = up ? dot[j] : dot[j + m / 2];
-        const float keep = up ? dot[j + m / 2] : dot[j];
-        dot[j] = keep + __shfl_xor_sync(kFull, send, o);
-      }
-    }
-    for (; o > 0; o >>= 1) dot[0] += __shfl_xor_sync(kFull, dot[0], o);
+    const float s = reduce_scatter<kM>(dot, L.sl, L.lpc);
     const int span = L.lpc / kM;  // lanes that end with the same candidate
     const int c = c0 + ((L.sl / span) % kM) * L.step + L.sub;
-    if (L.sl % span == 0 && c < k) out_row[c] = dot[0];
+    if (L.sl % span == 0 && c < k) out_row[c] = epilogue<kEpi>(s, sq_row, c);
   } else {
     for (int o = L.lpc / 2; o > 0; o >>= 1) {
 #pragma unroll
@@ -287,7 +342,7 @@ __device__ __forceinline__ void store_dots(float (&dot)[kM], const WordLanes& L,
 #pragma unroll
     for (int u = 0; u < kM; ++u) {
       const int c = c0 + u * L.step + L.sub;
-      if (L.sl == 0 && c < k) out_row[c] = dot[u];
+      if (L.sl == 0 && c < k) out_row[c] = epilogue<kEpi>(dot[u], sq_row, c);
     }
   }
 }
@@ -298,10 +353,10 @@ __device__ __forceinline__ void store_dots(float (&dot)[kM], const WordLanes& L,
 // without a branch, and a lane past nw or a candidate past k sums
 // 0 * 0 = +0, or is never stored); else the lane walks words sl, sl + lpc,
 // ... with the query in q_s.
-template <int kBits, bool kGlobal, int kM>
+template <int kBits, bool kGlobal, int kM, int kEpi>
 __device__ __forceinline__ void dots_chunk(const uint32_t* r, const float* q_s,
                                            const float (&qv)[32 / kBits], int k, int wp,
-                                           const WordLanes& L, int c0,
+                                           const WordLanes& L, int c0, const float* sq_row,
                                            float* __restrict__ out_row) {
   constexpr int kVpw = 32 / kBits;
   float dot[kM];
@@ -336,23 +391,23 @@ __device__ __forceinline__ void dots_chunk(const uint32_t* r, const float* q_s,
       }
     }
   }
-  store_dots<kM>(dot, L, c0, k, out_row);
+  store_dots<kM, kEpi>(dot, L, c0, k, sq_row, out_row);
 }
 
 // Dots of one word row against the query in q_s (zero past d) for the
-// candidates this warp owns. out_row[c] = sum_j q_s[j] * u_j, u =
-// candidate c's values: value j sits at bits [kBits * (j % vpw), +kBits)
-// of word c * wp + j / vpw (vpw = 32 / kBits values per word). kGlobal: r
-// is in device memory (read with __ldg), else in shared memory.
+// candidates this warp owns, through the epilogue. dot[c] = sum_j q_s[j] *
+// u_j, u = candidate c's values: value j sits at bits [kBits * (j % vpw),
+// +kBits) of word c * wp + j / vpw (vpw = 32 / kBits values per word).
+// kGlobal: r is in device memory (read with __ldg), else in shared memory.
 //
 // Order of summation (the first port's, bit for bit): lane sl sums its
 // words sl, sl + lpc, ... value by value, then store_dots adds the lanes up
 // along the xor tree. A warp takes its candidates 8 at a time (the main
 // path: 8 warps x 8 = K = 64), or 4, 2, 1 where fewer are left, so no
 // chunk sums padding.
-template <int kBits, bool kGlobal>
+template <int kBits, bool kGlobal, int kEpi>
 __device__ __forceinline__ void word_row_dots(const uint32_t* r, const float* q_s, int k, int wp,
-                                              const WordLanes& L, int warp,
+                                              const WordLanes& L, int warp, const float* sq_row,
                                               float* __restrict__ out_row) {
   constexpr int kVpw = 32 / kBits;
   float qv[kVpw];
@@ -366,16 +421,16 @@ __device__ __forceinline__ void word_row_dots(const uint32_t* r, const float* q_
   for (int c0 = warp * L.cpw; c0 < k;) {  // warp-uniform
     const int left = (k - c0 + L.step - 1) / L.step;  // chunks of candidates left
     if (left >= 8) {
-      dots_chunk<kBits, kGlobal, 8>(r, q_s, qv, k, wp, L, c0, out_row);
+      dots_chunk<kBits, kGlobal, 8, kEpi>(r, q_s, qv, k, wp, L, c0, sq_row, out_row);
       c0 += 8 * L.step;
     } else if (left >= 4) {
-      dots_chunk<kBits, kGlobal, 4>(r, q_s, qv, k, wp, L, c0, out_row);
+      dots_chunk<kBits, kGlobal, 4, kEpi>(r, q_s, qv, k, wp, L, c0, sq_row, out_row);
       c0 += 4 * L.step;
     } else if (left >= 2) {
-      dots_chunk<kBits, kGlobal, 2>(r, q_s, qv, k, wp, L, c0, out_row);
+      dots_chunk<kBits, kGlobal, 2, kEpi>(r, q_s, qv, k, wp, L, c0, sq_row, out_row);
       c0 += 2 * L.step;
     } else {
-      dots_chunk<kBits, kGlobal, 1>(r, q_s, qv, k, wp, L, c0, out_row);
+      dots_chunk<kBits, kGlobal, 1, kEpi>(r, q_s, qv, k, wp, L, c0, sq_row, out_row);
       c0 += L.step;
     }
   }
@@ -383,18 +438,21 @@ __device__ __forceinline__ void word_row_dots(const uint32_t* r, const float* q_
 
 constexpr int kWordsConsumerWarps = kThreads / kWarp;
 
-// out[b, c] = dots of word row cur[b] against query b / t, for every row
-// b < nb = Q * T, walked persistently. kBulk: a producer warp (the last
-// one) feeds a RowRing of n_stages stages of stage_bytes (the row's
-// row_w * 4 bytes, then the query at q_off); else every warp sums and the
-// block stages the query itself (q_s = the start of shared memory).
-template <int kBits, bool kBulk>
+// out[b, c] = the epilogue of the dots of word row cur[b] against query b /
+// t, for every row b < nb = Q * T, walked persistently. kBulk: a producer
+// warp (the last one) feeds a RowRing of n_stages stages of stage_bytes
+// (the row's row_w * 4 bytes, the query at q_off and, for kEpiL2, the row's k
+// norms at n_off); else every warp sums and the block stages the query
+// itself (q_s = the start of shared memory) and the norms are read from
+// nbr_sq.
+template <int kBits, bool kBulk, int kEpi>
 __global__ void __launch_bounds__(kThreads + kWarp)
 words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
                   int64_t row_w, int k, int wp, int d,
                   const int32_t* __restrict__ cur, int t, int64_t nb,
-                  const float* __restrict__ qs, float* __restrict__ out,
-                  int n_stages, int stage_bytes, int q_off) {
+                  const float* __restrict__ qs, const float* __restrict__ nbr_sq,
+                  float* __restrict__ out, int n_stages, int stage_bytes, int q_off,
+                  int n_off) {
   constexpr int kVpw = 32 / kBits;
   extern __shared__ __align__(128) char smem_raw[];
   const int nw = (d + kVpw - 1) / kVpw;  // words that carry values
@@ -413,6 +471,7 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
     if (warp == kWordsConsumerWarps) {  // producer
       const uint32_t row_bytes = static_cast<uint32_t>(row_w * 4);
       const uint32_t q_bytes = static_cast<uint32_t>(d * 4);
+      const uint32_t n_bytes = kEpi == kEpiL2 ? static_cast<uint32_t>(k * 4) : 0u;
       const int64_t stride = gridDim.x;
       for (int64_t base = blockIdx.x; base < nb; base += kWarp * stride) {
         // lane j looks up row base + j * stride: 32 rows' ids at once
@@ -420,12 +479,13 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
         const int64_t row = mine < nb ? clamp_row(cur[mine], n_rows) : 0;
         const int64_t qrow = mine < nb ? mine / t : 0;
         for (int j = 0; j < kWarp && base + j * stride < nb; ++j) {  // warp-uniform
-          const int64_t rj = __shfl_sync(0xffffffffu, row, j);
-          const int64_t qj = __shfl_sync(0xffffffffu, qrow, j);
+          const int64_t rj = __shfl_sync(kFull, row, j);
+          const int64_t qj = __shfl_sync(kFull, qrow, j);
           if (lane == 0) {
-            char* st = ring.acquire(pos, row_bytes + q_bytes);
+            char* st = ring.acquire(pos, row_bytes + q_bytes + n_bytes);
             ring.copy(pos, st, words + rj * row_w, row_bytes);
             ring.copy(pos, st + q_off, qs + qj * d, q_bytes);
+            if (kEpi == kEpiL2) ring.copy(pos, st + n_off, nbr_sq + rj * k, n_bytes);
           }
           pos.next(n_stages);
         }
@@ -435,9 +495,10 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
     const WordLanes lanes(nw, kWordsConsumerWarps, lane);
     for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
       const char* st = ring.wait(pos);
-      word_row_dots<kBits, false>(reinterpret_cast<const uint32_t*>(st),
-                                  reinterpret_cast<const float*>(st + q_off), k, wp, lanes,
-                                  warp, out + b * k);
+      word_row_dots<kBits, false, kEpi>(reinterpret_cast<const uint32_t*>(st),
+                                        reinterpret_cast<const float*>(st + q_off), k, wp, lanes,
+                                        warp, reinterpret_cast<const float*>(st + n_off),
+                                        out + b * k);
       __syncwarp();
       if (lane == 0) ring.release(pos);
       pos.next(n_stages);
@@ -451,8 +512,9 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
       for (int j = threadIdx.x; j < nq; j += blockDim.x) q_s[j] = j < d ? qs[qi * d + j] : 0.f;
       __syncthreads();
       const int64_t row = clamp_row(cur[b], n_rows);
-      word_row_dots<kBits, true>(reinterpret_cast<const uint32_t*>(words) + row * row_w, q_s, k,
-                                 wp, lanes, warp, out + b * k);
+      const float* sq_row = kEpi == kEpiL2 ? nbr_sq + row * k : nullptr;
+      word_row_dots<kBits, true, kEpi>(reinterpret_cast<const uint32_t*>(words) + row * row_w,
+                                       q_s, k, wp, lanes, warp, sq_row, out + b * k);
       __syncthreads();
     }
   }
@@ -478,23 +540,28 @@ int64_t persistent_blocks(Kernel kern, int threads, size_t smem) {
   return last.blocks;
 }
 
-template <int kBits>
+// nbr_sq: float32 [n_rows, k], read for kEpiL2 only.
+template <int kBits, int kEpi>
 int launch_words(const int32_t* w, int64_t n_rows, int64_t row_w, int k, int wp, int d,
-                 const int32_t* r, int64_t nb, int t, const float* qf, float* o, cudaStream_t s) {
+                 const int32_t* r, int64_t nb, int t, const float* qf, const float* nbr_sq,
+                 float* o, cudaStream_t s) {
   constexpr int kVpw = 32 / kBits;
   const int nq = (d + kVpw - 1) / kVpw * kVpw;
   const int row_bytes = static_cast<int>(row_w * 4);
   const int q_off = row_bytes;
-  const int stage_bytes = q_off + (nq * 4 + 15) / 16 * 16;
+  const int n_off = q_off + (nq * 4 + 15) / 16 * 16;
+  const int stage_bytes = n_off + (kEpi == kEpiL2 ? k * 4 : 0);
   // two stages a block: with ~4 blocks an SM that keeps ~70 KB of rows in
   // flight at d = 128 8-bit; 3 and 4 stages measured no faster on the H100
   constexpr int kStages = 2;
   const size_t smem_bulk = RowRing::smem_bytes(kStages, stage_bytes);
   constexpr size_t kSmemOptIn = 227 * 1024;  // a Hopper block's shared memory, opted in
-  const bool bulk = smem_bulk <= kSmemOptIn && row_w % 4 == 0 && d % 4 == 0 &&
+  const bool norms_ok =
+      kEpi != kEpiL2 || (k % 4 == 0 && reinterpret_cast<uintptr_t>(nbr_sq) % 16 == 0);
+  const bool bulk = smem_bulk <= kSmemOptIn && row_w % 4 == 0 && d % 4 == 0 && norms_ok &&
                     (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(qf)) % 16 == 0;
   if (bulk) {
-    auto kern = words_dist_kernel<kBits, true>;
+    auto kern = words_dist_kernel<kBits, true, kEpi>;
     if (smem_bulk > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem_bulk));
@@ -502,13 +569,14 @@ int launch_words(const int32_t* w, int64_t n_rows, int64_t row_w, int k, int wp,
     }
     const auto grid = static_cast<unsigned>(
         std::min(nb, persistent_blocks(kern, kThreads + kWarp, smem_bulk)));
-    kern<<<grid, kThreads + kWarp, smem_bulk, s>>>(w, n_rows, row_w, k, wp, d, r, t, nb, qf, o,
-                                                   kStages, stage_bytes, q_off);
+    kern<<<grid, kThreads + kWarp, smem_bulk, s>>>(w, n_rows, row_w, k, wp, d, r, t, nb, qf, nbr_sq,
+                                                   o, kStages, stage_bytes, q_off, n_off);
   } else {
     const size_t smem = static_cast<size_t>(nq) * sizeof(float);
-    auto kern = words_dist_kernel<kBits, false>;
+    auto kern = words_dist_kernel<kBits, false, kEpi>;
     const auto grid = static_cast<unsigned>(std::min(nb, persistent_blocks(kern, kThreads, smem)));
-    kern<<<grid, kThreads, smem, s>>>(w, n_rows, row_w, k, wp, d, r, t, nb, qf, o, 0, 0, 0);
+    kern<<<grid, kThreads, smem, s>>>(w, n_rows, row_w, k, wp, d, r, t, nb, qf, nbr_sq, o, 0, 0, 0,
+                                      0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -541,7 +609,9 @@ extern "C" int hnsw_vec_dist(const void* table, int dtype, int64_t n_rows,
 }
 
 // bits: 8 or 4. cur: int32 [q, t] packed-row ids. ip: 0 = L2 surrogate,
-// 1 = -dot. out: float32 [q, t * k].
+// 1 = -dot. out: float32 [q, t * k]. Code rows whose segments are a whole
+// number of 4-byte words (db % 4 == 0, the table 4-byte aligned) go to the
+// word engine with wp = db / 4; the others to packed_dist_kernel.
 extern "C" int hnsw_packed_dist(const void* codes, int64_t n_rows,
                                 int64_t row_w, const void* nbr_sq, int k,
                                 int d, int bits, const void* cur, int q,
@@ -549,20 +619,30 @@ extern "C" int hnsw_packed_dist(const void* codes, int64_t n_rows,
                                 void* stream) {
   using namespace hnsw;
   if (q <= 0 || k <= 0 || t <= 0) return static_cast<int>(cudaGetLastError());
+  if (bits != 8 && bits != 4) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const uint8_t*>(codes);
   auto sq = static_cast<const float*>(nbr_sq);
   auto r = static_cast<const int32_t*>(cur);
   auto qf = static_cast<const float*>(qs);
   auto o = static_cast<float*>(out);
+  const int db = bits == 8 ? d : (d + 1) / 2;
+  if (db % 4 == 0 && row_w % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 4 == 0) {
+    auto w = reinterpret_cast<const int32_t*>(c);
+    const int64_t nb = static_cast<int64_t>(q) * t;
+    const int64_t ww = row_w / 4;
+    if (bits == 8)
+      return ip ? launch_words<8, kEpiIP>(w, n_rows, ww, k, db / 4, d, r, nb, t, qf, sq, o, s)
+                : launch_words<8, kEpiL2>(w, n_rows, ww, k, db / 4, d, r, nb, t, qf, sq, o, s);
+    return ip ? launch_words<4, kEpiIP>(w, n_rows, ww, k, db / 4, d, r, nb, t, qf, sq, o, s)
+              : launch_words<4, kEpiL2>(w, n_rows, ww, k, db / 4, d, r, nb, t, qf, sq, o, s);
+  }
   if (bits == 8) {
     if (ip) launch_packed<8, true>(c, n_rows, row_w, sq, k, d, r, q, t, qf, o, s);
     else launch_packed<8, false>(c, n_rows, row_w, sq, k, d, r, q, t, qf, o, s);
-  } else if (bits == 4) {
+  } else {
     if (ip) launch_packed<4, true>(c, n_rows, row_w, sq, k, d, r, q, t, qf, o, s);
     else launch_packed<4, false>(c, n_rows, row_w, sq, k, d, r, q, t, qf, o, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -581,7 +661,9 @@ extern "C" int hnsw_words_dist(const void* words, int64_t n_rows,
   auto qf = static_cast<const float*>(qs);
   auto o = static_cast<float*>(out);
   const int64_t nb = static_cast<int64_t>(q) * t;
-  if (bits == 8) return launch_words<8>(w, n_rows, row_w, k, wp, d, r, nb, t, qf, o, s);
-  if (bits == 4) return launch_words<4>(w, n_rows, row_w, k, wp, d, r, nb, t, qf, o, s);
+  if (bits == 8)
+    return launch_words<8, kEpiDots>(w, n_rows, row_w, k, wp, d, r, nb, t, qf, nullptr, o, s);
+  if (bits == 4)
+    return launch_words<4, kEpiDots>(w, n_rows, row_w, k, wp, d, r, nb, t, qf, nullptr, o, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,14 +9,18 @@ kernel when they are on a CUDA device; there is no fallback between the two.
   * ``gathered_vec_dist_ids(table, ids, qs, dequant, metric=)`` — exact f32
     surrogate distances ``Σv² − 2Σq·v`` (L2) or ``−Σq·v`` (IP) to the rows
     ``table[ids]``, gathered inside the kernel. f32, bf16 or uint8 rows
-    (uint8 with the affine dequant ``v = offset + scale·u``), any d. The
-    search path calls this; ``gathered_vec_dist`` keeps the reference's
-    pre-gathered signature for the parity tests.
+    (uint8 with the affine dequant ``v = offset + scale·u``), any d and K
+    (the kernel uses no shared memory). The search path calls this;
+    ``gathered_vec_dist`` keeps the reference's pre-gathered signature for
+    the parity tests.
   * ``packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=, metric=)`` —
     routing distances ``nbr_sq − 2Σ qs·u`` (L2) or ``−Σ qs·u`` (IP) from
     packed code row ``cur[q]`` (8-bit: one byte per dim; 4-bit: even dim in
     the low nibble, odd dim in the high one). ``packed_row_dist`` keeps the
-    reference's signature.
+    reference's signature. Where a candidate's segment is a whole number of
+    4-byte words, the kernel is K4's engine with a metric epilogue, and its
+    L2 output equals ``nbr_sq[cur] − 2·packed_row_dist_words_ids(...)`` bit
+    for bit on the same bits.
   * ``packed_row_dist_words_ids(words, cur, qs, wp=, bits=)`` — the dots
     ``Σ qs·u`` alone (the caller applies the metric) from int32 word row
     ``cur[q]``: ``wp`` words per candidate, 32/bits values per word,
@@ -80,8 +84,6 @@ def gathered_vec_dist_ids(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError("gathered_vec_dist: empty table")
     if on_cpu(*tensors):
         return gathered_vec_dist_plain(table, ids, qs, dequant, metric=metric)
-    if (3 if dequant is not None else 1) * d * 4 > SMEM_LIMIT:
-        raise ValueError(f"gathered_vec_dist: d={d} too wide for one block")
     out = torch.empty((q, k), dtype=torch.float32, device=table.device)
     if q == 0 or k == 0:
         return out
@@ -162,7 +164,10 @@ def packed_row_dist_ids(codes: torch.Tensor, nbr_sq: torch.Tensor,
     if on_cpu(codes, nbr_sq, cur, qs):
         return packed_row_dist_plain(codes, nbr_sq, cur, qs, bits=bits,
                                      metric=metric)
-    if (d + 1) * 4 > SMEM_LIMIT:
+    # a block stages the query's code-row values (dims past d as 0) without
+    # opting in to more than SMEM_LIMIT (the kernel's paths other than the
+    # bulk ring)
+    if _code_bytes(d, bits) * (8 // bits) * 4 > SMEM_LIMIT:
         raise ValueError(f"packed_row_dist: d={d} too wide for one block")
     out = torch.empty((q, t * k), dtype=torch.float32, device=codes.device)
     if q == 0 or k == 0 or t == 0:

@@ -244,3 +244,109 @@ def test_words_and_gather_kernels_match_plain_versions_on_card(card):
     counts = _cuda.launch_counts()
     assert counts["packed_row_dist_words"] == 8
     assert counts["fused_gather_distances"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (100, 128, 960))
+def test_vec_dist_chunks_match_plain_on_card(card, d):
+    """K3 (one warp a chunk of 8 candidates, a flat grid of (query, chunk)
+    pairs, 128-dim passes) against its plain version at K in {1, 17, 32,
+    128, 256} (chunks that are full, ragged and single) and Q in {3, 86,
+    2048}, with ~40% of ids masked to row 0 as the build masks them; f32,
+    bf16 and uint8 + dequant rows, L2 and IP. Tolerance as in
+    chip_smoke.py: rtol 1e-5 + atol 1e-3, f32 sums in another order."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(d)
+    n = 5000
+    table = torch.randn((n, d), generator=g, device=card)
+    codes = torch.randint(0, 256, (n, d), generator=g, device=card,
+                          dtype=torch.uint8)
+    deq = (torch.randn(d, generator=g, device=card),
+           0.01 + 0.02 * torch.rand(d, generator=g, device=card))
+    rows = ((table, None), (table.to(torch.bfloat16), None), (codes, deq))
+    calls = 0
+    for k in (1, 17, 32, 128, 256):
+        for q in (3, 86, 2048):
+            ids = torch.randint(0, n, (q, k), generator=g, device=card,
+                                dtype=torch.int32)
+            ids[torch.rand((q, k), generator=g, device=card) < 0.4] = 0
+            qs = torch.randn((q, d), generator=g, device=card)
+            for tab, dq in rows:
+                for metric in ("l2", "ip"):
+                    torch.testing.assert_close(
+                        dist_kernel.gathered_vec_dist_ids(tab, ids, qs, dq,
+                                                          metric=metric),
+                        dist_kernel.gathered_vec_dist_plain(tab, ids, qs, dq,
+                                                            metric=metric),
+                        rtol=1e-5, atol=1e-3)
+                    calls += 1
+    assert _cuda.launch_counts()["gathered_vec_dist"] == calls
+
+
+@pytest.mark.cuda
+def test_packed_dist_engine_and_byte_path_match_plain_on_card(card):
+    """K2 against its plain version: 8-bit and 4-bit at d = 128 (K4's
+    engine, bulk ring), 4-bit at d = 127 (the engine's plain-load path: the
+    query's d * 4 bytes are no multiple of 16), d = 101 (db % 4 != 0: the
+    byte path), one and two
+    expansions a query, Q = 8191 (no multiple of the persistent grid), L2
+    and IP, and an 8-bit table whose last rows sit past 2^31 bytes
+    (270,000 rows of 8 KB). Tolerance as in chip_smoke.py: rtol 1e-5 +
+    atol 1e-2."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(3)
+    k, q = 64, 8191
+    calls = 0
+    for d, bits, n in ((128, 8, 270_000), (128, 4, 4000), (127, 4, 4000),
+                       (101, 8, 4000), (101, 4, 4000)):
+        db = d if bits == 8 else (d + 1) // 2
+        codes = torch.randint(0, 256, (n, k * db), generator=g, device=card,
+                              dtype=torch.uint8)
+        nbr_sq = 100 * torch.rand((n, k), generator=g, device=card)
+        cur = torch.randint(0, n, (q + 1,), generator=g, device=card,
+                            dtype=torch.int32)
+        cur[:100] = torch.arange(n - 100, n, device=card, dtype=torch.int32)
+        qs = torch.randn((q + 1, d), generator=g, device=card)
+        for c, qq in ((cur[:q], qs[:q]), (cur.view(-1, 2), qs[:(q + 1) // 2])):
+            for metric in ("l2", "ip"):
+                torch.testing.assert_close(
+                    dist_kernel.packed_row_dist_ids(codes, nbr_sq, c, qq,
+                                                    bits=bits, metric=metric),
+                    dist_kernel.packed_row_dist_plain(codes, nbr_sq, c, qq,
+                                                      bits=bits,
+                                                      metric=metric),
+                    rtol=1e-5, atol=1e-2)
+                calls += 1
+        del codes, nbr_sq
+    assert _cuda.launch_counts()["packed_row_dist"] == calls
+
+
+@pytest.mark.cuda
+def test_packed_dist_equals_words_dots_on_card(card):
+    """K2 on a bytes table and K4 on the ``pack_words`` table of the same
+    codes (d = 128, 8-bit) run one engine in one order of summation: K2's
+    L2 output is ``nbr_sq[cur] - 2 * dots`` and its IP output ``-dots``,
+    exactly, with one and two expansions a query."""
+    from hnsw_tpu_torch.ops.packed import pack_words
+    g = torch.Generator(device=card).manual_seed(4)
+    n, k, d, q = 3000, 64, 128, 1000
+    vals = torch.randint(0, 256, (n, k, d), generator=g, device=card,
+                         dtype=torch.uint8)
+    codes = vals.view(n, k * d)
+    words = pack_words(vals, 8).view(n, k * 32)
+    assert torch.equal(words, codes.view(torch.int32))
+    nbr_sq = 100 * torch.rand((n, k), generator=g, device=card)
+    qs = torch.randn((q, d), generator=g, device=card)
+    for shape in ((q,), (q // 2, 2)):
+        cur = torch.randint(0, n, shape, generator=g, device=card,
+                            dtype=torch.int32)
+        qq = qs[:shape[0]]
+        dots = dist_kernel.packed_row_dist_words_ids(words, cur, qq, wp=32,
+                                                     bits=8)
+        l2 = dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, qq, bits=8,
+                                             metric="l2")
+        ip = dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, qq, bits=8,
+                                             metric="ip")
+        want = nbr_sq[cur.long()].reshape(dots.shape) - 2.0 * dots
+        assert torch.equal(l2, want)
+        assert torch.equal(ip, -dots)

@@ -66,6 +66,14 @@ def test_gathered_vec_dist_matches_reference(dtype, d, metric):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
+def test_gathered_vec_dist_gist_width_matches_reference(dtype, metric):
+    """The same comparison at GIST's d = 960, which the CUDA kernel walks
+    in passes of 128 dims (no shared-memory limit on d any more)."""
+    test_gathered_vec_dist_matches_reference(dtype, 960, metric)
+
+
 def test_gathered_vec_dist_ids_matches_pregathered():
     """The ids entry point (the search path's) gathers inside; the
     pre-gathered one runs it on vecs.view(Q*K, d) with ids = arange."""
@@ -106,6 +114,14 @@ def test_packed_row_dist_matches_reference(bits, d, metric):
         k=k, bits=bits, metric=metric)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_packed_row_dist_main_width_matches_reference(bits, metric):
+    """The same comparison at the main path's d = 128, the width at which
+    the CUDA kernel runs on K4's engine (whole 4-byte words a segment)."""
+    test_packed_row_dist_matches_reference(bits, 128, metric)
 
 
 def test_packed_row_dist_ids_reads_row_by_node():
@@ -333,6 +349,43 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         dist_kernel.gathered_vec_dist_ids(
             meta, ids.to("meta"), meta[:4], metric="l2")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dist_wrappers_take_what_the_kernels_take(monkeypatch, bits):
+    """The wrappers' limits on the card, with the card faked (``on_cpu``
+    answers False; launches are recorded, not run). K3 takes any d: its
+    kernel keeps the query in registers, not shared memory. K2 takes a d
+    whose staged query values (dims past d as 0) fit in SMEM_LIMIT bytes,
+    which its byte path and its word engine's plain-load path stage without
+    opting in to more, and refuses the next d."""
+    launched = []
+    monkeypatch.setattr(dist_kernel, "on_cpu", lambda *tensors: False)
+    for kern in (dist_kernel._VEC_DIST, dist_kernel._PACKED_DIST):
+        monkeypatch.setattr(kern, "launch",
+                            lambda *args, name=kern.name:
+                            launched.append((name, args)))
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    wide = _cuda.SMEM_LIMIT  # 4x the d a shared-memory query could hold
+    dist_kernel.gathered_vec_dist_ids(torch.zeros((5, wide)), ids,
+                                      torch.zeros((2, wide)), metric="l2")
+    assert launched[-1][0] == "gathered_vec_dist"
+    assert launched[-1][1][3] == wide
+    d_max = _cuda.SMEM_LIMIT // 4
+    for d in (d_max, d_max + 1):
+        db = d if bits == 8 else (d + 1) // 2
+        args = (torch.zeros((3, 2 * db), dtype=torch.uint8),
+                torch.zeros((3, 2)), torch.zeros(2, dtype=torch.int32),
+                torch.zeros((2, d)))
+        if d == d_max:
+            dist_kernel.packed_row_dist_ids(*args, bits=bits, metric="l2")
+            assert launched[-1][0] == "packed_row_dist"
+            assert launched[-1][1][5] == d
+        else:
+            with pytest.raises(ValueError, match="too wide"):
+                dist_kernel.packed_row_dist_ids(*args, bits=bits,
+                                                metric="l2")
+    assert len(launched) == 2
 
 
 def test_words_and_gather_wrappers_refuse_what_the_kernels_do_not_take():
