@@ -14,8 +14,8 @@ Phases (any failure raises, and the exit code is not 0):
      64, 128, 256, 512}; K1 also with no fresh candidate and converged;
      K3 also at the build's upper-level beam, Q=86 and K=128) and at
      4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
-     clamped-id and two-expansion variants, and Q=8191 for K2's and K4's
-     persistent grid; K2 must equal ``nbr_sq[cur] - 2 * K4 dots`` on the
+     clamped-id and two-expansion variants, K2 also at the sq8 phase's
+     d=96 rows, and Q=8191 for K2's and K4's persistent grid; K2 must equal ``nbr_sq[cur] - 2 * K4 dots`` on the
      same bits exactly (one engine); time both with CUDA events and
      compute each kernel's bound from its inputs;
   4. the main path, ``synthetic_workload(n, 128, n_queries=8192,
@@ -43,22 +43,57 @@ Phases (any failure raises, and the exit code is not 0):
           hops and ndis; requires the filtered result to hold only
           allowed ids, no id twice in a row, and exact squared L2.
 
-``--n N`` (N >= 300,000) cuts the main path's base to N vectors (the cut is
-printed); with no arguments it runs the full 1,000,000. ``--profile`` adds
-one ``torch.profiler`` window of packed ef=64 search on bytes and on words
-rows (2 warm-ups, 10 unprofiled walls, one profiled call: device busy,
-busy share, the top ops by device time); its searches count as main-path
-launches.
+  5. K3 at the storage codecs' rows, held against its plain version, timed
+     and bounded at Q=8192, K=64: uint8 + dequant at d=96 and bf16 at
+     d=128; and the ADC forms (decode + contract; LUT + gather; gather
+     from a table made before, the hops' form) timed and compared at the
+     same shape. The f32 index is freed first;
+  6. the storage codecs, each phase again with the launch counts set to 0
+     just before it and read just after, K3's launches also by row dtype:
+       f. sq8 storage, Deep10M-shaped (``synthetic_workload(1_000_000, 96,
+          n_queries=8192, seed=1234)``, M=32, efConstruction=100):
+          ``train(base[:262144])``, ``add``, ``check()`` (K3 on uint8 rows,
+          timed at the build's shapes as in 4a); the x̂ oracle
+          ``brute_force_topk(dequant=)`` and the true f32 ground truth;
+          unpacked search at ef 64 / 128 / 256 (K1, K3; recall@10 against
+          x̂ >= 0.95 at the best ef); ``enable_packed(bits=8)`` (K2) at
+          ef=64, within 0.01 of unpacked; then PQ-coded routing rows
+          (``enable_packed(mode="pq", pq_m=12, train_x=base[:65536])``) at
+          ef 64 / 128, recall printed only (the synthetic data is
+          PQ-hostile). Returned distances must be exact over x̂;
+       g. bf16 storage, SIFT-shaped (300,000 x 128): build (K3 on bf16
+          rows, timed at the build's shapes as in 4a) and unpacked ef=64
+          search, recall against the bf16 x̂ oracle >= 0.95;
+       h. PQ storage, Deep-shaped (300,000 x 96, pq_m=12): ``train``,
+          ``add``, search at ef 64 / 128 / 256 (K1, ADC), recall against
+          the ADC oracle ``brute_force_topk(pq=)`` >= 0.95 at the best ef,
+          counted as ann-benchmarks counts it (a returned distance within
+          the oracle's 10th: the reconstructions hold many duplicate
+          points, and the oracle's pick among tied ids is arbitrary), with
+          the by-id recall over the queries that have no tie at the 10th
+          printed beside it;
+          ``enable_packed()`` on the stored codes; a ``to_bytes()`` ->
+          ``from_bytes()`` round trip whose search returns identical ids
+          and distances.
+
+``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
+cut is printed); with no arguments it runs the full 1,000,000. The codec
+phases always run at the sizes above. ``--profile`` adds one
+``torch.profiler`` window of ef=64 search on bytes and on words rows, and
+on sq8 storage unpacked and with PQ-coded rows (2 warm-ups, 10 unprofiled
+walls, one profiled call: device busy, busy share, the top ops by device
+time); its searches count as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over the main path's phases), error, times and bound, and the
-``nvidia-smi`` name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.
+(summed over every phase of 4 and 6; K3 by row dtype, one row each),
+error, times and bound, and the ``nvidia-smi`` name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -70,6 +105,9 @@ import torch
 NORTH_STAR_N = 1_000_000
 N_QUERIES, HOP_K = 8192, 64      # the main path's query batch and m0
 PACKED_ROWS = 300_000            # 8 KB rows: offsets cross 2^31 bytes
+SQ8_N = 1_000_000                # phase f: Deep10M cut to 1M (build time)
+SMALL_CODEC_N = 300_000          # phases g and h
+DEEP_D, DEEP_PQ_M = 96, 12       # Deep's width; pq_m = d // 8 (bench.py)
 # NVIDIA's H100 SXM data sheet: HBM bytes/s, and float32 operations/s
 # outside the tensor cores (none of these kernels uses them)
 HBM_BYTES_PER_S = 3.35e12
@@ -145,13 +183,16 @@ def bound(nbytes: float, ops: float) -> dict:
             "bytes": nbytes}
 
 
-def gather_bound(ids: torch.Tensor, d: int, ip: bool) -> dict:
-    """K3 / K5: each distinct row once (d f32), ids, queries, the output;
-    2 operations a dim for the dot, 2 more for the norm (L2)."""
+def gather_bound(ids: torch.Tensor, d: int, ip: bool, row_elem: int = 4,
+                 dequant: bool = False) -> dict:
+    """K3 / K5: each distinct row once (d elements of ``row_elem`` bytes),
+    ids, queries, the output (and the dequant affine); 2 operations a dim
+    for the dot, 2 more for the norm (L2), 2 more for the dequant."""
     q, k = ids.shape
     rows = torch.unique(ids.clamp(min=0)).numel()
-    return bound(rows * d * 4 + q * k * 4 + q * d * 4 + q * k * 4,
-                 q * k * d * (2 if ip else 4))
+    return bound(rows * d * row_elem + q * k * 4 + q * d * 4 + q * k * 4
+                 + (2 * d * 4 if dequant else 0),
+                 q * k * d * ((2 if ip else 4) + (2 if dequant else 0)))
 
 
 def check_vec_dist(dev, gen) -> dict:
@@ -222,18 +263,91 @@ def check_vec_dist(dev, gen) -> dict:
     return out
 
 
+def check_vec_dist_codecs(dev, gen) -> dict:
+    """K3 at the storage codecs' serving shape (Q=8192, K=64) over 1M rows:
+    uint8 + dequant at d=96 (sq8, 96-byte rows) and bf16 at d=128, L2 and
+    IP, against the plain version (check_vec_dist's tolerance), timed and
+    bounded (each distinct row once, at its row bytes). Returns one entry
+    per row dtype. Then the ADC forms of PQ storage, which are PyTorch ops
+    and no kernel (the reference runs them through XLA): decode + contract
+    (``adc_decode_distance``), LUT + gather (``pq_lut`` + ``adc_distance``)
+    and the gather alone from a table made before (what each hop runs),
+    compared and timed at the same shape."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    from hnsw_tpu_torch.ops import pq
+    q, k, n = N_QUERIES, HOP_K, NORTH_STAR_N
+    out = {}
+    ids = torch.randint(0, n, (q, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for tag, d in (("uint8", DEEP_D), ("bfloat16", 128)):
+        qs = torch.randn((q, d), generator=gen, device=dev)
+        if tag == "uint8":
+            table = torch.randint(0, 256, (n, d), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            deq = (torch.randn(d, generator=gen, device=dev),
+                   0.01 + 0.02 * torch.rand(d, generator=gen, device=dev))
+        else:
+            table = torch.randn((n, d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+            deq = None
+        for metric in ("l2", "ip"):
+            err = compare(f"gathered_vec_dist {tag} d={d} K={k} {metric}",
+                          dk.gathered_vec_dist_ids(table, ids, qs, deq,
+                                                   metric=metric),
+                          dk.gathered_vec_dist_plain(table, ids, qs, deq,
+                                                     metric=metric),
+                          rtol=1e-5, atol=1e-3)
+            if metric == "l2":
+                m = {"max_abs_err": err, "d": d}
+                m.update(gather_bound(ids, d, ip=False,
+                                      row_elem=table.element_size(),
+                                      dequant=deq is not None))
+                m["ms"] = time_ms(lambda: dk.gathered_vec_dist_ids(
+                    table, ids, qs, deq, metric="l2"))
+                m["plain_ms"] = time_ms(lambda: dk.gathered_vec_dist_plain(
+                    table, ids, qs, deq, metric="l2"))
+                out[tag] = m
+        del table
+    codes = torch.randint(0, 256, (n, DEEP_PQ_M), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn((DEEP_PQ_M, 256, DEEP_D // DEEP_PQ_M), generator=gen,
+                     device=dev)
+    qs = torch.randn((q, DEEP_D), generator=gen, device=dev)
+
+    def decode_form():
+        return pq.adc_decode_distance(cb, qs, codes[ids.long()], "l2")
+
+    def lut_form():
+        return pq.adc_distance(pq.pq_lut(qs, cb, "l2"), codes[ids.long()])
+
+    lut = pq.pq_lut(qs, cb, "l2")
+
+    def hop_form():       # the table made once a search, as the hops use it
+        return pq.adc_distance(lut, codes[ids.long()])
+
+    compare(f"ADC decode form vs LUT form, Q={q} K={k} m={DEEP_PQ_M}",
+            decode_form(), lut_form(), rtol=1e-5, atol=1e-3)
+    log(f"  ADC at Q={q} K={k} m={DEEP_PQ_M} (PyTorch ops, the code gather "
+        f"included): decode + contract {time_ms(decode_form):.4f} ms, "
+        f"LUT + gather {time_ms(lut_form):.4f} ms, gather from a table made "
+        f"before {time_ms(hop_form):.4f} ms")
+    return out
+
+
 def check_packed_dist(dev, gen) -> dict:
     """K2 at the main path's row (64 neighbors x 128 dims x 8 bits = 8 KB)
-    over a 300k-row table (2.46 GB, so row offsets cross 2^31), plus 4-bit,
-    odd d, IP and two expansions a query (cur [Q/2, 2]). Tolerance: rtol
+    over a 300k-row table (2.46 GB, so row offsets cross 2^31), at the sq8
+    phase's row (d = 96: 96-byte segments, 24 words a neighbor on K4's
+    engine), plus 4-bit, odd d, and, for L2 and IP, one and two expansions
+    a query (cur [Q/2, 2]). Tolerance: rtol
     1e-5 + atol 1e-2 (f32 sums of up to 128 code * query terms, each up to
     ~500, in another order). No single PyTorch call reads code rows by id
     and contracts them: library_ms is null."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
     q, k, big = N_QUERIES, HOP_K, PACKED_ROWS
     out = {}
-    for d, bits, rows in ((128, 8, big), (128, 4, big), (101, 8, 20_000),
-                          (101, 4, 20_000)):
+    for d, bits, rows in ((128, 8, big), (128, 4, big), (DEEP_D, 8, big),
+                          (101, 8, 20_000), (101, 4, 20_000)):
         db = d if bits == 8 else (d + 1) // 2
         codes = torch.randint(0, 256, (rows, k * db), generator=gen,
                               device=dev, dtype=torch.uint8)
@@ -266,15 +380,15 @@ def check_packed_dist(dev, gen) -> dict:
                 dk.packed_row_dist_plain(codes, nbr_sq, cur[:256], qs[:256],
                                          bits=bits, metric="l2"),
                 rtol=1e-5, atol=1e-2)
-        for cc, qq, tag in ((cur.view(q // 2, 2), qs[:q // 2],
-                             "two expansions"),
-                            (cur[:q - 1], qs[:q - 1],
-                             f"Q={q - 1} (no multiple of the grid)")):
-            compare(f"packed_row_dist {bits}-bit d={d} {tag}",
+        for (cc, qq, tag), metric in itertools.product(
+                ((cur.view(q // 2, 2), qs[:q // 2], "two expansions"),
+                 (cur[:q - 1], qs[:q - 1],
+                  f"Q={q - 1} (no multiple of the grid)")), ("l2", "ip")):
+            compare(f"packed_row_dist {bits}-bit d={d} {tag} {metric}",
                     dk.packed_row_dist_ids(codes, nbr_sq, cc, qq, bits=bits,
-                                           metric="l2"),
+                                           metric=metric),
                     dk.packed_row_dist_plain(codes, nbr_sq, cc, qq,
-                                             bits=bits, metric="l2"),
+                                             bits=bits, metric=metric),
                     rtol=1e-5, atol=1e-2)
         if (d, bits) == (128, 8):
             k2_equals_k4(codes, nbr_sq, cur, qs)
@@ -528,22 +642,31 @@ def profile_window(tag: str, fn, top: int = 8) -> None:
             f" of busy), {e.count} calls")
 
 
-def phase(name: str, need: tuple, totals: dict, fn):
+def phase(name: str, need: tuple, totals: dict, fn, need_tags: tuple = ()):
     """Run one main-path phase with the launch counts set to 0 just before
-    it and read just after; every kernel in ``need`` must have launched.
-    Adds the phase's counts to ``totals``."""
+    it and read just after; every kernel in ``need`` must have launched,
+    and every (kernel, tag) in ``need_tags`` (K3's row dtype) too. Adds the
+    phase's counts to ``totals``, and the tagged ones to
+    ``totals["by_tag"]``."""
     from hnsw_tpu_torch.ops import _cuda
     _cuda.reset_launch_counts()
     result = fn()
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
-    log(f"phase {name}: kernel launches {counts}")
+    tagged = _cuda.tagged_launch_counts()
+    log(f"phase {name}: kernel launches {counts}, by tag {tagged}")
     missing = [k for k in need if counts[k] == 0]
+    missing += [f"{k} on {t} rows" for k, t in need_tags
+                if tagged.get(k, {}).get(t, 0) == 0]
     if missing:
         raise AssertionError(f"phase {name}: kernels never launched: "
                              f"{missing}")
     for k, c in counts.items():
         totals[k] = totals.get(k, 0) + c
+    by_tag = totals.setdefault("by_tag", {})
+    for k, tags in tagged.items():
+        for t, c in tags.items():
+            by_tag[(k, t)] = by_tag.get((k, t), 0) + c
     return result
 
 
@@ -560,7 +683,8 @@ def capture_build_k3(build, k3_build: dict):
         rec = k3_build.setdefault(k, {"launches": 0, "args": None})
         rec["launches"] += 1
         if rec["args"] is None or ids.shape[0] >= rec["args"][1].shape[0]:
-            rec["args"] = (table, ids, qs, metric)   # the last widest call
+            # the last widest call
+            rec["args"] = (table, ids, qs, dequant, metric)
         return orig(table, ids, qs, dequant, metric=metric)
 
     search.gathered_vec_dist_ids = recording
@@ -579,18 +703,24 @@ def measure_build_k3(k3_build: dict) -> None:
     from hnsw_tpu_torch.ops import dist_kernel as dk
     for k in sorted(k3_build):
         rec = k3_build[k]
-        table, ids, qs, metric = rec["args"]
-        compare(f"gathered_vec_dist at the build's Q={ids.shape[0]} K={k}",
-                dk.gathered_vec_dist_ids(table, ids, qs, metric=metric),
-                dk.gathered_vec_dist_plain(table, ids, qs, metric=metric),
+        table, ids, qs, deq, metric = rec["args"]
+        rows_of = str(table.dtype).removeprefix("torch.")
+        compare(f"gathered_vec_dist ({rows_of} rows) at the build's "
+                f"Q={ids.shape[0]} K={k}",
+                dk.gathered_vec_dist_ids(table, ids, qs, deq, metric=metric),
+                dk.gathered_vec_dist_plain(table, ids, qs, deq,
+                                           metric=metric),
                 rtol=1e-5, atol=1e-3)
-        b = gather_bound(ids, table.shape[1], ip=metric == "ip")
-        ms = time_ms(lambda: dk.gathered_vec_dist_ids(table, ids, qs,
+        b = gather_bound(ids, table.shape[1], ip=metric == "ip",
+                         row_elem=table.element_size(),
+                         dequant=deq is not None)
+        ms = time_ms(lambda: dk.gathered_vec_dist_ids(table, ids, qs, deq,
                                                       metric=metric))
-        plain = time_ms(lambda: dk.gathered_vec_dist_plain(table, ids, qs,
-                                                           metric=metric))
+        plain = time_ms(lambda: dk.gathered_vec_dist_plain(
+            table, ids, qs, deq, metric=metric))
         rows = torch.unique(ids).numel()
-        log(f"K3 at the build's shape Q={ids.shape[0]} K={k}: "
+        log(f"K3 ({rows_of} rows) at the build's shape Q={ids.shape[0]} "
+            f"K={k}: "
             f"{rec['launches']} launches in the build; kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms by "
             f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {rows} distinct "
@@ -598,11 +728,53 @@ def measure_build_k3(k3_build: dict) -> None:
             f"share of bound {b['bound_ms'] / ms:.2f}")
 
 
+def timed(fn, runs=2):
+    """(result, best synced wall seconds of ``runs`` runs)."""
+    best = None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        best = dt if best is None else min(best, dt)
+    return res, best
+
+
+def report(tag, res, secs, gt_ids, runs=2, truth=None):
+    """Print one search's recall@10 against ``gt_ids`` (and against
+    ``truth``, the f32 ground truth, where a codec's oracle is x̂), qps,
+    hops and ndis; raise on a malformed result. Returns the recall."""
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    d, i, st = res
+    if tuple(i.shape) != (N_QUERIES, 10) or not torch.isfinite(
+            d[i >= 0]).all():
+        raise AssertionError(f"{tag}: search output malformed")
+    ids = i.cpu().numpy()
+    r = recall_at_k(ids, gt_ids, 10)
+    vs_truth = "" if truth is None else \
+        f" (against the f32 truth {recall_at_k(ids, truth, 10):.4f})"
+    log(f"search {tag}: recall@10 {r:.4f}{vs_truth}, {N_QUERIES / secs:.0f} "
+        f"qps (best of {runs}, {secs * 1e3:.1f} ms), hops {st.hops}, ndis "
+        f"mean {st.ndis.float().mean():.1f}")
+    return r
+
+
+def exact_l2(tag, queries, d, i, rows):
+    """Returned distances are exact squared L2 to the stored vectors of
+    the returned ids (``rows(ids)``: f32, or x̂ of a codec)."""
+    ok = i >= 0
+    x = rows(i.long().clamp(min=0))
+    exact = ((queries[:, None, :] - x) ** 2).sum(-1)
+    if not torch.allclose(d[ok], exact[ok], rtol=1e-4, atol=1e-3):
+        raise AssertionError(f"{tag}: returned distances are not exact "
+                             f"squared L2")
+
+
 def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     from hnsw_tpu_torch import HnswIndex, synthetic_workload
     from hnsw_tpu_torch.ops.distances import brute_force_topk
     from hnsw_tpu_torch.search import hnsw_search
-    from hnsw_tpu_torch.utils.recall import recall_at_k
 
     t0 = time.time()
     wl = synthetic_workload(n, 128, n_queries=N_QUERIES, seed=1234)
@@ -635,29 +807,6 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     measure_build_k3(k3_build)
     del k3_build
 
-    def timed(fn, runs=2):
-        """(result, best synced wall seconds of ``runs`` runs)."""
-        best = None
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t = time.time()
-            res = fn()
-            torch.cuda.synchronize()
-            dt = time.time() - t
-            best = dt if best is None else min(best, dt)
-        return res, best
-
-    def report(tag, res, secs, gt_ids, runs=2):
-        d, i, st = res
-        if tuple(i.shape) != (N_QUERIES, 10) or not torch.isfinite(
-                d[i >= 0]).all():
-            raise AssertionError(f"{tag}: search output malformed")
-        r = recall_at_k(i.cpu().numpy(), gt_ids, 10)
-        log(f"search {tag}: recall@10 {r:.4f}, {N_QUERIES / secs:.0f} qps "
-            f"(best of {runs}, {secs * 1e3:.1f} ms), hops {st.hops}, ndis "
-            f"mean {st.ndis.float().mean():.1f}")
-        return r
-
     def run(ef, packed, tag):
         res, secs = timed(lambda: idx.search(
             queries, 10, ef_search=ef, with_stats=True, use_packed=packed,
@@ -670,13 +819,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                 queries, 10, ef_search=ef, use_packed=True, device_out=True))
 
     def check_exact(tag, d, i):
-        """returned distances are exact squared L2 of the returned ids"""
-        ok = i >= 0
-        x = idx.vectors[i.long().clamp(min=0)]
-        exact = ((queries[:, None, :] - x) ** 2).sum(-1)
-        if not torch.allclose(d[ok], exact[ok], rtol=1e-4, atol=1e-3):
-            raise AssertionError(f"{tag}: returned distances are not exact "
-                                 f"squared L2")
+        exact_l2(tag, queries, d, i, lambda ids: idx.vectors[ids])
 
     gt = None
 
@@ -799,6 +942,266 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
             "words": words, "pallas": pallas, "legacy": legacy}
 
 
+def stored_rows(idx):
+    """ids -> the stored vectors of ``idx`` as f32 on the card: x̂ for sq8
+    (the affine) and PQ (the codebooks), the bf16 values for bf16."""
+    from hnsw_tpu_torch.ops.distances import decode_rows
+    return lambda ids: decode_rows(idx.vectors[ids], idx._sq, idx._pq)
+
+
+def oracles(idx, queries, base: np.ndarray, n: int, dev):
+    """The x̂ oracle (brute_force_topk over the stored codes, ``dequant=`` /
+    ``pq=``, tiles decoded on the fly) and the f32 truth (over the raw
+    base): (x̂ ids [Q, 10] numpy, x̂ squared L2 [Q, 11] on the card, truth
+    ids [Q, 10] numpy). Prints the share of queries whose 10th and 11th x̂
+    neighbours tie: there, which of the tied ids the oracle lists is
+    arbitrary."""
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    t0 = time.time()
+    hat_d, hat = brute_force_topk(queries, idx.vectors, 11, n_valid=n,
+                                  dequant=idx._sq, pq=idx._pq)
+    raw = torch.from_numpy(base).to(dev)
+    _, truth = brute_force_topk(queries, raw, 10)
+    del raw
+    tie = float((hat_d[:, 10] <= hat_d[:, 9] * (1 + 1e-5)).float().mean())
+    log(f"oracles (x̂ and f32 truth, brute_force_topk on the card): "
+        f"{time.time() - t0:.1f} s; 10th and 11th x̂ neighbours tie for "
+        f"{tie:.4f} of the queries")
+    return hat[:, :10].cpu().numpy(), hat_d, truth.cpu().numpy()
+
+
+def recall_ties(d, i, hat_d, k: int = 10) -> float:
+    """Recall@k as ann-benchmarks counts it: a returned id is a hit when its
+    distance is within the oracle's k-th distance (here rtol 1e-5 for f32
+    rounding). Where the data holds duplicate points (PQ reconstructions),
+    many ids share the k-th distance and which of them the oracle lists is
+    arbitrary, so the id-based recall undercounts a search that is exact.
+    The returned distances must be exact over x̂ (``exact_l2``)."""
+    kth = hat_d[:, k - 1:k]
+    hit = (i[:, :k] >= 0) & (d[:, :k] <= kth + kth.abs() * 1e-5)
+    return float(hit.float().mean())
+
+
+def recall_untied(i, hat: np.ndarray, hat_d, k: int = 10):
+    """(by-id recall@k, queries counted) over the queries whose k-th and
+    (k+1)-th oracle distances do not tie (``oracles``' test): there the
+    oracle's top-k set is unique, so ids alone count, with no distance
+    tolerance. The second witness beside ``recall_ties``."""
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    untied = (hat_d[:, k] > hat_d[:, k - 1] * (1 + 1e-5)).cpu().numpy()
+    return (recall_at_k(i[:, :k].cpu().numpy()[untied], hat[untied], k),
+            int(untied.sum()))
+
+
+def build_codec(idx, base: np.ndarray, train_x: np.ndarray, tag: str):
+    """train + add + check() of a codec index; prints seconds and stats."""
+    t0 = time.time()
+    idx.train(train_x)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    idx.add(base)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    stats = idx.check()
+    log(f"{tag} build: train {t1 - t0:.1f} s, add {build_s:.1f} s "
+        f"({len(base) / build_s:.0f} inserts/s), errors {stats['errors']}, "
+        f"deg0_mean {stats['deg0_mean']:.2f}, reciprocity0 "
+        f"{stats['reciprocity0']:.4f}")
+    if stats["errors"]:
+        raise AssertionError(f"{tag} graph invariants: {stats['errors']}")
+    return build_s
+
+
+def codec_path(dev, totals: dict, profile: bool = False) -> dict:
+    """Phases f, g and h (module docstring): sq8, bf16 and PQ storage."""
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    out = {}
+
+    def search(idx, queries, ef, packed=None):
+        return timed(lambda: idx.search(queries, 10, ef_search=ef,
+                                        with_stats=True, use_packed=packed,
+                                        device_out=True))
+
+    def profiled(idx, queries, tag):
+        if profile:
+            profile_window(f"{tag} ef=64", lambda: idx.search(
+                queries, 10, ef_search=64, device_out=True))
+
+    # ---- f. sq8 storage, Deep10M-shaped at 1M
+    n, d = SQ8_N, DEEP_D
+    wl = synthetic_workload(n, d, n_queries=N_QUERIES, seed=1234)
+    queries = torch.from_numpy(wl.queries).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    idx = HnswIndex(d, 32, "l2", capacity=n, ef_construction=100,
+                    dtype="sq8", device=dev)
+    k3_build: dict = {}
+    out["sq8_build_s"] = phase(
+        "sq8 build", ("gathered_vec_dist",), totals,
+        lambda: capture_build_k3(lambda: build_codec(
+            idx, wl.base, wl.base[:262144], "sq8"), k3_build),
+        need_tags=(("gathered_vec_dist", "uint8"),))
+    measure_build_k3(k3_build)
+    del k3_build
+    gt_hat, _, gt_true = oracles(idx, queries, wl.base, n, dev)
+
+    def sq8_search():
+        rec = {}
+        for ef in (64, 128, 256):
+            res, secs = search(idx, queries, ef)
+            rec[ef] = report(f"sq8 unpacked ef={ef}", res, secs, gt_hat,
+                             truth=gt_true)
+            if ef == 64:
+                exact_l2("sq8 unpacked", queries, res[0], res[1],
+                         stored_rows(idx))
+        profiled(idx, queries, "sq8 unpacked")
+        if max(rec.values()) < 0.95:
+            raise AssertionError(f"sq8 recall@10 against x̂ "
+                                 f"{max(rec.values()):.4f} < 0.95")
+        return rec
+
+    out["sq8"] = phase("sq8 search", ("beam_update", "gathered_vec_dist"),
+                       totals, sq8_search,
+                       need_tags=(("gathered_vec_dist", "uint8"),))
+
+    def sq8_packed():
+        t0 = time.time()
+        nbytes = idx.enable_packed(bits=8)
+        torch.cuda.synchronize()
+        log(f"sq8 enable_packed(bits=8): {nbytes} bytes "
+            f"({nbytes / 1e9:.2f} GB) in {time.time() - t0:.1f} s")
+        res, secs = search(idx, queries, 64, True)
+        r = report("sq8 packed sq rows ef=64", res, secs, gt_hat,
+                   truth=gt_true)
+        exact_l2("sq8 packed", queries, res[0], res[1], stored_rows(idx))
+        if abs(r - out["sq8"][64]) > 0.01:
+            raise AssertionError(f"sq8 packed {r:.4f} vs unpacked "
+                                 f"{out['sq8'][64]:.4f} at ef=64 differ "
+                                 f"> 0.01")
+        return r
+
+    out["sq8_packed"] = phase(
+        "sq8 packed", ("beam_update", "packed_row_dist", "gathered_vec_dist"),
+        totals, sq8_packed)
+
+    def sq8_pq_rows():
+        idx.disable_packed()
+        t0 = time.time()
+        nbytes = idx.enable_packed(mode="pq", pq_m=DEEP_PQ_M, pq_bits=8,
+                                   train_x=wl.base[:65536])
+        torch.cuda.synchronize()
+        log(f"sq8 enable_packed(mode='pq', pq_m={DEEP_PQ_M}): {nbytes} "
+            f"bytes ({nbytes / 1e9:.2f} GB) in {time.time() - t0:.1f} s "
+            f"(routing codebooks trained, {n} rows encoded and packed)")
+        rec = {}
+        for ef in (64, 128):
+            res, secs = search(idx, queries, ef, True)
+            rec[ef] = report(f"sq8 packed PQ rows ef={ef}", res, secs,
+                             gt_hat, truth=gt_true)
+            exact_l2("sq8 packed PQ rows", queries, res[0], res[1],
+                     stored_rows(idx))
+        profiled(idx, queries, "sq8 packed PQ rows")
+        return rec
+
+    out["sq8_pq_rows"] = phase("sq8 PQ rows", ("beam_update",
+                                               "gathered_vec_dist"),
+                               totals, sq8_pq_rows,
+                               need_tags=(("gathered_vec_dist", "uint8"),))
+    log(f"sq8 tables: vectors {idx.vectors.numel()} bytes, adjacency "
+        f"{idx.graph.neighbors0.numel() * 4} bytes, PQ routing rows "
+        f"{idx._packed.nbytes} bytes; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del idx, wl, queries
+    torch.cuda.empty_cache()
+
+    # ---- g. bf16 storage, SIFT-shaped at 300k
+    n = SMALL_CODEC_N
+    wl = synthetic_workload(n, 128, n_queries=N_QUERIES, seed=1234)
+    queries = torch.from_numpy(wl.queries).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    idx = HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
+                    dtype="bfloat16", device=dev)
+    k3_build = {}
+    out["bf16_build_s"] = phase(
+        "bf16 build", ("gathered_vec_dist",), totals,
+        lambda: capture_build_k3(lambda: build_codec(
+            idx, wl.base, wl.base, "bf16"), k3_build),
+        need_tags=(("gathered_vec_dist", "bfloat16"),))
+    measure_build_k3(k3_build)
+    del k3_build
+
+    def bf16_phase():
+        hat, _, truth = oracles(idx, queries, wl.base, n, dev)
+        res, secs = search(idx, queries, 64)
+        r = report("bf16 unpacked ef=64", res, secs, hat, truth=truth)
+        exact_l2("bf16 unpacked", queries, res[0], res[1], stored_rows(idx))
+        if r < 0.95:
+            raise AssertionError(f"bf16 recall@10 against its oracle "
+                                 f"{r:.4f} < 0.95")
+        return r
+
+    out["bf16"] = phase("bf16 search", ("beam_update", "gathered_vec_dist"),
+                        totals, bf16_phase,
+                        need_tags=(("gathered_vec_dist", "bfloat16"),))
+    log(f"bf16 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del idx, wl, queries
+    torch.cuda.empty_cache()
+
+    # ---- h. PQ storage, Deep-shaped at 300k
+    wl = synthetic_workload(n, DEEP_D, n_queries=N_QUERIES, seed=1234)
+    queries = torch.from_numpy(wl.queries).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    idx = HnswIndex(DEEP_D, 32, "l2", capacity=n, ef_construction=100,
+                    dtype="pq", pq_m=DEEP_PQ_M, device=dev)
+
+    def pq_phase():
+        build_codec(idx, wl.base, wl.base, "pq")
+        distinct = torch.unique(idx.vectors[:n], dim=0).shape[0]
+        log(f"pq codes: {distinct} distinct of {n} (duplicate x̂ points)")
+        hat, hat_d, truth = oracles(idx, queries, wl.base, n, dev)
+        rec = {}
+        for ef in (64, 128, 256):
+            res, secs = search(idx, queries, ef)
+            report(f"pq unpacked ef={ef}", res, secs, hat, truth=truth)
+            exact_l2(f"pq unpacked ef={ef}", queries, res[0], res[1],
+                     stored_rows(idx))
+            rec[ef] = recall_ties(res[0], res[1], hat_d)
+            by_id, untied = recall_untied(res[1], hat, hat_d)
+            log(f"  recall@10 against the ADC oracle, distances within its "
+                f"10th (ann-benchmarks' count): {rec[ef]:.4f}; by id over "
+                f"the {untied} queries with no tie at the 10th: {by_id:.4f}")
+            if ef == 64:
+                first = res
+        if max(rec.values()) < 0.95:
+            raise AssertionError(f"pq recall@10 against the ADC oracle "
+                                 f"{max(rec.values()):.4f} < 0.95")
+        nbytes = idx.enable_packed()
+        res, secs = search(idx, queries, 64, True)
+        report(f"pq packed (stored codes, {nbytes} bytes) ef=64", res, secs,
+               hat, truth=truth)
+        rec["packed64"] = recall_ties(res[0], res[1], hat_d)
+        log(f"  recall@10 against the ADC oracle, distances within its 10th: "
+            f"{rec['packed64']:.4f}")
+        t0 = time.time()
+        blob = idx.to_bytes()
+        back = HnswIndex.from_bytes(blob, device=dev)
+        d2, i2, _ = back.search(queries, 10, ef_search=64, with_stats=True,
+                                device_out=True)
+        same = torch.equal(i2, first[1]) and torch.equal(d2, first[0])
+        log(f"pq to_bytes -> from_bytes: {len(blob)} bytes in "
+            f"{time.time() - t0:.1f} s, search ids and distances identical: "
+            f"{same}")
+        if not same:
+            raise AssertionError("pq search differs after to_bytes / "
+                                 "from_bytes")
+        return rec
+
+    out["pq"] = phase("pq", ("beam_update",), totals, pq_phase)
+    log(f"pq peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
@@ -847,18 +1250,38 @@ def main() -> None:
         log(f"main path cut: n={args.n} of {NORTH_STAR_N}")
     totals: dict = {}
     main_path(args.n, dev, totals, args.profile)
-    log(f"kernel launches over the main path's phases: {totals}")
+    torch.cuda.empty_cache()       # the f32 index and its tables are gone
+    log("K3 at the storage codecs' rows, and ADC, on the card:")
+    codec_k3 = check_vec_dist_codecs(dev, gen)
+    for tag, m in codec_k3.items():
+        log(f"  gathered_vec_dist {tag} d={m['d']}: kernel {m['ms']:.4f} ms, "
+            f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
+            f"{m['bound_by']} ({m['bytes'] / 1e6:.1f} MB)")
+    torch.cuda.empty_cache()
+    codec_path(dev, totals, args.profile)
+    by_tag = totals.pop("by_tag")
+    log(f"kernel launches over the main path's phases: {totals}; K3 by row "
+        f"dtype {by_tag}")
     missing = [k for k in KERNELS if totals.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": totals[name],
-         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-         "bound_by": m["bound_by"], "library_ms": None}
-        for name, m in measured.items()]}))
+
+    def row(name, m, launches, label=None):
+        return {"name": label or name, "route": "cuda",
+                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                "launches": launches, "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None}
+
+    k3 = "gathered_vec_dist"
+    rows = [row(name, m, by_tag.get((k3, "float32"), 0) if name == k3
+                else totals[name]) for name, m in measured.items()]
+    rows += [row(k3, m, by_tag.get((k3, tag), 0),
+                 f"{k3} ({tag} rows{' + dequant' if tag == 'uint8' else ''}"
+                 f", d={m['d']})") for tag, m in codec_k3.items()]
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ faiss inserts one point at a time (greedy descent, beam search per level at
 efConstruction, heuristic prune to M, links and locked back-links). Here a
 batch of B points is inserted at once:
 
-  1. storage writes (vectors, levels, upper-slot maps);
+  1. storage writes (vectors, or their sq8 / PQ codes; levels, upper-slot
+     maps);
   2. batched greedy descent to each point's level (shared with search);
   3. per upper level, top down: beam search at efConstruction, the
      select-neighbors prune, forward links, back-links (``ops/repair.py``);
@@ -30,6 +31,9 @@ import torch
 from .config import IP, L2, HnswConfig
 from .graph import GraphArrays
 from .ops import beam as beam_ops
+from .ops.distances import decode_rows
+from .ops.packed import quantize_codes
+from .ops.pq import encode_pq
 from .ops.prune import select_neighbors
 from .ops.repair import apply_backlinks
 from .search import _make_distance_fn, greedy_descend
@@ -56,13 +60,17 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
                   xb: torch.Tensor, ids: torch.Tensor, levels: torch.Tensor,
                   slots: torch.Tensor, lv_host: np.ndarray, *,
                   cfg: HnswConfig, ef_construction: int, intra_k: int,
-                  r_window: int, n_expand: int = 4,
-                  hop_cap: int = 0) -> torch.Tensor:
+                  r_window: int, n_expand: int = 4, hop_cap: int = 0,
+                  sq_params=None, pq_cb=None) -> torch.Tensor:
     """Insert one batch into ``graph``/``vectors`` in place.
 
     xb f32 [B, d]; ids, levels, slots int32 [B] (slot >= 0 for level>=1
     points); lv_host: the levels on the host, sorted descending. The graph's
     scalars are the pre-batch ones; the caller updates them afterwards.
+    Storage codecs: with ``sq_params`` = (offset, scale) (sq8) or ``pq_cb``
+    = codebooks (PQ), xb holds x̂ (``HnswIndex`` encodes at the API
+    boundary), the write encodes it back to the same codes, and every read
+    of a stored row decodes it, so each build distance is exact over x̂.
     Returns the back-link window drops (int64 0-d tensor)."""
     b = xb.shape[0]
     metric = cfg.metric
@@ -72,14 +80,22 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
 
     # ---- 1. storage writes (adjacency untouched: the beams below see the
     # pre-batch graph)
-    vectors[ids_l] = xf
+    vectors[ids_l] = _encode_rows(xf, vectors.dtype, sq_params, pq_cb)
     graph.levels[ids_l] = levels
     graph.upper_slot[ids_l] = slots
     n_up = int((lv_host >= 1).sum())
     if n_up:
         graph.upper_node[slots[:n_up].long()] = ids[:n_up]
 
-    distance_to = _make_distance_fn(vectors, xf, metric)
+    def read_rows(node_ids):  # stored rows -> f32 vectors (x̂ for codecs)
+        return decode_rows(vectors[node_ids.clamp(min=0).long()], sq_params,
+                           pq_cb)
+
+    def distance_fn(queries):
+        return _make_distance_fn(vectors, queries, metric,
+                                 dequant=sq_params, pq=pq_cb)
+
+    distance_to = distance_fn(xf)
     qsq = (xf * xf).sum(1, keepdim=True)   # surrogate -> true L2
 
     def to_true(d):
@@ -118,12 +134,12 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
 
         state = beam_ops.init_beam(e[:n_l], e_d[:n_l], efc)
         state = beam_ops.beam_search(
-            state, gather_upper, _make_distance_fn(vectors, xf[:n_l], metric),
+            state, gather_upper, distance_fn(xf[:n_l]),
             max_hops=max_hops, n_expand=n_expand)
         cand_ids, cand_d = beam_ops.dedup_sorted_buffer(state.buf_ids,
                                                         state.buf_dist)
         kept, _ = select_neighbors(
-            cand_ids, to_true(cand_d), vectors[cand_ids.clamp(min=0).long()],
+            cand_ids, to_true(cand_d), read_rows(cand_ids),
             m=cfg.m, metric=metric)
         adj_l[slots[:n_l].long()] = kept                        # forward links
         dst = kept.reshape(-1)
@@ -132,7 +148,8 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
                                -1)
         _, nd = apply_backlinks(adj_l, dst_rows.clamp(min=0), dst, src,
                                 (dst >= 0) & (dst_rows >= 0), vectors,
-                                r_window=r_window, metric=metric)
+                                sq_params, pq_cb, r_window=r_window,
+                                metric=metric)
         drops += nd
         # the next level starts from the nearest node found at this one
         e[:n_l] = cand_ids[:, 0]
@@ -158,8 +175,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     cand_ids = torch.cat([buf_ids, intra_ids], 1)
     cand_true = torch.cat([to_true(buf_d), to_true(intra_d)], 1)
     # faiss parity: M forward links at level 0 (m0 = 2M is back-link room)
-    kept0, _ = select_neighbors(cand_ids, cand_true,
-                                vectors[cand_ids.clamp(min=0).long()],
+    kept0, _ = select_neighbors(cand_ids, cand_true, read_rows(cand_ids),
                                 m=cfg.m, metric=metric)
     row = torch.full((b, cfg.m0), -1, dtype=torch.int32, device=xf.device)
     row[:, :cfg.m] = kept0
@@ -167,8 +183,19 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     dst = kept0.reshape(-1)
     src = ids[:, None].expand_as(kept0).reshape(-1)
     _, nd = apply_backlinks(neighbors0, dst.clamp(min=0), dst, src, dst >= 0,
-                            vectors, r_window=r_window, metric=metric)
+                            vectors, sq_params, pq_cb, r_window=r_window,
+                            metric=metric)
     return drops + nd
+
+
+def _encode_rows(x: torch.Tensor, dtype: torch.dtype, sq_params, pq_cb):
+    """f32 rows (x̂ for a codec) -> what the storage holds: sq8 or PQ codes
+    (the encode of x̂ gives back its own codes), else ``x`` in ``dtype``."""
+    if sq_params is not None:
+        return quantize_codes(x, sq_params[0], sq_params[1], 8)
+    if pq_cb is not None:
+        return encode_pq(x, pq_cb)
+    return x.to(dtype)
 
 
 class DeviceBuilder:
@@ -179,7 +206,7 @@ class DeviceBuilder:
 
     def __init__(self, cfg: HnswConfig, *, max_batch: int = 2048,
                  intra_k: int = 32, r_window: int = 16, n_expand: int = 4,
-                 hop_cap: int = 0):
+                 hop_cap: int = 0, sq_params=None, pq_cb=None):
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
         self.max_batch = max_batch
@@ -187,6 +214,11 @@ class DeviceBuilder:
         self.r_window = r_window
         self.n_expand = n_expand
         self.hop_cap = hop_cap
+        # storage codecs, fixed once trained: sq8 (offset [d], scale [d])
+        # and PQ codebooks [m_sub, ksub, dsub], as f32 numpy arrays
+        self.sq_params = None if sq_params is None else tuple(
+            np.asarray(a, np.float32) for a in sq_params)
+        self.pq_cb = None if pq_cb is None else np.asarray(pq_cb, np.float32)
         # back-link pairs beyond the repair window, lost per add() / total
         self.last_backlink_dropped = 0
         self.backlink_dropped_total = 0
@@ -206,10 +238,21 @@ class DeviceBuilder:
                       self.cfg.level_mult).astype(np.int32)
         return np.minimum(lv, self.cfg.max_level_cap)
 
+    def _codecs(self, device):
+        """(sq_params, pq_cb) as tensors on ``device`` (None where unset)."""
+        sq = None if self.sq_params is None else tuple(
+            torch.from_numpy(a).to(device) for a in self.sq_params)
+        pq = None if self.pq_cb is None else \
+            torch.from_numpy(self.pq_cb).to(device)
+        return sq, pq
+
     def _seed_first(self, graph: GraphArrays, vectors: torch.Tensor,
                     x0: np.ndarray, level: int) -> None:
-        """Insert the very first point: no search needed."""
-        vectors[0] = torch.from_numpy(x0).to(vectors.device)
+        """Insert the very first point (x̂0 for a codec): no search
+        needed."""
+        x0 = torch.from_numpy(x0).to(vectors.device)[None]
+        vectors[0] = _encode_rows(x0, vectors.dtype,
+                                  *self._codecs(vectors.device))[0]
         graph.levels[0] = level
         if level >= 1:
             graph.upper_slot[0] = 0
@@ -277,6 +320,7 @@ class DeviceBuilder:
         ids_s = torch.from_numpy(ids_np).to(dev)
         lv_s = torch.from_numpy(lv_np).to(dev)
         sl_s = torch.from_numpy(sl_np).to(dev)
+        sq_params, pq_cb = self._codecs(dev)
         drops = torch.zeros((), dtype=torch.int64, device=dev)
         for off, take in batches:
             part = slice(off, off + take)
@@ -285,7 +329,8 @@ class DeviceBuilder:
                 graph, vectors, xs[part], ids_s[part], lv_s[part],
                 sl_s[part], lv, cfg=cfg, ef_construction=efc,
                 intra_k=self.intra_k, r_window=self.r_window,
-                n_expand=self.n_expand, hop_cap=self.hop_cap)
+                n_expand=self.n_expand, hop_cap=self.hop_cap,
+                sq_params=sq_params, pq_cb=pq_cb)
             # scalar bookkeeping: the batch's first point has its max level
             if int(lv[0]) > graph.max_level:
                 graph.entry_point = int(ids_np[off])

@@ -1,9 +1,7 @@
 """Index configuration — the same ``HnswConfig`` as ``hnsw_tpu.config``.
 
-Fields, defaults, validation and JSON are kept identical so a config written
-by either package loads in the other. Storage dtypes other than float32 pass
-validation here (the config must interchange) but ``HnswIndex`` refuses them
-until the storage codecs are ported.
+Fields, defaults, validation, JSON and the storage properties are kept
+identical so a config written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -75,6 +73,35 @@ class HnswConfig:
         if self.upper_capacity == -1:
             auto = max(1024, 4 * self.capacity // self.m)
             object.__setattr__(self, "upper_capacity", min(auto, self.capacity))
+
+    @property
+    def is_sq(self) -> bool:
+        """Scalar-quantized storage (faiss ``IndexHNSWSQ``, QT_8bit): uint8
+        codes and a per-dim affine (offset, scale); every distance is taken
+        against x̂ = offset + scale·u. Needs ``train()``."""
+        return self.dtype == "sq8"
+
+    @property
+    def is_pq(self) -> bool:
+        """Product-quantized storage (faiss ``IndexHNSWPQ``): uint8 codes
+        [*, pq_m] and per-subspace codebooks; every distance is the ADC
+        value, exact against the reconstruction x̂. Needs ``train()``."""
+        return self.dtype == "pq"
+
+    @property
+    def pq_ksub(self) -> int:
+        """Centroids per PQ subspace (256 for 8-bit, 16 for 4-bit)."""
+        return 1 << self.pq_bits
+
+    @property
+    def storage_dtype(self) -> str:
+        """The dtype of the vector-storage tensor."""
+        return "uint8" if (self.is_sq or self.is_pq) else self.dtype
+
+    @property
+    def storage_width(self) -> int:
+        """Columns of the vector-storage tensor: pq_m codes for PQ, else d."""
+        return self.pq_m if self.is_pq else self.dim
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

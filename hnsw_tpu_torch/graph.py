@@ -71,20 +71,60 @@ def graph_from_numpy(arrays, device) -> GraphArrays:
     return GraphArrays(**tensors, **scalars)
 
 
+def save_graph(path, graph: GraphArrays, vectors: torch.Tensor,
+               cfg: HnswConfig, extra: dict | None = None,
+               extra_arrays: dict | None = None) -> None:
+    """Write the reference's ``.npz`` format key for key: ``vectors``,
+    ``config_json``, ``extra_json`` (JSON-serialisable state, e.g. the
+    level RNG), ``graph_<field>`` and ``xarr_<name>`` (auxiliary arrays).
+    ``path`` is a file name or a binary file object.
+
+    bf16 vectors are written widened to f32 (exact): numpy has no bf16, and
+    the reference cannot read back the void ``|V2`` array its own bf16 save
+    writes, while it loads f32 vectors under a bfloat16 config."""
+    arrs = {f"graph_{k}": np.asarray(v) for k, v in graph.numpy().items()}
+    for k, v in (extra_arrays or {}).items():
+        arrs[f"xarr_{k}"] = np.asarray(v)
+    if vectors.dtype == torch.bfloat16:
+        vectors = vectors.float()
+    np.savez_compressed(path, vectors=vectors.cpu().numpy(),
+                        config_json=np.bytes_(cfg.to_json()),
+                        extra_json=np.bytes_(json.dumps(extra or {})),
+                        **arrs)
+
+
 def load_graph(path):
-    """Read a ``.npz`` written by ``hnsw_tpu`` (``save_graph`` /
+    """Read a ``.npz`` written by either package (``save_graph`` /
     ``HnswIndex.save``). Returns (arrays, vectors, config, extra,
     extra_arrays), all host-side numpy; ``arrays`` maps the
-    ``GraphArrays`` field names to numpy arrays."""
+    ``GraphArrays`` field names to numpy arrays. The reference writes bf16
+    vectors as 2-byte void items; those come back as int16 holding the bf16
+    bits (``vectors_tensor`` makes them bf16 again)."""
     with np.load(path, allow_pickle=False) as z:
         cfg = HnswConfig.from_json(bytes(z["config_json"].item()).decode())
         arrays = {k: z[f"graph_{k}"] for k in TENSOR_FIELDS + SCALAR_FIELDS}
         vectors = z["vectors"]
+        if vectors.dtype.kind == "V" and vectors.dtype.itemsize == 2:
+            vectors = vectors.view(np.int16)
         extra = {}
         if "extra_json" in z:
             extra = json.loads(bytes(z["extra_json"].item()).decode())
         extra_arrays = {k[5:]: z[k] for k in z.files if k.startswith("xarr_")}
     return arrays, vectors, cfg, extra, extra_arrays
+
+
+def vectors_tensor(vectors: np.ndarray, cfg: HnswConfig,
+                   device) -> torch.Tensor:
+    """Saved vectors as the storage tensor of ``cfg``: uint8 codes for sq8
+    and PQ, bf16 from the bits ``load_graph`` returns for a reference bf16
+    file (or from widened f32), else f32."""
+    t = torch.from_numpy(np.ascontiguousarray(vectors))
+    if cfg.storage_dtype == "bfloat16":
+        t = t.view(torch.bfloat16) if t.dtype == torch.int16 \
+            else t.to(torch.bfloat16)
+    else:
+        t = t.to(getattr(torch, cfg.storage_dtype))
+    return t.to(device)
 
 
 def check_invariants(graph: GraphArrays, cfg: HnswConfig,

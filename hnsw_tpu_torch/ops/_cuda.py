@@ -131,12 +131,14 @@ def library() -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One C entry point plus its launch count."""
+    """One C entry point plus its launch count (and, where the wrapper tags
+    its launches, e.g. with the row dtype, the count by tag)."""
 
     def __init__(self, name: str, symbol: str):
         self.name = name
         self.symbol = symbol
         self.launches = 0
+        self.by_tag: dict[str, int] = {}
         KERNELS[name] = self
 
     def launch(self, *args) -> None:
@@ -149,6 +151,10 @@ class CudaKernel:
                                f"{err} ({msg})")
         self.launches += 1
 
+    def count_tag(self, tag: str) -> None:
+        """Count the launch just made under ``tag``."""
+        self.by_tag[tag] = self.by_tag.get(tag, 0) + 1
+
 
 KERNELS: dict[str, CudaKernel] = {}
 
@@ -157,9 +163,25 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def tagged_launch_counts() -> dict[str, dict[str, int]]:
+    """{kernel: {tag: launches}} for the kernels whose launches carry a
+    tag."""
+    return {name: dict(k.by_tag) for name, k in KERNELS.items() if k.by_tag}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.by_tag.clear()
+
+
+def default_device() -> torch.device:
+    """The first CUDA device, the default of every entry point that takes a
+    ``device``. Never a silent fall back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -10,7 +10,8 @@ kernel when they are on a CUDA device; there is no fallback between the two.
     surrogate distances ``Σv² − 2Σq·v`` (L2) or ``−Σq·v`` (IP) to the rows
     ``table[ids]``, gathered inside the kernel. f32, bf16 or uint8 rows
     (uint8 with the affine dequant ``v = offset + scale·u``), any d and K
-    (the kernel uses no shared memory). The search path calls this;
+    (the kernel uses no shared memory); launches are also counted by row
+    dtype ("float32", "bfloat16", "uint8"). The search path calls this;
     ``gathered_vec_dist`` keeps the reference's pre-gathered signature for
     the parity tests.
   * ``packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=, metric=)`` —
@@ -92,6 +93,7 @@ def gathered_vec_dist_ids(table: torch.Tensor, ids: torch.Tensor,
     _VEC_DIST.launch(table.data_ptr(), _ROW_DTYPES[table.dtype], n, d,
                      ids.data_ptr(), q, k, qs.data_ptr(), off, sc,
                      int(metric == IP), out.data_ptr())
+    _VEC_DIST.count_tag(str(table.dtype).removeprefix("torch."))
     return out
 
 

@@ -24,8 +24,12 @@ scored distance that enters the beam (the entry point) is shifted by the
 same constant. The final buffer is re-ranked with exact f32 distances.
 
 Memory: ntotal · m0 · d · bits/8 bytes of codes (bytes layout; words:
-ntotal · m0 · word_width · 4) plus ntotal · m0 · 4 bytes of norms. Not
-ported yet: PQ-coded rows, and incremental row maintenance after ``add()``.
+ntotal · m0 · word_width · 4) plus ntotal · m0 · 4 bytes of norms.
+
+PQ-coded rows (``PackedPQ``) hold each neighbor's ``pq_m`` routing codes
+instead, ntotal · m0 · pq_m · pq_bits/8 bytes, and route on ADC distances
+(table lookups), which need no shift. Not ported yet: incremental row
+maintenance after ``add()``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from ..config import IP
 from .dist_kernel import packed_row_dist_ids, packed_row_dist_words_ids
+from .distances import decode_rows
 
 
 @dataclasses.dataclass
@@ -163,15 +168,18 @@ def unpack_words(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
 def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
                    levels: torch.Tensor, *, bits: int = 8,
                    max_bytes: int | None = None, n_rows: int | None = None,
-                   layout: str = "bytes") -> PackedNeighbors:
+                   dequant=None, layout: str = "bytes") -> PackedNeighbors:
     """Build the packed serving tables from a finished graph.
 
     bits: 8 (one byte per dim) or 4 (two dims per byte). max_bytes: refuse
     (ValueError) a table larger than this. n_rows: rows only for ids <
-    n_rows (pass ntotal: only inserted nodes are ever expanded). layout:
-    "bytes" (uint8 rows) or "words" (int32 rows, the same bits; module
-    docstring). The reference pads the row count to its assembly chunk;
-    the port holds exactly n_rows rows, and ``max_bytes`` counts those."""
+    n_rows (pass ntotal: only inserted nodes are ever expanded). dequant:
+    (offset, scale) when ``vectors`` holds sq8 storage codes; at 8 bits the
+    stored codes are the routing codes (the same affine), at 4 bits x̂ is
+    quantized anew. layout: "bytes" (uint8 rows) or "words" (int32 rows,
+    the same bits; module docstring). The reference pads the row count to
+    its assembly chunk; the port holds exactly n_rows rows, and
+    ``max_bytes`` counts those."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if layout not in ("bytes", "words"):
@@ -196,8 +204,15 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
             f"packing for this capacity")
     from ..search import compute_sqnorms
 
-    offset, scale = quantization_params(vectors, levels >= 0, bits)
-    codes_all = quantize_codes(vectors, offset, scale, bits)     # [cap, d]
+    live = levels >= 0
+    if dequant is not None and bits == 8:
+        offset, scale = dequant
+        codes_all = vectors                                      # [cap, d] u8
+    else:
+        if dequant is not None:
+            vectors = decode_rows(vectors, dequant)
+        offset, scale = quantization_params(vectors, live, bits)
+        codes_all = quantize_codes(vectors, offset, scale, bits)  # [cap, d]
     xhat_sq = compute_sqnorms(codes_all, (offset, scale))
     if layout == "words":
         payload = pack_words(codes_all, bits)
@@ -244,3 +259,90 @@ def make_packed_expand(packed: PackedNeighbors, neighbors0: torch.Tensor,
         return nbrs, packed.nbr_sq[cur].reshape(dots.shape) - 2.0 * dots
 
     return expand, shift
+
+
+# ---------------------------------------------------------------------------
+# PQ-coded packed rows (PackedPQ)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PackedPQ:
+    """Packed rows of PQ ROUTING codes, the low-memory packed variant: each
+    neighbor contributes its ``pq_m`` codes (a byte each at 8 bits, a nibble
+    at 4) instead of d scalar-quantized dims. Routing distances are ADC
+    against the routing reconstruction (``ops/pq.py``), on the full
+    ``||x̂||² − 2 q·x̂`` scale, so exactly scored entries need no shift. The
+    codebooks ``cb`` ride along: pq storage packs its own; flat or sq8
+    storage trains routing-only codebooks."""
+
+    nbr_codes: torch.Tensor  # uint8 [n_rows, m0 * bpn]
+    cb: torch.Tensor         # f32 [pq_m, ksub, dsub] routing codebooks
+    pq_bits: int             # 8 (a byte a code) or 4 (a nibble a code)
+
+    def bpn(self, m0: int) -> int:
+        """Bytes per neighbor in a row."""
+        return self.nbr_codes.shape[1] // m0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.nbr_codes, self.cb))
+
+
+def pack_pq_neighbors(neighbors0: torch.Tensor, codes_all: torch.Tensor,
+                      cb: torch.Tensor, *, pq_bits: int = 8,
+                      max_bytes: int | None = None,
+                      n_rows: int | None = None) -> PackedPQ:
+    """Build PQ-coded packed rows from a finished graph. codes_all: uint8
+    [capacity, pq_m] routing codes of every vector under ``cb`` (pq
+    storage: the stored codes). pq_bits: 8 (a byte a code) or 4 (two codes
+    a byte, low nibble first; needs ksub <= 16). Like ``pack_neighbors``,
+    the table holds exactly ``n_rows`` rows and ``max_bytes`` counts
+    those."""
+    if pq_bits not in (4, 8):
+        raise ValueError(f"pq_bits must be 4 or 8, got {pq_bits}")
+    if pq_bits == 4 and cb.shape[1] > 16:
+        raise ValueError("pq_bits=4 requires ksub<=16 routing codebooks "
+                         f"(got ksub={cb.shape[1]})")
+    cap, m0 = neighbors0.shape
+    pm = codes_all.shape[1]
+    if pm != cb.shape[0]:
+        raise ValueError(f"codes have {pm} sub-codes but codebooks have "
+                         f"{cb.shape[0]} subspaces")
+    n_rows = cap if n_rows is None else max(1, min(int(n_rows), cap))
+    bpn = pm if pq_bits == 8 else (pm + 1) // 2
+    total = n_rows * m0 * bpn
+    if max_bytes is not None and total > max_bytes:
+        raise ValueError(
+            f"packed-pq table needs {total / 1e9:.1f} GB "
+            f"(> budget {max_bytes / 1e9:.1f} GB); lower pq_m / use "
+            f"pq_bits=4 or skip packing for this capacity")
+    payload = _pack_nibbles(codes_all) if pq_bits == 4 else codes_all
+    safe = neighbors0[:n_rows].clamp(min=0).long()
+    return PackedPQ(payload[safe].view(n_rows, m0 * bpn), cb.float(),
+                    pq_bits)
+
+
+def make_packed_pq_expand(packed: PackedPQ, neighbors0: torch.Tensor,
+                          queries: torch.Tensor, metric: str):
+    """Returns (expand, shift) like ``make_packed_expand``, with ADC routing
+    distances from the PQ code row of each expanded node: lookups in the
+    per-query tables built once here (``ops/pq.py`` ``pq_lut`` /
+    ``adc_distance``). shift is 0: ADC carries the whole surrogate."""
+    from .pq import adc_distance, pq_lut
+
+    qf = queries.float()
+    lut = pq_lut(qf, packed.cb, metric)                          # [Q, m, ksub]
+    m0 = neighbors0.shape[1]
+    pm = packed.cb.shape[0]
+    four_bit = packed.pq_bits == 4
+    bpn = packed.bpn(m0)
+
+    def expand(cur: torch.Tensor, step_ok: torch.Tensor):
+        nbrs = neighbors0[cur]                                   # [Q, T, m0]
+        qn, t = cur.shape
+        rows = packed.nbr_codes[cur.reshape(-1)].view(qn, t * m0, bpn)
+        codes = unpack_nibbles(rows, pm) if four_bit else rows
+        return nbrs, adc_distance(lut, codes)
+
+    return expand, qf.new_zeros(qf.shape[0])

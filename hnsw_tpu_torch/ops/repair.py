@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config import L2
+from .distances import decode_rows
 from .prune import compact_append, select_neighbors
 
 _PRUNE_BYTES = 1 << 30  # candidate-vector bytes gathered per prune chunk
@@ -29,12 +30,15 @@ _PRUNE_BYTES = 1 << 30  # candidate-vector bytes gathered per prune chunk
 
 def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
                     dst_ids: torch.Tensor, src_ids: torch.Tensor,
-                    valid: torch.Tensor, vectors: torch.Tensor, *,
-                    r_window: int = 16, metric: str = L2):
+                    valid: torch.Tensor, vectors: torch.Tensor,
+                    dequant=None, pq_cb=None, *, r_window: int = 16,
+                    metric: str = L2):
     """adj int32 [n_rows, W]: adjacency of ONE level, updated in place (a
     view into a larger table is fine). dst_rows/dst_ids/src_ids int32 [P]:
     per pair the row in ``adj``, the destination's node id (for distances)
-    and the source to link back; valid bool [P]. vectors [capacity, d].
+    and the source to link back; valid bool [P]. vectors [capacity, d]
+    (sq8 codes with ``dequant`` = (offset, scale), PQ codes with ``pq_cb``
+    = codebooks: the prune then measures against x̂).
 
     Returns (adj, n_dropped) with n_dropped an int64 0-d tensor: valid pairs
     beyond the R-window of their destination (duplicates are not drops)."""
@@ -72,13 +76,16 @@ def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
     new_rows = compact_append(cand, w)
 
     over = torch.nonzero((cand >= 0).sum(1) > w).squeeze(1)
-    chunk = max(256, _PRUNE_BYTES // max(cand.shape[1] * vectors.shape[1] * 4,
-                                         1))
+    d_model = vectors.shape[1] if pq_cb is None else \
+        pq_cb.shape[0] * pq_cb.shape[2]
+    chunk = max(256, _PRUNE_BYTES // max(cand.shape[1] * d_model * 4, 1))
     for c0 in range(0, over.shape[0], chunk):
         sel = over[c0:c0 + chunk]
         ids_c = cand[sel]
-        dvec = vectors[sdst_id[own[sel]].long()].float()         # [C, d]
-        cvec = vectors[ids_c.clamp(min=0).long()].float()        # [C, W+R, d]
+        dvec = decode_rows(vectors[sdst_id[own[sel]].long()], dequant,
+                           pq_cb)                                # [C, d]
+        cvec = decode_rows(vectors[ids_c.clamp(min=0).long()], dequant,
+                           pq_cb)                                # [C, W+R, d]
         dots = (cvec * dvec[:, None, :]).sum(-1)
         if metric == L2:
             cd = (dvec * dvec).sum(1, keepdim=True) + (cvec * cvec).sum(-1) \

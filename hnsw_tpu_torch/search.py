@@ -25,7 +25,9 @@ back on the final top-k only. Under ``HNSW_TPU_PALLAS_HOP=1`` every
 distance before the rerank (entry rescore, descent, hops) goes through K5
 ``fused_gather_distances``, and the packed expand is unchanged.
 
-Not ported yet: sq8 / bf16 / pq storage.
+Storage codecs: bf16 rows and sq8 rows (uint8 + the per-dim affine,
+``dequant``) go through K3 everywhere; PQ codes (``pq``) through ADC table
+lookups (``ops/pq.py``). Every distance is then exact over the stored x̂.
 """
 
 from __future__ import annotations
@@ -39,8 +41,10 @@ from .config import IP, L2
 from .graph import GraphArrays
 from .ops import beam as beam_ops
 from .ops.dist_kernel import gathered_vec_dist_ids
+from .ops.distances import decode_rows
 from .ops.hop_kernel import fused_gather_distances
-from .ops.packed import PackedNeighbors, make_packed_expand
+from .ops.packed import (PackedNeighbors, PackedPQ, make_packed_expand,
+                         make_packed_pq_expand)
 
 INF = float("inf")
 
@@ -57,18 +61,48 @@ def _use_pallas_hop() -> bool:
 
 
 def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
-                      metric: str, pallas_hop: bool = False):
-    """distance_to(ids [Q, K], mask) -> f32 [Q, K] exact surrogate distances
-    from K3, or from K5 with ``pallas_hop`` (for every d: the reference's
-    d % 128 gate is a TPU lane limit). On CPU tensors each runs its plain
-    version. Masked ids read row 0 and are to be ignored by the caller."""
+                      metric: str, pallas_hop: bool = False, dequant=None,
+                      pq=None):
+    """distance_to(ids [Q, K], mask) -> f32 [Q, K] surrogate distances,
+    exact over the stored vectors (x̂ for a codec):
+
+      * f32 / bf16 rows: K3, or K5 with ``pallas_hop`` (for every d: the
+        reference's d % 128 gate is a TPU lane limit; K5 reads f32 rows);
+      * sq8 rows (``dequant`` = (offset, scale)): K3 on the uint8 rows with
+        the affine in the kernel, under ``pallas_hop`` too, as the
+        reference's dequant path;
+      * PQ codes (``pq`` = codebooks): ADC of the gathered code rows by
+        lookups in per-query tables built once here (``ops/pq.py``,
+        PyTorch ops, as the reference's ADC is XLA).
+
+    On CPU tensors each kernel runs its plain version. Masked ids read row
+    0 and are to be ignored by the caller."""
     qf = queries.float().contiguous()
-    dist_fn = (fused_gather_distances if pallas_hop
-               else gathered_vec_dist_ids)
+    if pq is not None:
+        from .ops.pq import adc_distance, pq_lut
+        lut = pq_lut(qf, pq, metric)                             # [Q, m, ksub]
+
+        def distance_to(ids: torch.Tensor, mask: torch.Tensor):
+            codes = vectors[torch.where(mask, ids, 0).long()]    # [Q, K, m]
+            return adc_distance(lut, codes)
+
+        return distance_to
+    if pallas_hop and dequant is None:
+        if vectors.dtype != torch.float32:
+            raise NotImplementedError(
+                f"HNSW_TPU_PALLAS_HOP=1 over {vectors.dtype} storage: the "
+                f"port's K5 reads f32 rows")
+
+        def distance_to(ids: torch.Tensor, mask: torch.Tensor):
+            safe = torch.where(mask, ids, 0).to(torch.int32)
+            return fused_gather_distances(vectors, safe, qf, metric=metric)
+
+        return distance_to
 
     def distance_to(ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         safe = torch.where(mask, ids, 0).to(torch.int32)
-        return dist_fn(vectors, safe, qf, metric=metric)
+        return gathered_vec_dist_ids(vectors, safe, qf, dequant,
+                                     metric=metric)
 
     return distance_to
 
@@ -103,21 +137,23 @@ def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
 
 
 def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
-                  queries: torch.Tensor, metric: str, *, n_sample: int,
-                  n_seeds: int, tile_q: int = 2048) -> torch.Tensor:
+                  queries: torch.Tensor, metric: str, dequant=None, *,
+                  n_sample: int, n_seeds: int,
+                  tile_q: int = 2048) -> torch.Tensor:
     """Entry seeds from one dense scan over an evenly strided sample of
     ``n_sample`` ids in [0, ntotal): the sample is cut into ``n_seeds``
     equal contiguous strata and each stratum's argmin is returned, int32
     [Q, n_seeds] (-1 where a stratum had no live candidate). Sampled ids
-    must be inserted and non-isolated. The [tile_q, n_sample] distance block
-    bounds the memory; the caller rescores the seeds exactly."""
+    must be inserted and non-isolated. sq8 rows are dequantized with
+    ``dequant``. The [tile_q, n_sample] distance block bounds the memory;
+    the caller rescores the seeds exactly."""
     dev = vectors.device
     nt = max(graph.ntotal, 1)
     a = torch.arange(n_sample, dtype=torch.int64, device=dev)
     step, rem = nt // n_sample, nt % n_sample
     ids = torch.clamp(a * step + (a * rem) // n_sample, max=nt - 1)
     ok = (graph.levels[ids] >= 0) & (graph.neighbors0[ids, 0] >= 0)
-    sv = vectors[ids].float()                                    # [S, d]
+    sv = decode_rows(vectors[ids], dequant)                      # [S, d]
     svsq = (sv * sv).sum(1)
     ss = n_sample // n_seeds
     base = torch.arange(n_seeds, device=dev)[None, :] * ss
@@ -148,9 +184,7 @@ def ef_bucket(ef: int) -> int:
 def compute_sqnorms(vectors: torch.Tensor, dequant=None) -> torch.Tensor:
     """||x||² per row; with ``dequant`` = (offset, scale), ||x̂||² of the
     dequantized codes."""
-    v = vectors.float()
-    if dequant is not None:
-        v = dequant[0] + dequant[1] * v
+    v = decode_rows(vectors, dequant)
     return (v * v).sum(-1)
 
 
@@ -160,7 +194,8 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
                 n_expand: int = 1, with_stats: bool = False,
                 visited_mode: str = "buffer",
                 allowed: torch.Tensor | None = None,
-                packed: PackedNeighbors | None = None,
+                packed: PackedNeighbors | PackedPQ | None = None,
+                dequant=None, pq=None,
                 beam_keys: str = "auto", entry_mode: str = "auto"):
     """Batched k-NN. Returns (dists [Q, k] f32, ids [Q, k] int32), ascending;
     ids are -1 (dist inf) past the reachable set. ``with_stats`` adds
@@ -169,11 +204,16 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     ``ef_search`` is a runtime value inside a power-of-two buffer
     (``ef_bucket``). ``max_hops``: 0 caps the level-0 loop at ef + 8 hops
     (filtered: runs to convergence); > 0 sets the cap; < 0 runs to
-    convergence. ``packed``: route on the packed 8/4-bit code rows
-    (``ops/packed.py``); the final buffer is re-ranked exactly either way.
+    convergence. ``packed``: route on the packed 8/4-bit code rows or on
+    PQ-coded rows (``ops/packed.py``); the final buffer is re-ranked with
+    storage-grade distances either way. ``dequant`` = (offset, scale) for
+    sq8 storage (uint8 ``vectors``), ``pq`` = codebooks for PQ storage
+    (``vectors`` holds the codes): every distance is then exact over x̂.
     ``entry_mode``: "sample" (default via "auto"), "seed" (the fused beam
     starts from up to 16 stratified seeds; the legacy beam from the best)
-    or "descend" (faiss's greedy upper-level walk).
+    or "descend" (faiss's greedy upper-level walk). PQ storage always
+    descends, as the reference does: a dense ADC scan of the sample would
+    cost more than it saves.
 
     ``allowed`` (bool [capacity]): filtered search (faiss IDSelector): the
     graph is traversed unfiltered, only allowed ids are returned.
@@ -190,7 +230,9 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     if entry_mode not in ("auto", "sample", "seed", "descend"):
         raise ValueError(
             f"entry_mode must be auto|sample|seed|descend, got {entry_mode!r}")
-    if entry_mode == "auto":
+    if pq is not None:
+        entry_mode = "descend"
+    elif entry_mode == "auto":
         entry_mode = "sample"
     ef = max(int(ef_search), k)
     if max_hops == 0:
@@ -205,7 +247,8 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     pallas_hop = _use_pallas_hop()
     fused = (n_expand == 1 and allowed is None and visited_mode == "buffer"
              and not pallas_hop)
-    distance_to = _make_distance_fn(vectors, queries, metric, pallas_hop)
+    distance_to = _make_distance_fn(vectors, queries, metric, pallas_hop,
+                                    dequant, pq)
 
     ep = torch.full((qn,), graph.entry_point, dtype=torch.int32,
                     device=queries.device)
@@ -213,7 +256,7 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
         n_sample = entry_sample_size(vectors.shape[0])
         n_seeds = (min(16, ef_buf // 2) if entry_mode == "seed"
                    else max(1, n_sample // 4096))
-        seeds = _sample_seeds(graph, vectors, queries, metric,
+        seeds = _sample_seeds(graph, vectors, queries, metric, dequant,
                               n_sample=n_sample, n_seeds=n_seeds)
         # seeds + the global entry point (the fallback when every sampled
         # id is masked), rescored exactly; no seed may repeat the entry
@@ -243,8 +286,11 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     neighbors0 = graph.neighbors0
     expand = None
     if packed is not None:
-        expand, shift = make_packed_expand(packed, neighbors0, queries,
-                                           metric)
+        # sq rows route on a scale shifted by q·offset (shift the exactly
+        # scored entries onto it); PQ rows carry the whole surrogate
+        make = make_packed_pq_expand if isinstance(packed, PackedPQ) \
+            else make_packed_expand
+        expand, shift = make(packed, neighbors0, queries, metric)
         ep0_dist = ep0_dist + shift[:, None]
     if fused:
         if expand is None:
@@ -259,7 +305,10 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
             ef_live=ef, hop_limit=hop_limit)
     else:
         if beam_keys == "auto":
-            key_dtype = torch.bfloat16 if packed is not None \
+            # bf16 keys where routing is quantized already (packed rows,
+            # PQ's ADC)
+            key_dtype = torch.bfloat16 if (packed is not None
+                                           or pq is not None) \
                 else torch.float32
         else:
             key_dtype = torch.bfloat16 if beam_keys == "bf16" \
@@ -278,11 +327,18 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
             visited_mode=visited_mode, allowed=allowed, ef_live=ef,
             hop_limit=hop_limit, expand=expand, early_exit=True)
 
-    # exact rerank of the final buffer (filtered: of the result buffer):
-    # routing may have been quantized, the returned distances never are
+    # rerank of the final buffer (filtered: of the result buffer) with
+    # storage-grade distances, exact f32 / sq8 x̂ (K3 with the affine) /
+    # exact ADC: routing may have been quantized, the returned distances
+    # are exact over the stored vectors
     src = state.res_ids if allowed is not None else state.buf_ids
-    ex = gathered_vec_dist_ids(vectors, src.clamp(min=0), queries,
-                               metric=metric)
+    if pq is not None:
+        from .ops.pq import adc_distance, pq_lut
+        ex = adc_distance(pq_lut(queries, pq, metric),
+                          vectors[src.clamp(min=0).long()])
+    else:
+        ex = gathered_vec_dist_ids(vectors, src.clamp(min=0), queries,
+                                   dequant, metric=metric)
     ids, dist = beam_ops.dedup_sorted_buffer(
         src, torch.where(src >= 0, ex, INF))
     out_d, out_i = dist[:, :k], ids[:, :k]

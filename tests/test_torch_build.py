@@ -2,6 +2,8 @@
 DeviceBuilder via HnswIndex.add) against the reference on the same inputs,
 on the CPU, and index files written by the reference loaded by the port."""
 
+import io
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -255,11 +257,15 @@ def test_index_api_edges():
     with pytest.raises(NotImplementedError, match="disable_packed"):
         idx.add(x)
     with pytest.raises(NotImplementedError):
-        hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, dtype="sq8",
-                                 device="cpu")
-    with pytest.raises(NotImplementedError):
         hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, build="host",
                                  device="cpu")
+    # what stays unported: an index file with tombstones (deletion)
+    from hnsw_tpu_torch.graph import save_graph
+    buf = io.BytesIO()
+    save_graph(buf, idx.graph, idx.vectors, idx.config,
+               extra_arrays={"alive": np.ones(64, bool)})
+    with pytest.raises(NotImplementedError, match="tombstones"):
+        hnsw_tpu_torch.HnswIndex.from_bytes(buf.getvalue(), device="cpu")
 
 
 def test_config_json_interchanges():

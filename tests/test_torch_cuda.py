@@ -350,3 +350,70 @@ def test_packed_dist_equals_words_dots_on_card(card):
         want = nbr_sq[cur.long()].reshape(dots.shape) - 2.0 * dots
         assert torch.equal(l2, want)
         assert torch.equal(ip, -dots)
+
+
+@pytest.mark.cuda
+def test_vec_dist_codec_rows_match_plain_on_card(card):
+    """K3 at the storage codecs' rows: uint8 + dequant at d = 96 (sq8,
+    96-byte rows) and bf16 at d = 128, at the serving shape (Q = 8192, K =
+    64) and the build's (Q = 2048, K = 256) with ~40% of ids masked to row
+    0, L2 and IP. Tolerance as in chip_smoke.py: rtol 1e-5 + atol 1e-3."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(96)
+    n = 200_000
+    codes = torch.randint(0, 256, (n, 96), generator=g, device=card,
+                          dtype=torch.uint8)
+    deq = (torch.randn(96, generator=g, device=card),
+           0.01 + 0.02 * torch.rand(96, generator=g, device=card))
+    bf = torch.randn((n, 128), generator=g, device=card).to(torch.bfloat16)
+    calls = 0
+    for tab, dq in ((codes, deq), (bf, None)):
+        d = tab.shape[1]
+        for q, k in ((8192, 64), (2048, 256)):
+            ids = torch.randint(0, n, (q, k), generator=g, device=card,
+                                dtype=torch.int32)
+            ids[torch.rand((q, k), generator=g, device=card) < 0.4] = 0
+            qs = torch.randn((q, d), generator=g, device=card)
+            for metric in ("l2", "ip"):
+                torch.testing.assert_close(
+                    dist_kernel.gathered_vec_dist_ids(tab, ids, qs, dq,
+                                                      metric=metric),
+                    dist_kernel.gathered_vec_dist_plain(tab, ids, qs, dq,
+                                                        metric=metric),
+                    rtol=1e-5, atol=1e-3)
+                calls += 1
+    assert _cuda.launch_counts()["gathered_vec_dist"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["sq8", "bfloat16", "pq"])
+def test_codec_index_on_card_matches_cpu(card, dtype):
+    """One codec index built on the CPU, saved, loaded on the card and on
+    the CPU: the card's search (K1, K3 or ADC, and K2 on sq rows packed
+    from sq8 storage) returns the CPU run's ids (>= 99%) and distances
+    (rtol 1e-5 on matched ids), and every kernel of the path launched."""
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    wl = synthetic_workload(3000, 32, n_queries=200, seed=5)
+    kw = {"pq_m": 8} if dtype == "pq" else {}
+    cpu = HnswIndex(32, 8, capacity=4096, ef_construction=60, dtype=dtype,
+                    device="cpu", **kw)
+    cpu.train(wl.base)
+    cpu.add(wl.base)
+    gpu = HnswIndex.from_bytes(cpu.to_bytes(), device=card)
+    packs = [None, "sq"] if dtype == "sq8" else [None]
+    for packed in packs:
+        if packed:
+            cpu.enable_packed(bits=8)
+            gpu.enable_packed(bits=8)
+        _cuda.reset_launch_counts()
+        d, i = gpu.search(wl.queries, 10, ef_search=48)
+        counts = _cuda.launch_counts()
+        cd, ci = cpu.search(wl.queries, 10, ef_search=48)
+        same = i == ci
+        assert same.mean() >= 0.99, (dtype, packed, same.mean())
+        np.testing.assert_allclose(d[same], cd[same], rtol=1e-5, atol=1e-4)
+        assert counts["beam_update"] > 0
+        if dtype != "pq":
+            assert counts["gathered_vec_dist"] > 0
+        if packed:
+            assert counts["packed_row_dist"] > 0

@@ -241,8 +241,9 @@ def test_pack_neighbors_budget_and_unported_layout(host_index):
 def test_unported_search_options_raise(host_index, small_workload,
                                        monkeypatch):
     """Every legacy option runs now; unknown option values raise, and so
-    does what stays unported at the index level (PQ packed rows, sq8
-    storage)."""
+    does what stays unported at the index level: add() with (PQ-coded)
+    packed tables enabled, the host builder, and HNSW_TPU_PALLAS_HOP=1
+    over bf16 storage (the port's K5 reads f32 rows)."""
     _, _, tg, tv = _both(host_index, monkeypatch)
     q = torch.from_numpy(small_workload.queries[:4])
     for kw in ({"visited_mode": "hash"}, {"beam_keys": "fp16"},
@@ -250,12 +251,21 @@ def test_unported_search_options_raise(host_index, small_workload,
         with pytest.raises(ValueError):
             hnsw_search(tg, tv, q, k=5, ef_search=32, **kw)
     import hnsw_tpu_torch
+    base = small_workload.base
     idx = hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="PQ"):
-        idx.enable_packed(mode="pq")
-    with pytest.raises(NotImplementedError, match="sq8"):
-        hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, dtype="sq8",
+    idx.add(base[:40])
+    idx.enable_packed(mode="pq", pq_m=8, pq_bits=4, train_x=base)
+    with pytest.raises(NotImplementedError, match="A4"):
+        idx.add(base[40:41])
+    with pytest.raises(NotImplementedError, match="A5"):
+        hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, build="host",
                                  device="cpu")
+    bf = hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, dtype="bfloat16",
+                                  device="cpu")
+    bf.add(base[:40])
+    monkeypatch.setenv("HNSW_TPU_PALLAS_HOP", "1")
+    with pytest.raises(NotImplementedError, match="K5"):
+        bf.search(small_workload.queries[:4], 5)
 
 
 def test_static_sizes_match_reference():
