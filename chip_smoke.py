@@ -15,9 +15,11 @@ Phases (any failure raises, and the exit code is not 0):
      K3 also at the build's upper-level beam, Q=86 and K=128) and at
      4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
      clamped-id and two-expansion variants, K2 also at the sq8 phase's
-     d=96 rows, and Q=8191 for K2's and K4's persistent grid; K2 must equal ``nbr_sq[cur] - 2 * K4 dots`` on the
-     same bits exactly (one engine); time both with CUDA events and
-     compute each kernel's bound from its inputs;
+     d=96 rows (timed there too), K5 also on bf16 rows (timed at 2-byte
+     rows), and Q=8191 for K2's and K4's persistent grid; K2 must equal
+     ``nbr_sq[cur] - 2 * K4 dots`` on the same bits exactly (one engine);
+     time both with CUDA events and compute each kernel's bound from its
+     inputs;
   4. the main path, ``synthetic_workload(n, 128, n_queries=8192,
      seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), in phases on
      ONE index, each with the launch counts set to 0 just before it and
@@ -49,7 +51,8 @@ Phases (any failure raises, and the exit code is not 0):
      from a table made before, the hops' form) timed and compared at the
      same shape. The f32 index is freed first;
   6. the storage codecs, each phase again with the launch counts set to 0
-     just before it and read just after, K3's launches also by row dtype:
+     just before it and read just after, K3's and K5's launches also by
+     row dtype:
        f. sq8 storage, Deep10M-shaped (``synthetic_workload(1_000_000, 96,
           n_queries=8192, seed=1234)``, M=32, efConstruction=100):
           ``train(base[:262144])``, ``add``, ``check()`` (K3 on uint8 rows,
@@ -63,7 +66,10 @@ Phases (any failure raises, and the exit code is not 0):
           PQ-hostile). Returned distances must be exact over x̂;
        g. bf16 storage, SIFT-shaped (300,000 x 128): build (K3 on bf16
           rows, timed at the build's shapes as in 4a) and unpacked ef=64
-          search, recall against the bf16 x̂ oracle >= 0.95;
+          search, recall against the bf16 x̂ oracle >= 0.95; then the same
+          search under ``HNSW_TPU_PALLAS_HOP=1`` (K5 on bf16 rows), recall
+          within 0.003 of K3's, and a 1,024-query search that must not grow
+          the device memory by an f32 copy of the table;
        h. PQ storage, Deep-shaped (300,000 x 96, pq_m=12): ``train``,
           ``add``, search at ef 64 / 128 / 256 (K1, ADC), recall against
           the ADC oracle ``brute_force_topk(pq=)`` >= 0.95 at the best ef,
@@ -85,7 +91,8 @@ walls, one profiled call: device busy, busy share, the top ops by device
 time); its searches count as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over every phase of 4 and 6; K3 by row dtype, one row each),
+(summed over every phase of 4 and 6; K3 and K5 by row dtype, one row
+each),
 error, times and bound, and the ``nvidia-smi`` name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -339,10 +346,11 @@ def check_packed_dist(dev, gen) -> dict:
     over a 300k-row table (2.46 GB, so row offsets cross 2^31), at the sq8
     phase's row (d = 96: 96-byte segments, 24 words a neighbor on K4's
     engine), plus 4-bit, odd d, and, for L2 and IP, one and two expansions
-    a query (cur [Q/2, 2]). Tolerance: rtol
-    1e-5 + atol 1e-2 (f32 sums of up to 128 code * query terms, each up to
-    ~500, in another order). No single PyTorch call reads code rows by id
-    and contracts them: library_ms is null."""
+    a query (cur [Q/2, 2]); timed and bounded at d = 128 and, under
+    ``"d96"``, at the sq8 rows. Tolerance: rtol 1e-5 + atol 1e-2 (f32 sums
+    of up to 128 code * query terms, each up to ~500, in another order). No
+    single PyTorch call reads code rows by id and contracts them: library_ms
+    is null."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
     q, k, big = N_QUERIES, HOP_K, PACKED_ROWS
     out = {}
@@ -364,14 +372,15 @@ def check_packed_dist(dev, gen) -> dict:
             want = dk.packed_row_dist_plain(codes, nbr_sq, cur, qs,
                                             bits=bits, metric=metric)
             err = compare(tag, got, want, rtol=1e-5, atol=1e-2)
-            if (d, bits, metric) == (128, 8, "l2"):
-                out["max_abs_err"] = err
+            if bits == 8 and d in (128, DEEP_D) and metric == "l2":
+                m = out if d == 128 else out.setdefault("d96", {})
+                m["max_abs_err"] = err
                 rows_read = torch.unique(cur).numel()
-                out.update(bound(rows_read * (k * db + k * 4) + q * 4
-                                 + q * d * 4 + q * k * 4, q * k * d * 2))
-                out["ms"] = time_ms(lambda: dk.packed_row_dist_ids(
+                m.update(bound(rows_read * (k * db + k * 4) + q * 4
+                               + q * d * 4 + q * k * 4, q * k * d * 2))
+                m["ms"] = time_ms(lambda: dk.packed_row_dist_ids(
                     codes, nbr_sq, cur, qs, bits=8, metric="l2"))
-                out["plain_ms"] = time_ms(lambda: dk.packed_row_dist_plain(
+                m["plain_ms"] = time_ms(lambda: dk.packed_row_dist_plain(
                     codes, nbr_sq, cur, qs, bits=8, metric="l2"))
         rows_g = codes[cur[:256].long()]
         compare(f"packed_row_dist pre-gathered {bits}-bit d={d}",
@@ -473,10 +482,12 @@ def check_words_dist(dev, gen) -> dict:
 
 def check_gather_dist(dev, gen) -> dict:
     """K5 at the hop's shape (Q=8192, K=64) over 1M rows, d in {128, 100},
-    L2 and IP, with ~1% negative and ~1% past-the-end ids (the kernel's
-    clamp). Tolerance: rtol 1e-5 + atol 1e-3, K3's: f32 sums of d terms in
-    another order. No single PyTorch call gathers rows by id and contracts
-    them: library_ms is null."""
+    on f32 rows and on the same values as bf16 rows, L2 and IP, with ~1%
+    negative and ~1% past-the-end ids (the kernel's clamp). Tolerance: rtol
+    1e-5 + atol 1e-3, K3's: f32 sums of d terms in another order. Timed
+    and bounded at d=128 on f32 rows and, under ``"bfloat16"``, on bf16
+    rows (2-byte rows). No single PyTorch call gathers rows by id and
+    contracts them: library_ms is null."""
     from hnsw_tpu_torch.ops import hop_kernel as hk
     q, k, n = N_QUERIES, HOP_K, NORTH_STAR_N
     out = {}
@@ -488,19 +499,23 @@ def check_gather_dist(dev, gen) -> dict:
         r = torch.rand((q, k), generator=gen, device=dev)
         ids = torch.where(r < 0.01, -1 - ids % 7, ids)
         ids = torch.where(r > 0.99, n + ids % 7, ids)
-        for metric in ("l2", "ip"):
-            got = hk.fused_gather_distances(table, ids, qs, metric)
-            want = hk.fused_gather_distances_plain(table, ids, qs, metric)
-            err = compare(f"fused_gather_distances d={d} {metric}", got,
-                          want, rtol=1e-5, atol=1e-3)
-            if d == 128 and metric == "l2":
-                out["max_abs_err"] = err
-                out.update(gather_bound(ids.clamp(0, n - 1), d, ip=False))
-                out["ms"] = time_ms(lambda: hk.fused_gather_distances(
-                    table, ids, qs, "l2"))
-                out["plain_ms"] = time_ms(
-                    lambda: hk.fused_gather_distances_plain(table, ids, qs,
-                                                            "l2"))
+        for rows in (table, table.to(torch.bfloat16)):
+            tag = str(rows.dtype).removeprefix("torch.")
+            for metric in ("l2", "ip"):
+                got = hk.fused_gather_distances(rows, ids, qs, metric)
+                want = hk.fused_gather_distances_plain(rows, ids, qs, metric)
+                err = compare(f"fused_gather_distances {tag} d={d} {metric}",
+                              got, want, rtol=1e-5, atol=1e-3)
+                if d == 128 and metric == "l2":
+                    m = out if tag == "float32" else out.setdefault(tag, {})
+                    m["max_abs_err"] = err
+                    m.update(gather_bound(ids.clamp(0, n - 1), d, ip=False,
+                                          row_elem=rows.element_size()))
+                    m["ms"] = time_ms(lambda: hk.fused_gather_distances(
+                        rows, ids, qs, "l2"))
+                    m["plain_ms"] = time_ms(
+                        lambda: hk.fused_gather_distances_plain(
+                            rows, ids, qs, "l2"))
         del table
     return out
 
@@ -1129,8 +1144,9 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
     measure_build_k3(k3_build)
     del k3_build
 
+    hat, _, truth = oracles(idx, queries, wl.base, n, dev)
+
     def bf16_phase():
-        hat, _, truth = oracles(idx, queries, wl.base, n, dev)
         res, secs = search(idx, queries, 64)
         r = report("bf16 unpacked ef=64", res, secs, hat, truth=truth)
         exact_l2("bf16 unpacked", queries, res[0], res[1], stored_rows(idx))
@@ -1144,6 +1160,46 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
                         need_tags=(("gathered_vec_dist", "bfloat16"),))
     log(f"bf16 peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    def grown() -> int:
+        """Device memory a 1,024-query ef=64 search grows by, at its peak."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        idx.search(queries[:1024], 10, ef_search=64, device_out=True)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    def bf16_pallas():
+        # K5 reads the bf16 rows: the search must not grow the device
+        # memory by an f32 copy of the table (K3's search beside it)
+        k3_grew = grown()
+        os.environ["HNSW_TPU_PALLAS_HOP"] = "1"
+        try:
+            res, secs = search(idx, queries, 64)
+            grew = grown()
+        finally:
+            del os.environ["HNSW_TPU_PALLAS_HOP"]
+        r = report("bf16 unpacked HNSW_TPU_PALLAS_HOP=1 ef=64", res, secs,
+                   hat, truth=truth)
+        exact_l2("bf16 pallas hop", queries, res[0], res[1],
+                 stored_rows(idx))
+        f32_copy = idx.vectors.numel() * 4
+        log(f"  bf16 HNSW_TPU_PALLAS_HOP=1: device memory grew {grew} bytes "
+            f"during a 1,024-query search ({k3_grew} without the flag; an "
+            f"f32 copy of the table: {f32_copy} bytes)")
+        if grew >= f32_copy:
+            raise AssertionError("bf16 HNSW_TPU_PALLAS_HOP=1 search grew the "
+                                 "device memory by an f32 table's bytes")
+        if abs(r - out["bf16"]) > 0.003:
+            raise AssertionError(f"bf16 HNSW_TPU_PALLAS_HOP=1 recall "
+                                 f"{r:.4f} vs K3's {out['bf16']:.4f} differ "
+                                 f"> 0.003")
+        return r
+
+    out["bf16_pallas"] = phase(
+        "bf16 pallas hop", ("fused_gather_distances",), totals, bf16_pallas,
+        need_tags=(("fused_gather_distances", "bfloat16"),))
     del idx, wl, queries
     torch.cuda.empty_cache()
 
@@ -1240,7 +1296,12 @@ def main() -> None:
                 "packed_row_dist_words": check_words_dist(dev, gen),
                 "fused_gather_distances": check_gather_dist(dev, gen),
                 "beam_update": check_beam_update(dev, gen)}
-    for name, m in measured.items():
+    k5_bf16 = measured["fused_gather_distances"]["bfloat16"]
+    timed_cases = dict(measured)
+    timed_cases["packed_row_dist (8-bit, d=96)"] = \
+        measured["packed_row_dist"]["d96"]
+    timed_cases["fused_gather_distances (bfloat16 rows)"] = k5_bf16
+    for name, m in timed_cases.items():
         log(f"  {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} "
             f"ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']} "
             f"({m['bytes'] / 1e6:.1f} MB)")
@@ -1260,8 +1321,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     codec_path(dev, totals, args.profile)
     by_tag = totals.pop("by_tag")
-    log(f"kernel launches over the main path's phases: {totals}; K3 by row "
-        f"dtype {by_tag}")
+    log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
+        f"by row dtype {by_tag}")
     missing = [k for k in KERNELS if totals.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1275,12 +1336,18 @@ def main() -> None:
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": None}
 
-    k3 = "gathered_vec_dist"
-    rows = [row(name, m, by_tag.get((k3, "float32"), 0) if name == k3
-                else totals[name]) for name, m in measured.items()]
+    # K3's and K5's launches are counted by row dtype: their main rows are
+    # the f32 rows' launches
+    k3, k5_name = "gathered_vec_dist", "fused_gather_distances"
+    rows = [row(name, m, by_tag.get((name, "float32"), 0)
+                if name in (k3, k5_name) else totals[name])
+            for name, m in measured.items()]
     rows += [row(k3, m, by_tag.get((k3, tag), 0),
                  f"{k3} ({tag} rows{' + dequant' if tag == 'uint8' else ''}"
                  f", d={m['d']})") for tag, m in codec_k3.items()]
+    rows.append(row(k5_name, k5_bf16,
+                    by_tag.get((k5_name, "bfloat16"), 0),
+                    f"{k5_name} (bfloat16 rows, d=128)"))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,18 @@
 // with nvcc for sm_90a and loaded through ctypes; see ops/_cuda.py).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hnsw {
 
 constexpr int kWarp = 32;
+
+// a row value as f32 (exact for each row type)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

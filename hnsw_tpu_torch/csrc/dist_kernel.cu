@@ -52,6 +52,26 @@
 // Rows are not bulk-copied: a K3 row is one 512-byte copy per candidate,
 // which would make one producer thread the bottleneck.
 //
+// K3 on the storage codecs' rows. vec_dist_kernel reads one value a lane a
+// load: 32 bytes a warp load on uint8 rows (sq8), 64 on bf16, where an f32
+// warp load moves 128. On the H100 that ran uint8 + dequant rows at d = 96
+// (96 bytes a row) at 0.18 ms a serving hop, twice f32's time at five times
+// fewer bytes; measured (scripts/torch_k3_probe.py), the affine's two loads
+// and FMA a dim cost the most (0.18 -> 0.096 ms without them), the
+// sums next, and the int-to-float conversion nothing. So:
+//   * uint8 rows of whole 4-byte words (vec_dist_bytes_kernel): one 4-byte
+//     load a lane covers a row's 128-dim pass in one warp load (16 rows in
+//     flight a warp where K >= 64), shuffles hand each lane its own dims,
+//     and a byte permute and a subtract make them exact floats: 0.040 ms,
+//     in the first port's order of summation, bit for bit;
+//   * bf16 rows of whole 16-, 8- or 4-byte loads (vec_dist_bf16_kernel):
+//     16-byte loads, a row over 4 to 32 lanes, 4 rows a lane, each lane
+//     summing its own loads, then a short reduction: another order of
+//     summation (held to the plain version within the tolerance), chosen
+//     because the first port's order with shuffles measured 15% slower
+//     (0.057 against 0.050 ms a serving hop);
+//   * other sub-word rows (odd d, an unaligned table) keep vec_dist_kernel.
+//
 // K4 and K2 (words_dist_kernel). The TPU kernel lane-split each int32 word
 // row to [rows, 128], multiplied each byte plane against G-tiled query
 // planes and summed each candidate's wp lanes with a 0/1 selector matmul on
@@ -117,10 +137,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
-
 // Sums kM per-lane partial sums v[] each over the lpc lanes of a lane group
 // (lpc >= kM, both powers of two) along the xor tree o = lpc / 2, ..., 1:
 // the first port's order, bit for bit. The kM trees share their first
@@ -144,6 +160,18 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[kM], int sl, int lpc)
   }
   for (; o > 0; o >>= 1) v[0] += __shfl_xor_sync(kFull, v[0], o);
   return v[0];
+}
+
+// Value j (< 32 / kBits) of word w as an exact float without an int-to-float
+// conversion (16 a clock per SM on Hopper): 2^23 + v carries v in its low
+// mantissa bits, so one byte permute (or shift and mask) and one subtract
+// give float(v) bit for bit.
+template <int kBits>
+__device__ __forceinline__ float code_value(uint32_t w, int j) {
+  constexpr uint32_t kTwo23 = 0x4B000000u;  // 8388608.0f
+  const uint32_t bits = kBits == 8 ? __byte_perm(w, kTwo23, 0x7440 | j)
+                                   : (((w >> (4 * j)) & 0xFu) | kTwo23);
+  return __uint_as_float(bits) - 8388608.f;
 }
 
 constexpr int kVecChunk = 8;  // candidates a warp owns
@@ -212,22 +240,233 @@ vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
   if (lane % kSpan == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
 }
 
+// K3 on uint8 rows that are a whole number of 4-byte words (d % 4 == 0,
+// the table 4-byte aligned), with or without the dequant affine: the
+// function and order of summation of vec_dist_kernel. Warp w owns query w
+// / chunks, candidates c0 = (w % chunks) * kC, ..., c0 + kC - 1 (those <
+// k), kC = 8 or 16, in groups of 8. Each 128-dim pass reads every row's
+// words first, lane l word l (a row's 128 bytes in one warp load),
+// evict-first; then one shuffle a dim hands lane j its dims j, j + 32, j +
+// 64, j + 96 (dim j + 32 i is byte j % 4 of lane (j + 32 i) / 4's word), and
+// a byte permute and a subtract make each an exact float (code_value, no
+// int-to-float conversion). Lane j sums those dims in that order and the
+// xor tree adds the lanes (one reduce_scatter per group of 8), as in
+// vec_dist_kernel, so results equal it bit for bit.
+template <bool kDequant, bool kIP, int kC>
+__global__ void __launch_bounds__(kVecWarps * kWarp)
+vec_dist_bytes_kernel(const uint8_t* __restrict__ table, int64_t n_rows, int d,
+                      const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
+                      const float* __restrict__ qs, const float* __restrict__ offset,
+                      const float* __restrict__ scale, float* __restrict__ out) {
+  constexpr int kG = kC / kVecChunk;  // groups of 8 candidates
+  const int lane = threadIdx.x % kWarp;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
+  if (w >= n_work) return;  // warp-uniform
+  const int64_t qi = w / chunks;
+  const int c0 = static_cast<int>(w % chunks) * kC;
+  const int live = min(kC, k - c0);
+  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  const int row_words = d / 4;
+  const uint32_t* row[kC];
+#pragma unroll
+  for (int u = 0; u < kC; ++u)
+    row[u] = reinterpret_cast<const uint32_t*>(table) +
+             clamp_row(__shfl_sync(kFull, id, u), n_rows) * static_cast<int64_t>(row_words);
+  const float* q = qs + qi * d;
+  float dot[kG][kVecChunk], sq[kG][kVecChunk];
+#pragma unroll
+  for (int u = 0; u < kC; ++u) dot[u / kVecChunk][u % kVecChunk] = sq[u / kVecChunk][u % kVecChunk] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kVecPass * kWarp) {
+    // every row load of the pass first; words past the row and candidates
+    // >= live read nothing
+    const int wi = d0 / 4 + lane;
+    uint32_t x[kC];
+#pragma unroll
+    for (int u = 0; u < kC; ++u) x[u] = wi < row_words && u < live ? __ldcs(row[u] + wi) : 0u;
+#pragma unroll
+    for (int i = 0; i < kVecPass; ++i) {
+      if (d0 + i * kWarp < d) {  // warp-uniform; dims past d would add +0
+        const int j = d0 + lane + i * kWarp;
+        const bool in = j < d;
+        const float qv = in ? __ldg(q + j) : 0.f;
+        float ov = 0.f, sv = 0.f;
+        if (kDequant) {
+          ov = in ? __ldg(offset + j) : 0.f;
+          sv = in ? __ldg(scale + j) : 0.f;
+        }
+        const int src = (lane + kWarp * i) / 4;
+#pragma unroll
+        for (int u = 0; u < kC; ++u) {
+          float v = code_value<8>(__shfl_sync(kFull, x[u], src), lane & 3);
+          if (kDequant) v = ov + sv * v;
+          dot[u / kVecChunk][u % kVecChunk] += qv * v;
+          if (!kIP) sq[u / kVecChunk][u % kVecChunk] += v * v;
+        }
+      }
+    }
+  }
+  constexpr int kSpan = kWarp / kVecChunk;  // lanes that end with the same candidate
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const float dsum = reduce_scatter<kVecChunk>(dot[g], lane, kWarp);
+    const float ssum = kIP ? 0.f : reduce_scatter<kVecChunk>(sq[g], lane, kWarp);
+    const int c = g * kVecChunk + lane / kSpan;
+    if (lane % kSpan == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
+  }
+}
+
+// the bf16 values of one load as floats: a bf16 is the high half of the
+// f32 of the same value; value 2 m is the low half of word m
+__device__ __forceinline__ void widen(uint32_t w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void widen(uint2 w, float* v) {
+  widen(w.x, v);
+  widen(w.y, v + 2);
+}
+__device__ __forceinline__ void widen(uint4 w, float* v) {
+  widen(w.x, v);
+  widen(w.y, v + 2);
+  widen(w.z, v + 4);
+  widen(w.w, v + 6);
+}
+
+constexpr int kBf16Rows = 4;  // rows a lane reads
+
+// K3 on bf16 rows that are a whole number of V loads (16, 8 or 4 bytes;
+// the table and the query rows aligned to them), in another order of
+// summation than vec_dist_kernel's: lpr lanes read a row side by side (the
+// least power of two >= its loads, 4 to 32), 32 / lpr rows sit side by
+// side in a warp and each lane reads kBf16Rows of them, so warp w owns
+// query w / chunks and 4 * 32 / lpr candidates from c0 = (w % chunks) * 4 *
+// 32 / lpr. Every row load of a step goes out before the sums (evict-first);
+// lane sl of a row sums its loads sl, sl + lpr, ... value by value, then
+// the row's lanes reduce (one reduce_scatter over the kBf16Rows rows).
+template <typename V, bool kIP>
+__global__ void __launch_bounds__(kVecWarps * kWarp)
+vec_dist_bf16_kernel(const V* __restrict__ table, int64_t n_rows, int units, int lpr,
+                     const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
+                     const float* __restrict__ qs, float* __restrict__ out) {
+  constexpr int kVals = static_cast<int>(sizeof(V)) / 2;  // values a load holds
+  const int lane = threadIdx.x % kWarp;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
+  if (w >= n_work) return;  // warp-uniform
+  const int rpw = kWarp / lpr, cpw = kBf16Rows * rpw;
+  const int g = lane / lpr, sl = lane % lpr;
+  const int64_t qi = w / chunks;
+  const int c0 = static_cast<int>(w % chunks) * cpw;
+  const int live = min(cpw, k - c0);
+  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  const V* row[kBf16Rows];
+  bool ok[kBf16Rows];
+#pragma unroll
+  for (int s = 0; s < kBf16Rows; ++s) {
+    const int c = s * rpw + g;
+    ok[s] = c < live;
+    row[s] = table + clamp_row(__shfl_sync(kFull, id, c), n_rows) * static_cast<int64_t>(units);
+  }
+  const float2* q2 = reinterpret_cast<const float2*>(qs + qi * units * kVals);
+  float dot[kBf16Rows], sq[kBf16Rows];
+#pragma unroll
+  for (int s = 0; s < kBf16Rows; ++s) dot[s] = sq[s] = 0.f;
+  for (int e = sl; e < units; e += lpr) {
+    V x[kBf16Rows];
+#pragma unroll
+    for (int s = 0; s < kBf16Rows; ++s) x[s] = ok[s] ? __ldcs(row[s] + e) : V{};
+    float qv[kVals];
+#pragma unroll
+    for (int m = 0; m < kVals / 2; ++m) {
+      const float2 a = __ldg(q2 + e * (kVals / 2) + m);
+      qv[2 * m] = a.x;
+      qv[2 * m + 1] = a.y;
+    }
+#pragma unroll
+    for (int s = 0; s < kBf16Rows; ++s) {
+      float v[kVals];
+      widen(x[s], v);
+#pragma unroll
+      for (int m = 0; m < kVals; ++m) {
+        dot[s] += qv[m] * v[m];
+        if (!kIP) sq[s] += v[m] * v[m];
+      }
+    }
+  }
+  const float dsum = reduce_scatter<kBf16Rows>(dot, sl, lpr);
+  const float ssum = kIP ? 0.f : reduce_scatter<kBf16Rows>(sq, sl, lpr);
+  const int span = lpr / kBf16Rows;  // lanes that end with the same row
+  const int c = ((sl / span) % kBf16Rows) * rpw + g;
+  if (sl % span == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
+}
+
+template <typename V>
+void launch_bf16(const void* table, int64_t n_rows, int d, const int32_t* ids, int q, int k,
+                 const float* qs, bool ip, float* out, cudaStream_t s) {
+  const int units = d * 2 / static_cast<int>(sizeof(V));
+  int lpr = kBf16Rows;
+  while (lpr < units && lpr < kWarp) lpr <<= 1;
+  const int cpw = kBf16Rows * (kWarp / lpr);
+  const int chunks = (k + cpw - 1) / cpw;
+  const int64_t work = static_cast<int64_t>(q) * chunks;
+  const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
+  const V* t = static_cast<const V*>(table);
+  if (ip)
+    vec_dist_bf16_kernel<V, true><<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, units, lpr, ids, k,
+                                                                     chunks, work, qs, out);
+  else
+    vec_dist_bf16_kernel<V, false><<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, units, lpr, ids, k,
+                                                                      chunks, work, qs, out);
+}
+
+// K3: f32 rows, and sub-word rows no wider kernel can read, take
+// vec_dist_kernel (one value a lane a load); uint8 rows of whole 4-byte
+// words vec_dist_bytes_kernel (16 candidates a warp where a query has 64 or
+// more: two groups of rows in flight; else 8, more warps for the build's
+// descent and entry); bf16 rows of whole 4-, 8- or 16-byte loads
+// vec_dist_bf16_kernel with the widest load the rows and the query rows
+// take.
 template <typename T>
 void launch_vec(const void* table, int64_t n_rows, int d, const int32_t* ids,
                 int q, int k, const float* qs, const float* offset,
                 const float* scale, bool ip, float* out, cudaStream_t s) {
   const T* t = static_cast<const T*>(table);
-  const int chunks = (k + kVecChunk - 1) / kVecChunk;
-  const int64_t work = static_cast<int64_t>(q) * chunks;
-  const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
-  const auto run = [&](auto kern) {
+  const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
+  // loads of b bytes fit: b divides the row bytes and both bases
+  const auto fits = [&](int b) {
+    return row_bytes % b == 0 &&
+           (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(qs)) % b == 0;
+  };
+  const auto run = [&](auto kern, int chunk) {
+    const int chunks = (k + chunk - 1) / chunk;
+    const int64_t work = static_cast<int64_t>(q) * chunks;
+    const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
     kern<<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, d, ids, k, chunks, work, qs, offset, scale,
                                             out);
   };
+  if constexpr (sizeof(T) == 2) {
+    if (fits(16)) return launch_bf16<uint4>(table, n_rows, d, ids, q, k, qs, ip, out, s);
+    if (fits(8)) return launch_bf16<uint2>(table, n_rows, d, ids, q, k, qs, ip, out, s);
+    if (fits(4)) return launch_bf16<uint32_t>(table, n_rows, d, ids, q, k, qs, ip, out, s);
+  }
+  if constexpr (sizeof(T) == 1) {
+    if (fits(4)) {
+      const bool wide = k >= 64;
+      const auto pick = [&](auto k16, auto k8) { wide ? run(k16, 16) : run(k8, 8); };
+      if (offset)
+        ip ? pick(vec_dist_bytes_kernel<true, true, 16>, vec_dist_bytes_kernel<true, true, 8>)
+           : pick(vec_dist_bytes_kernel<true, false, 16>, vec_dist_bytes_kernel<true, false, 8>);
+      else
+        ip ? pick(vec_dist_bytes_kernel<false, true, 16>, vec_dist_bytes_kernel<false, true, 8>)
+           : pick(vec_dist_bytes_kernel<false, false, 16>, vec_dist_bytes_kernel<false, false, 8>);
+      return;
+    }
+  }
   if (offset)
-    ip ? run(vec_dist_kernel<T, true, true>) : run(vec_dist_kernel<T, true, false>);
+    ip ? run(vec_dist_kernel<T, true, true>, kVecChunk)
+       : run(vec_dist_kernel<T, true, false>, kVecChunk);
   else
-    ip ? run(vec_dist_kernel<T, false, true>) : run(vec_dist_kernel<T, false, false>);
+    ip ? run(vec_dist_kernel<T, false, true>, kVecChunk)
+       : run(vec_dist_kernel<T, false, false>, kVecChunk);
 }
 
 // K2 for rows the word engine cannot read (db % 4 != 0, or a table that is
@@ -281,18 +520,6 @@ void launch_packed(const uint8_t* codes, int64_t n_rows, int64_t row_w,
   const size_t smem = static_cast<size_t>(dq) * sizeof(float);
   const unsigned grid = static_cast<unsigned>(q) * static_cast<unsigned>(t);
   packed_dist_kernel<kBits, kIP><<<grid, kThreads, smem, s>>>(codes, n_rows, row_w, nbr_sq, k, d, cur, t, qs, out);
-}
-
-// Value j (< 32 / kBits) of word w as an exact float without an int-to-float
-// conversion (16 a clock per SM on Hopper): 2^23 + v carries v in its low
-// mantissa bits, so one byte permute (or shift and mask) and one subtract
-// give float(v) bit for bit.
-template <int kBits>
-__device__ __forceinline__ float code_value(uint32_t w, int j) {
-  constexpr uint32_t kTwo23 = 0x4B000000u;  // 8388608.0f
-  const uint32_t bits = kBits == 8 ? __byte_perm(w, kTwo23, 0x7440 | j)
-                                   : (((w >> (4 * j)) & 0xFu) | kTwo23);
-  return __uint_as_float(bits) - 8388608.f;
 }
 
 // What words_dist_kernel writes from a candidate's dot: the dot itself (K4),

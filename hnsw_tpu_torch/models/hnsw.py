@@ -325,9 +325,12 @@ class HnswIndex:
     def _normalize_allowed(self, allowed) -> torch.Tensor:
         """A user id filter as a bool [capacity] mask on the index's device,
         by dtype and shape: a bool mask (1-d, at most capacity long; the
-        tail is False) or an int id list, as numpy or as a tensor. A numpy
-        id out of range raises (numpy indexing); tensor ids outside
-        [0, capacity) are dropped, as the reference drops them on device."""
+        tail is False) or an int id list, as numpy or as a tensor. Ids
+        follow the reference's two paths: a numpy id in [-capacity, -1]
+        selects id + capacity and any other id out of range raises (numpy
+        indexing); a tensor id in [-capacity, -1] selects id + capacity and
+        any other id outside [0, capacity) is dropped (its device path's
+        ``.at[ids].set(True, mode="drop")``)."""
         cap = self.config.capacity
         if isinstance(allowed, torch.Tensor):
             a = allowed.to(self.device)
@@ -343,6 +346,7 @@ class HnswIndex:
                 raise TypeError(f"allowed: expected bool mask or int id "
                                 f"list, got dtype {a.dtype}")
             ids = a.reshape(-1).long()
+            ids = torch.where(ids < 0, ids + cap, ids)
             mask = torch.zeros(cap, dtype=torch.bool, device=self.device)
             mask[ids[(ids >= 0) & (ids < cap)]] = True
             return mask

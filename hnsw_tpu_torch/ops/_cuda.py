@@ -43,8 +43,8 @@ _SIGNATURES = {
     # words, n_rows, row_w, k, wp, d, bits, cur, q, t, qs, out, stream
     "hnsw_words_dist": (_P, _I64, _I64, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                         _P),
-    # vectors, cap, d, ids, q, k, queries, ip, out, stream
-    "hnsw_gather_dist": (_P, _I64, _I, _P, _I, _I, _P, _I, _P, _P),
+    # vectors, dtype, cap, d, ids, q, k, queries, ip, out, stream
+    "hnsw_gather_dist": (_P, _I, _I64, _I, _P, _I, _I, _P, _I, _P, _P),
     # buf_d, buf_p, cand_i, cand_d, q, ef, k, ef_live,
     # out_d, out_p, cur, ndis, stream
     "hnsw_beam_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),

@@ -25,8 +25,9 @@ back on the final top-k only. Under ``HNSW_TPU_PALLAS_HOP=1`` every
 distance before the rerank (entry rescore, descent, hops) goes through K5
 ``fused_gather_distances``, and the packed expand is unchanged.
 
-Storage codecs: bf16 rows and sq8 rows (uint8 + the per-dim affine,
-``dequant``) go through K3 everywhere; PQ codes (``pq``) through ADC table
+Storage codecs: bf16 rows go through K3 (K5 under
+``HNSW_TPU_PALLAS_HOP=1``) and sq8 rows (uint8 + the per-dim affine,
+``dequant``) through K3 everywhere; PQ codes (``pq``) through ADC table
 lookups (``ops/pq.py``). Every distance is then exact over the stored x̂.
 """
 
@@ -67,7 +68,8 @@ def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
     exact over the stored vectors (x̂ for a codec):
 
       * f32 / bf16 rows: K3, or K5 with ``pallas_hop`` (for every d: the
-        reference's d % 128 gate is a TPU lane limit; K5 reads f32 rows);
+        reference's d % 128 gate is a TPU lane limit; K5 widens bf16 rows
+        in registers where the reference copies the table to f32);
       * sq8 rows (``dequant`` = (offset, scale)): K3 on the uint8 rows with
         the affine in the kernel, under ``pallas_hop`` too, as the
         reference's dequant path;
@@ -88,11 +90,6 @@ def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
 
         return distance_to
     if pallas_hop and dequant is None:
-        if vectors.dtype != torch.float32:
-            raise NotImplementedError(
-                f"HNSW_TPU_PALLAS_HOP=1 over {vectors.dtype} storage: the "
-                f"port's K5 reads f32 rows")
-
         def distance_to(ids: torch.Tensor, mask: torch.Tensor):
             safe = torch.where(mask, ids, 0).to(torch.int32)
             return fused_gather_distances(vectors, safe, qf, metric=metric)

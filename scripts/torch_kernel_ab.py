@@ -11,16 +11,20 @@ unpacked with ``git archive`` into a git-ignored directory. Its
 flags) into a library under DIR and loaded beside this checkout's. For each
 case both kernels get the same inputs on the card, at the shapes the main
 path gives them (K3: the serving hop and rerank, and the build's level-0
-hop, upper-level beam, descent and entry; K2: the packed hop at 8 and 4
-bits, IP, two expansions, Q = 8191, and rows of other widths). Their
-outputs must be equal bit for bit (``torch.equal``); every case is also
-compared with the plain PyTorch version (chip_smoke.py's tolerances). Each
-case is then timed in turns, other / this / this / other, with
-``chip_smoke.time_ms``, and printed beside its bound. Each K3 case is also
-timed against a gather ceiling: a kernel (compiled from the source below)
-that reads the same rows by the same ids with 16-byte loads and does no
-arithmetic, the least time this card takes to fetch them. Exits non-zero
-if any output differs.
+hop, upper-level beam, descent and entry, on f32 rows and on the storage
+codecs' rows: uint8 + dequant (sq8) at d = 96 and bf16 at d = 128, and both
+at d = 100; K2: the packed hop at 8 and 4 bits, IP, two expansions, Q =
+8191, and rows of other widths). Their outputs must be equal bit for bit
+(``torch.equal``), except K3 on bf16 rows, which sums in another order
+than the first port's and is held within rtol 1e-5 + atol 1e-3; every
+case is also compared with the plain PyTorch version (chip_smoke.py's
+tolerances). Each case is then timed in turns,
+other / this / this / other, with ``chip_smoke.time_ms``, and printed
+beside its bound. Each K3 case is also timed against a gather ceiling: a
+kernel (compiled from the source below) that reads the same rows by the
+same ids with 16-byte loads (4- or 1-byte loads where rows are not whole
+16-byte units) and does no arithmetic, the least time this card takes to
+fetch them. Exits non-zero if any output differs.
 """
 
 from __future__ import annotations
@@ -43,15 +47,29 @@ from hnsw_tpu_torch.ops import dist_kernel as dk  # noqa: E402
 
 
 # K3's reads without its sums: warp w reads the rows of query w / chunks,
-# candidates (w % chunks) * 8 ... + 7, one 16-byte load a lane and pass, and
-# stores nothing unless a row holds a NaN (so the loads stay).
+# candidates (w % chunks) * 8 ... + 7 (rows of row_bytes bytes), one W-byte
+# load a lane and pass (W = 16 where rows are whole 16-byte units, else 4,
+# else 1), and stores nothing unless a row holds a NaN (so the loads stay).
 CEILING_SRC = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
+// a load's bits as a finite, non-negative float (so a row's sum is never
+// NaN, which the compiler cannot know)
+template <typename V> __device__ __forceinline__ float fold(V v);
+template <> __device__ __forceinline__ float fold(uint4 v) {
+  return __uint_as_float((v.x ^ v.y ^ v.z ^ v.w) & 0x3fffffffu);
+}
+template <> __device__ __forceinline__ float fold(uint32_t v) {
+  return __uint_as_float(v & 0x3fffffffu);
+}
+template <> __device__ __forceinline__ float fold(uint8_t v) {
+  return __uint_as_float(v);
+}
+template <typename V>
 __global__ void __launch_bounds__(128)
-gather_ceiling(const float* __restrict__ table, int64_t n_rows, int d,
-               const int32_t* __restrict__ ids, int k, int chunks,
-               int64_t n_work, float* __restrict__ out) {
+gather_ceiling(const char* __restrict__ table, int64_t n_rows,
+               int64_t row_bytes, const int32_t* __restrict__ ids, int k,
+               int chunks, int64_t n_work, float* __restrict__ out) {
   const int lane = threadIdx.x % 32;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * 4 + threadIdx.x / 32;
   if (w >= n_work) return;
@@ -59,35 +77,44 @@ gather_ceiling(const float* __restrict__ table, int64_t n_rows, int d,
   const int c0 = static_cast<int>(w % chunks) * 8;
   const int live = min(8, k - c0);
   const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  const int64_t n = row_bytes / static_cast<int64_t>(sizeof(V));
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
     int64_t r = __shfl_sync(0xffffffffu, id, u);
     r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
-    const float4* row = reinterpret_cast<const float4*>(table + r * d);
+    const V* row = reinterpret_cast<const V*>(table + r * row_bytes);
     float s = 0.f;
-    for (int j = lane; u < live && 4 * j < d; j += 32) {
-      const float4 v = __ldg(row + j);
-      s += v.x + v.y + v.z + v.w;
-    }
+    for (int64_t j = lane; u < live && j < n; j += 32) s += fold(__ldg(row + j));
     if (s != s) out[qi * k + c0 + u] = s;
   }
 }
-extern "C" int gather_ceiling_run(const void* table, int64_t n_rows, int d,
-                                  const void* ids, int q, int k, void* out,
-                                  void* stream) {
+// width: bytes a lane loads (16, 4 or 1), or 0 for the widest the rows take
+extern "C" int gather_ceiling_run(const void* table, int64_t n_rows,
+                                  int64_t row_bytes, const void* ids, int q,
+                                  int k, int width, void* out, void* stream) {
   const int chunks = (k + 7) / 8;
   const int64_t work = static_cast<int64_t>(q) * chunks;
-  gather_ceiling<<<static_cast<unsigned>((work + 3) / 4), 128, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), n_rows, d,
-      static_cast<const int32_t*>(ids), k, chunks, work,
-      static_cast<float*>(out));
+  const unsigned grid = static_cast<unsigned>((work + 3) / 4);
+  const auto t = static_cast<const char*>(table);
+  const auto i = static_cast<const int32_t*>(ids);
+  const auto o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(t) | row_bytes;
+  if (width == 0) width = align % 16 == 0 ? 16 : (align % 4 == 0 ? 4 : 1);
+  if (align % width != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (width == 16)
+    gather_ceiling<uint4><<<grid, 128, 0, st>>>(t, n_rows, row_bytes, i, k, chunks, work, o);
+  else if (width == 4)
+    gather_ceiling<uint32_t><<<grid, 128, 0, st>>>(t, n_rows, row_bytes, i, k, chunks, work, o);
+  else
+    gather_ceiling<uint8_t><<<grid, 128, 0, st>>>(t, n_rows, row_bytes, i, k, chunks, work, o);
   return static_cast<int>(cudaGetLastError());
 }
 """
 
 
 def build_ceiling(work: Path) -> ctypes.CDLL:
+    work.mkdir(parents=True, exist_ok=True)
     src = work / "gather_ceiling.cu"
     src.write_text(CEILING_SRC)
     out = work / "libgather_ceiling.so"
@@ -95,9 +122,21 @@ def build_ceiling(work: Path) -> ctypes.CDLL:
                     str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.gather_ceiling_run.argtypes = [P, I64, I, P, I, I, P, P]
+    lib.gather_ceiling_run.argtypes = [P, I64, I64, P, I, I, I, P, P]
     lib.gather_ceiling_run.restype = ctypes.c_int
     return lib
+
+
+def ceiling_ms(ceil_lib, table: torch.Tensor, ids: torch.Tensor,
+               width: int = 0) -> float:
+    """The gather ceiling's time over ``table``'s rows (any dtype) by
+    ``ids``, ``width`` bytes a load (0: the widest the rows take)."""
+    q, k = ids.shape
+    sink = torch.empty((q, k), device=table.device)
+    row_bytes = table.shape[1] * table.element_size()
+    return cs.time_ms(lambda: call(
+        ceil_lib, "gather_ceiling_run", table.data_ptr(), table.shape[0],
+        row_bytes, ids.data_ptr(), q, k, width, sink.data_ptr()))
 
 
 def build_other(other: Path) -> ctypes.CDLL:
@@ -121,35 +160,37 @@ def call(lib, name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def vec_case(lib, ceil_lib, tag, table, ids, qs, metric):
+def vec_case(lib, ceil_lib, tag, table, ids, qs, metric, dequant=None):
     """K3: this kernel vs the other, bit for bit; vs plain; timed, and the
-    gather ceiling timed on the same rows."""
+    gather ceiling timed on the same rows (f32, bf16 or uint8; ``dequant``:
+    uint8 rows' (offset, scale))."""
     q, k = ids.shape
     n, d = table.shape
     ip = int(metric == "ip")
-    sink = torch.empty((q, k), device=table.device)
-
-    def ceiling():
-        call(ceil_lib, "gather_ceiling_run", table.data_ptr(), n, d,
-             ids.data_ptr(), q, k, sink.data_ptr())
-
-    cs.log(f"{tag}: gather ceiling {cs.time_ms(ceiling):.4f} ms")
+    cs.log(f"{tag}: gather ceiling {ceiling_ms(ceil_lib, table, ids):.4f} "
+           f"ms")
+    off, sc = (None, None) if dequant is None else \
+        (dequant[0].data_ptr(), dequant[1].data_ptr())
 
     def other():
         out = torch.empty((q, k), device=table.device)
-        call(lib, "hnsw_vec_dist", table.data_ptr(), 0, n, d, ids.data_ptr(),
-             q, k, qs.data_ptr(), None, None, ip, out.data_ptr())
+        call(lib, "hnsw_vec_dist", table.data_ptr(),
+             dk._ROW_DTYPES[table.dtype], n, d, ids.data_ptr(), q, k,
+             qs.data_ptr(), off, sc, ip, out.data_ptr())
         return out
 
     def this():
-        return dk.gathered_vec_dist_ids(table, ids, qs, metric=metric)
+        return dk.gathered_vec_dist_ids(table, ids, qs, dequant,
+                                        metric=metric)
 
-    b = cs.gather_bound(ids, d, ip=bool(ip))
+    b = cs.gather_bound(ids, d, ip=bool(ip), row_elem=table.element_size(),
+                        dequant=dequant is not None)
     zero = float((ids == 0).float().mean())
     return report(tag, this, other,
-                  lambda: dk.gathered_vec_dist_plain(table, ids, qs,
+                  lambda: dk.gathered_vec_dist_plain(table, ids, qs, dequant,
                                                      metric=metric),
-                  1e-3, b, f"row-0 share {zero:.3f}")
+                  1e-3, b, f"row-0 share {zero:.3f}",
+                  exact=table.dtype != torch.bfloat16)
 
 
 def packed_case(lib, tag, codes, nbr_sq, cur, qs, bits, metric):
@@ -178,10 +219,14 @@ def packed_case(lib, tag, codes, nbr_sq, cur, qs, bits, metric):
                   1e-2, b, f"{rows} distinct rows")
 
 
-def report(tag, this, other, plain, atol, b, note):
+def report(tag, this, other, plain, atol, b, note, exact=True):
+    """Both kernels against plain, then timed in turns. ``exact``: this
+    kernel must equal the other bit for bit; else (a kernel that sums in
+    another order) within rtol 1e-5 + ``atol``."""
     got, ref = this(), other()
     torch.cuda.synchronize()
-    same = torch.equal(got, ref)
+    same = torch.equal(got, ref) if exact else \
+        torch.allclose(got, ref, rtol=1e-5, atol=atol)
     cs.compare(f"{tag} vs plain", got, plain(), rtol=1e-5, atol=atol)
     o1 = cs.time_ms(other)
     n1 = cs.time_ms(this)
@@ -192,7 +237,9 @@ def report(tag, this, other, plain, atol, b, note):
            f"{new:.4f} ms ({n1:.4f}, {n2:.4f}), bound {b['bound_ms']:.4f} "
            f"ms by {b['bound_by']} ({b['bytes'] / 1e6:.1f} MB, {note}); "
            f"share of bound {b['bound_ms'] / old:.3f} -> "
-           f"{b['bound_ms'] / new:.3f}; equal bit for bit: {same}")
+           f"{b['bound_ms'] / new:.3f}; equal "
+           f"{'bit for bit' if exact else f'within rtol 1e-5 + atol {atol}'}"
+           f": {same}")
     return same
 
 
@@ -254,6 +301,43 @@ def main() -> None:
                          qs, "l2"))
     del table
 
+    # the codec rows: uint8 + dequant (sq8; 0.45 of the build's level-0 ids
+    # masked to row 0) and bf16 (0.49), at the serving hop and the build's
+    # four shapes, and at d = 100 (rows of whole 4-byte words, not 16-byte
+    # units) and 960 at the serving hop
+    for dtype, d, hop_zero in ((torch.uint8, 96, 0.45),
+                               (torch.bfloat16, 128, 0.49),
+                               (torch.uint8, 100, None),
+                               (torch.bfloat16, 100, None),
+                               (torch.uint8, 960, None)):
+        rows = n if d < 960 else 100_000
+        if dtype == torch.uint8:
+            table = torch.randint(0, 256, (rows, d), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+            deq = (torch.randn(d, generator=gen, device=dev),
+                   0.01 + 0.02 * torch.rand(d, generator=gen, device=dev))
+        else:
+            table = torch.randn((rows, d), generator=gen,
+                                device=dev).to(dtype)
+            deq = None
+        name = str(dtype).removeprefix("torch.") + \
+            (" + dequant" if deq is not None else "")
+        shapes = [("serving hop", 8192 if d < 960 else 512, 64, 0.0)]
+        if hop_zero is not None:
+            shapes += [("build level-0 hop", 2048, 256, hop_zero),
+                       ("build upper beam", 86, 128, 0.84),
+                       ("build descent", 2048, 32, 1.0),
+                       ("build entry", 2048, 1, 0.0)]
+        for tag, q, k, zero in shapes:
+            ids = masked_ids(q, k, rows, zero, gen, dev)
+            qs = torch.randn((q, d), generator=gen, device=dev)
+            metrics = ("l2", "ip") if k == 64 and d < 960 else ("l2",)
+            for metric in metrics:
+                same.append(vec_case(lib, ceil_lib, f"K3 {name} {tag} Q={q} "
+                                          f"K={k} d={d} {metric}", table,
+                                     ids, qs, metric, deq))
+        del table
+
     q, k, big = cs.N_QUERIES, cs.HOP_K, cs.PACKED_ROWS
     for d, bits, rows in ((128, 8, big), (128, 4, big), (100, 8, 20_000),
                           (127, 4, 20_000), (101, 8, 20_000)):
@@ -281,8 +365,8 @@ def main() -> None:
     if not all(same):
         raise SystemExit(f"torch_kernel_ab: {same.count(False)} of "
                          f"{len(same)} cases differ from the other kernel")
-    cs.log(f"all {len(same)} cases equal the other checkout's kernels bit "
-           f"for bit")
+    cs.log(f"all {len(same)} cases equal the other checkout's kernels (bit "
+           f"for bit but K3 on bf16 rows: within the tolerance)")
 
 
 if __name__ == "__main__":

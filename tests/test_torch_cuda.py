@@ -9,6 +9,8 @@ that has only PyTorch:
 (``chip_smoke.py`` makes the same comparisons at the main path's shapes.)
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -417,3 +419,136 @@ def test_codec_index_on_card_matches_cpu(card, dtype):
             assert counts["gathered_vec_dist"] > 0
         if packed:
             assert counts["packed_row_dist"] > 0
+
+
+def codec_rows(n, d, g, card):
+    """(uint8 codes, dequant affine) and bf16 rows, n x d, on the card."""
+    codes = torch.randint(0, 256, (n, d), generator=g, device=card,
+                          dtype=torch.uint8)
+    deq = (torch.randn(d, generator=g, device=card),
+           0.01 + 0.02 * torch.rand(d, generator=g, device=card))
+    bf = torch.randn((n, d), generator=g, device=card).to(torch.bfloat16)
+    return (codes, deq), (bf, None)
+
+
+def misaligned_copy(t):
+    """``t`` copied to a buffer at a 1-element offset (1 byte for uint8, 2
+    for bf16): a table whose base is not 4-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (24, 96, 100, 101, 102, 128, 960))
+def test_vec_dist_sub_word_rows_match_plain_on_card(card, d):
+    """K3 on uint8 + dequant and bf16 rows against its plain version, L2
+    and IP, at Q in {5, 2048} and K in {1, 17, 64, 256} with ~40% of ids
+    masked to row 0, on every load path: uint8 rows of whole 4-byte words
+    (d % 4 == 0); bf16 rows of whole 16-byte (d % 8 == 0), 8-byte (d =
+    100) and 4-byte (d = 102) loads; the one-value-a-lane kernel for the
+    rest (d = 101; uint8 d = 102; each table copied to a 1-element offset,
+    so its base is not 4-byte aligned). Each table is also read as a view
+    offset by one row. Tolerance as in chip_smoke.py: rtol 1e-5 + atol
+    1e-3."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    n = 3000
+    calls = 0
+    for tab, dq in codec_rows(n, d, g, card):
+        for view in (tab, tab[1:], misaligned_copy(tab)):
+            for q, k in ((5, 17), (2048, 64), (2048, 256), (2048, 1)):
+                ids = torch.randint(0, view.shape[0], (q, k), generator=g,
+                                    device=card, dtype=torch.int32)
+                ids[torch.rand((q, k), generator=g, device=card) < 0.4] = 0
+                qs = torch.randn((q, d), generator=g, device=card)
+                for metric in ("l2", "ip"):
+                    torch.testing.assert_close(
+                        dist_kernel.gathered_vec_dist_ids(view, ids, qs, dq,
+                                                          metric=metric),
+                        dist_kernel.gathered_vec_dist_plain(view, ids, qs, dq,
+                                                            metric=metric),
+                        rtol=1e-5, atol=1e-3)
+                    calls += 1
+    assert _cuda.launch_counts()["gathered_vec_dist"] == calls
+    tags = _cuda.tagged_launch_counts()["gathered_vec_dist"]
+    assert tags == {"uint8": calls // 2, "bfloat16": calls // 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (24, 96, 100, 128, 960))
+def test_vec_dist_uint8_kernel_keeps_the_order_on_card(card, d):
+    """K3's kernel for uint8 rows of whole 4-byte words sums in the order of
+    the one-value-a-lane kernel: the same rows read from an aligned table
+    and from a copy at a 1-byte offset (which takes the other kernel) give
+    equal outputs bit for bit, with and without the dequant affine, L2 and
+    IP, at the serving hop, the build's level-0 hop (~45% of ids masked to
+    row 0) and its descent (K = 32: 8 candidates a warp)."""
+    g = torch.Generator(device=card).manual_seed(7 * d)
+    n = 20_000
+    (codes, deq), _ = codec_rows(n, d, g, card)
+    other = misaligned_copy(codes)
+    for q, k, zero in ((8192, 64, 0.0), (2048, 256, 0.45), (2048, 32, 0.4)):
+        ids = torch.randint(0, n, (q, k), generator=g, device=card,
+                            dtype=torch.int32)
+        ids[torch.rand((q, k), generator=g, device=card) < zero] = 0
+        qs = torch.randn((q, d), generator=g, device=card)
+        for dq, metric in itertools.product((deq, None), ("l2", "ip")):
+            got = dist_kernel.gathered_vec_dist_ids(codes, ids, qs, dq,
+                                                    metric=metric)
+            want = dist_kernel.gathered_vec_dist_ids(other, ids, qs, dq,
+                                                     metric=metric)
+            assert torch.equal(got, want), (q, k, dq is None, metric)
+
+
+@pytest.mark.cuda
+def test_vec_dist_uint8_table_past_2_31_bytes_on_card(card):
+    """K3 on a uint8 + dequant table of 23M x 96 (2.2 GB: row offsets past
+    2^31 bytes), reading its last rows and rows across the table, against
+    the plain version (rtol 1e-5 + atol 1e-3)."""
+    g = torch.Generator(device=card).manual_seed(23)
+    n, d, q, k = 23_000_000, 96, 1024, 64
+    codes = torch.randint(0, 256, (n, d), generator=g, device=card,
+                          dtype=torch.uint8)
+    deq = (torch.randn(d, generator=g, device=card),
+           0.01 + 0.02 * torch.rand(d, generator=g, device=card))
+    ids = torch.randint(0, n, (q, k), generator=g, device=card,
+                        dtype=torch.int32)
+    ids[:, :8] = torch.arange(n - 8, n, device=card, dtype=torch.int32)
+    qs = torch.randn((q, d), generator=g, device=card)
+    for metric in ("l2", "ip"):
+        torch.testing.assert_close(
+            dist_kernel.gathered_vec_dist_ids(codes, ids, qs, deq,
+                                              metric=metric),
+            dist_kernel.gathered_vec_dist_plain(codes, ids, qs, deq,
+                                                metric=metric),
+            rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_bf16_rows_match_plain_on_card(card):
+    """K5 on bf16 rows (16-byte loads at d = 128 and 96; one value a lane
+    at d = 100 and 33 and on a table at a 1-element offset) against its
+    plain version, L2 and IP, with negative and past-the-end ids (clamped);
+    launches counted as bfloat16. Tolerance as in chip_smoke.py: rtol 1e-5
+    + atol 1e-3."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(5)
+    calls = 0
+    for d in (128, 96, 100, 33):
+        table = torch.randn((5000, d), generator=g,
+                            device=card).to(torch.bfloat16)
+        ids = torch.randint(-50, 5050, (300, 64), generator=g, device=card,
+                            dtype=torch.int32)
+        qs = torch.randn((300, d), generator=g, device=card)
+        for tab in (table, misaligned_copy(table)):
+            for metric in ("l2", "ip"):
+                torch.testing.assert_close(
+                    hop_kernel.fused_gather_distances(tab, ids, qs, metric),
+                    hop_kernel.fused_gather_distances_plain(tab, ids, qs,
+                                                            metric),
+                    rtol=1e-5, atol=1e-3)
+                calls += 1
+    assert _cuda.tagged_launch_counts()["fused_gather_distances"] == {
+        "bfloat16": calls}

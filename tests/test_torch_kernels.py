@@ -229,21 +229,28 @@ def test_packed_row_dist_words_ids_rows_and_t_axis():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_fused_gather_distances_matches_reference(metric):
+def test_fused_gather_distances_matches_reference(metric, dtype):
     """K5's plain version against the Pallas kernel (interpret mode), with
-    negative and past-the-end ids, which both clamp. Tolerance RTOL/ATOL."""
+    negative and past-the-end ids, which both clamp, on f32 rows and on
+    bf16 rows (the reference widens its table to f32, the port each
+    gathered row; the same bits either way). Tolerance RTOL/ATOL."""
     rng = np.random.default_rng(0)
     cap, d, q, k = 512, 128, 2 * BLOCK_Q, 16
     vecs = rng.normal(size=(cap, d)).astype(np.float32)
     ids = rng.integers(0, cap, size=(q, k), dtype=np.int32)
     ids[0, :3] = (-1, -7, cap + 5)
     qs = rng.normal(size=(q, d)).astype(np.float32)
-    want = ref_gather_dist(jnp.asarray(vecs), jnp.asarray(ids),
-                           jnp.asarray(qs), metric, interpret=True)
-    got = hop_kernel.fused_gather_distances(
-        torch.from_numpy(vecs), torch.from_numpy(ids), torch.from_numpy(qs),
-        metric)
+    jv, tv = jnp.asarray(vecs), torch.from_numpy(vecs)
+    if dtype == "bf16":
+        jv, tv = jv.astype(jnp.bfloat16), tv.to(torch.bfloat16)
+        np.testing.assert_array_equal(np.asarray(jv.astype(jnp.float32)),
+                                      tv.float().numpy())
+    want = ref_gather_dist(jv, jnp.asarray(ids), jnp.asarray(qs), metric,
+                           interpret=True)
+    got = hop_kernel.fused_gather_distances(tv, torch.from_numpy(ids),
+                                            torch.from_numpy(qs), metric)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
 

@@ -84,6 +84,43 @@ def test_save_load_across_packages(dtype, workload, tmp_path, monkeypatch):
         np.testing.assert_allclose(d[same], rd[same], rtol=1e-5, atol=1e-5)
 
 
+def test_id_filter_matches_reference_on_a_full_index(workload, tmp_path):
+    """On a full index (ntotal == capacity, so id capacity - 1 is stored),
+    an int id filter selects the reference's ids. Ids [-1, 2, capacity,
+    -capacity, -capacity - 1] as a tensor (the reference: a jax.Array,
+    scattered with mode="drop") select capacity - 1, 2 and 0 and drop the
+    rest; the in-range list [-1, 2] selects capacity - 1 and 2 as a numpy
+    list in both packages and as a tensor in the port. Self-queries of the
+    selected ids, so each search finds them first (-1 pads a row where
+    fewer than k allowed ids were found)."""
+    import jax.numpy as jnp
+    n = WL["n"]
+    port = hnsw_tpu_torch.HnswIndex(WL["d"], 8, "l2", device="cpu",
+                                    capacity=n, ef_construction=40, seed=11)
+    port.add(workload.base)
+    assert port.ntotal == port.config.capacity == n
+    path = str(tmp_path / "full.npz")
+    port.save(path)
+    ref = hnsw_tpu.HnswIndex.load(path)
+    q = workload.base[[n - 1, 2, 0, 7]]
+    wide = [-1, 2, n, -n, -n - 1]
+    rd, ri = ref.search(q, 2, ef_search=32,
+                        allowed=jnp.asarray(wide, jnp.int32))
+    d, i = port.search(q, 2, ef_search=32, allowed=torch.tensor(wide))
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_allclose(d, rd, rtol=1e-5, atol=1e-5)
+    assert set(i.ravel()) <= {n - 1, 2, 0, -1}    # -1: fewer than k found
+    assert list(i[:3, 0]) == [n - 1, 2, 0]
+    narrow = np.array([-1, 2])
+    rd, ri = ref.search(q, 2, ef_search=32, allowed=narrow)
+    for allowed in (narrow, torch.from_numpy(narrow)):
+        d, i = port.search(q, 2, ef_search=32, allowed=allowed)
+        np.testing.assert_array_equal(i, ri)
+        np.testing.assert_allclose(d, rd, rtol=1e-5, atol=1e-5)
+        assert set(i.ravel()) <= {n - 1, 2, -1}
+        assert list(i[:2, 0]) == [n - 1, 2]
+
+
 def test_to_bytes_from_bytes_roundtrip(workload):
     """faiss serialize / deserialize: a blob in the save format, the same
     search after the round trip, readable by the reference."""

@@ -179,6 +179,45 @@ def test_pallas_hop_search_matches_reference(host_index, small_workload,
     assert len(calls) >= got[2].hops + 1   # the entry rescore and each hop
 
 
+def test_pallas_hop_bf16_search_matches_reference(host_index, small_workload,
+                                                  monkeypatch):
+    """HNSW_TPU_PALLAS_HOP=1 over bf16 storage, as
+    test_pallas_hop_search_matches_reference runs it (128-d zero pad, 96
+    queries, the reference's K5 in interpret mode): the reference widens
+    its bf16 table to f32 inside K5, the port's K5 reads the bf16 rows
+    (every call counted with its row dtype); ground truth over the bf16
+    values."""
+    import hnsw_tpu.ops.hop_kernel as hk
+    g, v, tg, tv = _both(host_index, monkeypatch)
+    wl, k, ef = small_workload, 10, 32
+    queries = wl.queries[:96]
+    vp, qp = (np.pad(a, ((0, 0), (0, 96))) for a in (np.asarray(v),
+                                                      queries))
+    rv, pv = jnp.asarray(vp, jnp.bfloat16), torch.from_numpy(vp).to(
+        torch.bfloat16)
+    np.testing.assert_array_equal(np.asarray(rv.astype(jnp.float32)),
+                                  pv.float().numpy())
+    _, gt = exact_knn(pv.float().numpy()[:len(wl.base)], qp, k, "l2")
+    orig = hk.fused_gather_distances
+    monkeypatch.setattr(hk, "fused_gather_distances",
+                        lambda vec, ids, qs, metric="l2", interpret=False:
+                        orig(vec, ids, qs, metric, interpret=True))
+    monkeypatch.setenv("HNSW_TPU_PALLAS_HOP", "1")
+    ref = ref_search(g, rv, ref_sqnorms(rv), jnp.asarray(qp), k=k,
+                     ef_search=ef, metric="l2", with_stats=True)
+    from hnsw_tpu_torch.ops import hop_kernel
+    rows = []
+    real = hop_kernel.fused_gather_distances
+    monkeypatch.setattr("hnsw_tpu_torch.search.fused_gather_distances",
+                        lambda vec, *a, **kw: rows.append(vec.dtype)
+                        or real(vec, *a, **kw))
+    got = hnsw_search(tg, pv, torch.from_numpy(qp), k=k, ef_search=ef,
+                      metric="l2", with_stats=True)
+    _assert_same_search(ref, got, gt, k)
+    assert len(rows) >= got[2].hops + 1   # the entry rescore and each hop
+    assert set(rows) == {torch.bfloat16}
+
+
 def test_search_matches_reference_ip(host_ip_index, small_ip_workload,
                                      monkeypatch):
     g, v, tg, tv = _both(host_ip_index, monkeypatch)
@@ -242,8 +281,7 @@ def test_unported_search_options_raise(host_index, small_workload,
                                        monkeypatch):
     """Every legacy option runs now; unknown option values raise, and so
     does what stays unported at the index level: add() with (PQ-coded)
-    packed tables enabled, the host builder, and HNSW_TPU_PALLAS_HOP=1
-    over bf16 storage (the port's K5 reads f32 rows)."""
+    packed tables enabled and the host builder."""
     _, _, tg, tv = _both(host_index, monkeypatch)
     q = torch.from_numpy(small_workload.queries[:4])
     for kw in ({"visited_mode": "hash"}, {"beam_keys": "fp16"},
@@ -260,12 +298,6 @@ def test_unported_search_options_raise(host_index, small_workload,
     with pytest.raises(NotImplementedError, match="A5"):
         hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, build="host",
                                  device="cpu")
-    bf = hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, dtype="bfloat16",
-                                  device="cpu")
-    bf.add(base[:40])
-    monkeypatch.setenv("HNSW_TPU_PALLAS_HOP", "1")
-    with pytest.raises(NotImplementedError, match="K5"):
-        bf.search(small_workload.queries[:4], 5)
 
 
 def test_static_sizes_match_reference():
