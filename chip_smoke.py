@@ -16,7 +16,8 @@ Phases (any failure raises, and the exit code is not 0):
      4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
      clamped-id and two-expansion variants, K2 also at the sq8 phase's
      d=96 rows (timed there too), K5 also on bf16 rows (timed at 2-byte
-     rows), and Q=8191 for K2's and K4's persistent grid; K2 must equal
+     rows) and at the descent's K=32 and the entry rescore's K=5 (timed
+     too), and Q=8191 for K2's and K4's persistent grid; K2 must equal
      ``nbr_sq[cur] - 2 * K4 dots`` on the same bits exactly (one engine);
      time both with CUDA events and compute each kernel's bound from its
      inputs;
@@ -38,7 +39,8 @@ Phases (any failure raises, and the exit code is not 0):
           for bit; the same packed searches (K1, K4, K3). Requires recall
           >= 0.95 at the best ef and within 0.005 of bytes at each ef;
        d. ``HNSW_TPU_PALLAS_HOP=1`` for this phase only: unpacked ef=64
-          (K5). Requires recall within 0.01 of the fused unpacked search;
+          (K5; its calls printed by K). Requires recall within 0.01 of the
+          fused unpacked search;
        e. the legacy beam at ef=64: n_expand=2 on the words rows (K4 with
           two expansions), ``visited_mode="bitmap"`` unpacked, and a
           filtered search with the even ids allowed. Prints recall, qps,
@@ -85,10 +87,12 @@ Phases (any failure raises, and the exit code is not 0):
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
-``torch.profiler`` window of ef=64 search on bytes and on words rows, and
-on sq8 storage unpacked and with PQ-coded rows (2 warm-ups, 10 unprofiled
-walls, one profiled call: device busy, busy share, the top ops by device
-time); its searches count as main-path launches.
+``torch.profiler`` window of ef=64 search on bytes and on words rows,
+unpacked under ``HNSW_TPU_PALLAS_HOP=1`` (with K5's device time, read
+from profiler ranges around its calls), and on sq8 storage unpacked and
+with PQ-coded rows (2 warm-ups, 10 unprofiled walls, one profiled call:
+device busy, busy share, the top ops by device time); its searches count
+as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
 (summed over every phase of 4 and 6; K3 and K5 by row dtype, one row
@@ -100,6 +104,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -480,25 +485,42 @@ def check_words_dist(dev, gen) -> dict:
     return out
 
 
+def gather_ids(q: int, k: int, n: int, gen, dev) -> torch.Tensor:
+    """K5's ids: uniform over n rows, ~1% negative and ~1% past the end
+    (the kernel clamps both)."""
+    ids = torch.randint(0, n, (q, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    r = torch.rand((q, k), generator=gen, device=dev)
+    ids = torch.where(r < 0.01, -1 - ids % 7, ids)
+    return torch.where(r > 0.99, n + ids % 7, ids)
+
+
 def check_gather_dist(dev, gen) -> dict:
     """K5 at the hop's shape (Q=8192, K=64) over 1M rows, d in {128, 100},
-    on f32 rows and on the same values as bf16 rows, L2 and IP, with ~1%
-    negative and ~1% past-the-end ids (the kernel's clamp). Tolerance: rtol
-    1e-5 + atol 1e-3, K3's: f32 sums of d terms in another order. Timed
-    and bounded at d=128 on f32 rows and, under ``"bfloat16"``, on bf16
-    rows (2-byte rows). No single PyTorch call gathers rows by id and
+    on f32 rows and on the same values as bf16 rows, L2 and IP, with
+    ``gather_ids``' ids. Tolerance: rtol 1e-5 + atol 1e-3, K3's: f32 sums
+    of d terms in another order. Timed and bounded at d=128 on f32 rows
+    and, under ``"bfloat16"``, on bf16 rows (2-byte rows); also, under
+    ``"shapes"``, at the greedy descent's K=32 and the entry rescore's K=5
+    (4 seeds + the entry point at 1M) on both row types, held against the
+    plain version there too. No single PyTorch call gathers rows by id and
     contracts them: library_ms is null."""
     from hnsw_tpu_torch.ops import hop_kernel as hk
     q, k, n = N_QUERIES, HOP_K, NORTH_STAR_N
     out = {}
+
+    def measure(m, rows, ids, qs):
+        m.update(gather_bound(ids.clamp(0, n - 1), rows.shape[1], ip=False,
+                              row_elem=rows.element_size()))
+        m["ms"] = time_ms(lambda: hk.fused_gather_distances(
+            rows, ids, qs, "l2"))
+        m["plain_ms"] = time_ms(lambda: hk.fused_gather_distances_plain(
+            rows, ids, qs, "l2"))
+
     for d in (128, 100):
         table = torch.randn((n, d), generator=gen, device=dev)
         qs = torch.randn((q, d), generator=gen, device=dev)
-        ids = torch.randint(0, n, (q, k), generator=gen, device=dev,
-                            dtype=torch.int32)
-        r = torch.rand((q, k), generator=gen, device=dev)
-        ids = torch.where(r < 0.01, -1 - ids % 7, ids)
-        ids = torch.where(r > 0.99, n + ids % 7, ids)
+        ids = gather_ids(q, k, n, gen, dev)
         for rows in (table, table.to(torch.bfloat16)):
             tag = str(rows.dtype).removeprefix("torch.")
             for metric in ("l2", "ip"):
@@ -509,13 +531,19 @@ def check_gather_dist(dev, gen) -> dict:
                 if d == 128 and metric == "l2":
                     m = out if tag == "float32" else out.setdefault(tag, {})
                     m["max_abs_err"] = err
-                    m.update(gather_bound(ids.clamp(0, n - 1), d, ip=False,
-                                          row_elem=rows.element_size()))
-                    m["ms"] = time_ms(lambda: hk.fused_gather_distances(
-                        rows, ids, qs, "l2"))
-                    m["plain_ms"] = time_ms(
-                        lambda: hk.fused_gather_distances_plain(
-                            rows, ids, qs, "l2"))
+                    measure(m, rows, ids, qs)
+            if d == 128:
+                for kk, shape in ((32, "descent"), (5, "entry")):
+                    ids_k = gather_ids(q, kk, n, gen, dev)
+                    m = out.setdefault("shapes", {})[
+                        f"{tag} rows, {shape} Q={q} K={kk}"] = {}
+                    m["max_abs_err"] = compare(
+                        f"fused_gather_distances {tag} d={d} K={kk} l2",
+                        hk.fused_gather_distances(rows, ids_k, qs, "l2"),
+                        hk.fused_gather_distances_plain(rows, ids_k, qs,
+                                                        "l2"),
+                        rtol=1e-5, atol=1e-3)
+                    measure(m, rows, ids_k, qs)
         del table
     return out
 
@@ -607,11 +635,14 @@ def check_beam_update(dev, gen) -> dict:
     return out
 
 
-def profile_window(tag: str, fn, top: int = 8) -> None:
+def profile_window(tag: str, fn, top: int = 8, span: str | None = None
+                   ) -> None:
     """Where the time of ``fn`` (one search) goes: 2 warm-ups, 10 synced
     walls without the profiler, then one call under ``torch.profiler``.
     Device busy = the union of that window's CUDA events; busy share = busy
-    / median unprofiled wall. Prints the ``top`` ops by device time."""
+    / median unprofiled wall. Prints the ``top`` ops by device time and,
+    with ``span``, the device time of the profiler ranges of that name
+    (``k5_calls``: one kernel each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -655,6 +686,14 @@ def profile_window(tag: str, fn, top: int = 8) -> None:
         us = dev_us(e)
         log(f"  {e.key[:60]}: {us / 1e3:.3f} ms device ({us / 1e3 / busy:.1%}"
             f" of busy), {e.count} calls")
+    if span is not None:
+        # the range appears twice: on the host (no device time) and as its
+        # annotation on the device's timeline, which spans its kernels
+        hits = [e for e in prof.key_averages() if e.key == span]
+        us = sum(dev_us(e) for e in hits)
+        log(f"  {span} (its ranges on the device): {us / 1e3:.3f} ms device "
+            f"({us / 1e3 / busy:.1%} of busy), "
+            f"{max((e.count for e in hits), default=0)} calls")
 
 
 def phase(name: str, need: tuple, totals: dict, fn, need_tags: tuple = ()):
@@ -707,6 +746,33 @@ def capture_build_k3(build, k3_build: dict):
         return build()
     finally:
         search.gathered_vec_dist_ids = orig
+
+
+K5_SPAN = "K5 fused_gather_distances"
+
+
+@contextlib.contextmanager
+def k5_calls(by_k: dict, span: bool = False):
+    """K5's entry point in search.py wrapped for the block: its calls
+    counted by K (candidates a query) into ``by_k``, and with ``span`` each
+    call run inside a profiler range named ``K5_SPAN`` (which
+    ``profile_window`` reads: the profiler names K3's and K5's kernels
+    alike, since both run the row engines of csrc/vec_dist.cuh)."""
+    import hnsw_tpu_torch.search as search
+    orig = search.fused_gather_distances
+
+    def wrapped(vectors, ids, queries, metric="l2"):
+        by_k[ids.shape[1]] = by_k.get(ids.shape[1], 0) + 1
+        if not span:
+            return orig(vectors, ids, queries, metric=metric)
+        with torch.profiler.record_function(K5_SPAN):
+            return orig(vectors, ids, queries, metric=metric)
+
+    search.fused_gather_distances = wrapped
+    try:
+        yield
+    finally:
+        search.fused_gather_distances = orig
 
 
 def measure_build_k3(k3_build: dict) -> None:
@@ -903,8 +969,19 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
 
     def pallas_phase():
         os.environ["HNSW_TPU_PALLAS_HOP"] = "1"
+        by_k: dict = {}
         try:
-            r, (d, i, _) = run(64, False, "unpacked HNSW_TPU_PALLAS_HOP=1")
+            with k5_calls(by_k):
+                r, (d, i, _) = run(64, False,
+                                   "unpacked HNSW_TPU_PALLAS_HOP=1")
+            log(f"  K5 calls by K (candidates a query): {by_k}")
+            if profile:
+                with k5_calls({}, span=True):
+                    profile_window(
+                        "unpacked HNSW_TPU_PALLAS_HOP=1 ef=64",
+                        lambda: idx.search(queries, 10, ef_search=64,
+                                           use_packed=False,
+                                           device_out=True), span=K5_SPAN)
         finally:
             del os.environ["HNSW_TPU_PALLAS_HOP"]
         check_exact("pallas hop", d[:, :1], i[:, :1])
@@ -1175,11 +1252,14 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
         # memory by an f32 copy of the table (K3's search beside it)
         k3_grew = grown()
         os.environ["HNSW_TPU_PALLAS_HOP"] = "1"
+        by_k: dict = {}
         try:
-            res, secs = search(idx, queries, 64)
+            with k5_calls(by_k):
+                res, secs = search(idx, queries, 64)
             grew = grown()
         finally:
             del os.environ["HNSW_TPU_PALLAS_HOP"]
+        log(f"  K5 calls by K (candidates a query), 2 searches: {by_k}")
         r = report("bf16 unpacked HNSW_TPU_PALLAS_HOP=1 ef=64", res, secs,
                    hat, truth=truth)
         exact_l2("bf16 pallas hop", queries, res[0], res[1],
@@ -1263,8 +1343,9 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
                     help="base vectors of the main-path run")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile packed ef=64 search, bytes and words "
-                         "rows (adds their runs to the launch counts)")
+                    help="also profile ef=64 searches: packed bytes and "
+                         "words rows, HNSW_TPU_PALLAS_HOP=1, sq8 (adds "
+                         "their runs to the launch counts)")
     args = ap.parse_args()
     if args.n < PACKED_ROWS:  # smaller tables keep row offsets below 2^31
         raise SystemExit(f"chip_smoke: --n {args.n} is below {PACKED_ROWS}")
@@ -1301,6 +1382,8 @@ def main() -> None:
     timed_cases["packed_row_dist (8-bit, d=96)"] = \
         measured["packed_row_dist"]["d96"]
     timed_cases["fused_gather_distances (bfloat16 rows)"] = k5_bf16
+    for shape, m in measured["fused_gather_distances"]["shapes"].items():
+        timed_cases[f"fused_gather_distances ({shape})"] = m
     for name, m in timed_cases.items():
         log(f"  {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} "
             f"ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']} "

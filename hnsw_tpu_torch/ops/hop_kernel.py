@@ -1,12 +1,16 @@
 """K5 ``fused_gather_distances``: the fused gather + distance of every hop
-under ``HNSW_TPU_PALLAS_HOP=1``, CUDA kernel in ``csrc/hop_kernel.cu``.
+under ``HNSW_TPU_PALLAS_HOP=1``, C entry in ``csrc/hop_kernel.cu``.
 
 [capacity, d] f32 or bf16 table x [Q, K] ids x [Q, d] queries -> [Q, K]
 surrogate distances ``Σv² − 2 q·v`` (L2) or ``−q·v`` (IP) of the rows
-``vectors[clamp(ids, 0, capacity − 1)]``, gathered inside the kernel. bf16
-rows are widened to f32 in registers (exact), never copied to an f32 table;
-launches are also counted by row dtype ("float32", "bfloat16"). Any Q and
-any d (the reference needs Q % 8 == 0 and d % 128 == 0).
+``vectors[clamp(ids, 0, capacity − 1)]``, gathered inside the kernel. This
+is K3's function without the dequant affine, and the kernel runs K3's row
+engines (``csrc/vec_dist.cuh``): its output equals
+``gathered_vec_dist_ids(vectors, ids, queries)`` bit for bit. bf16 rows are
+widened to f32 in registers (exact), never copied to an f32 table;
+launches are counted under this kernel's own name, and also by row dtype
+("float32", "bfloat16"). Any Q, K and d (the reference needs Q % 8 == 0 and
+d % 128 == 0): the kernel keeps the query in registers, not shared memory.
 
 The plain PyTorch version sits beside it; the wrapper runs it for CPU
 tensors and launches the kernel for CUDA tensors.
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..config import IP, L2
-from ._cuda import SMEM_LIMIT, CudaKernel, check, on_cpu
+from ._cuda import CudaKernel, check, on_cpu
 
 _GATHER_DIST = CudaKernel("fused_gather_distances", "hnsw_gather_dist")
 _ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,9 +55,6 @@ def fused_gather_distances(vectors: torch.Tensor, ids: torch.Tensor,
         raise ValueError("fused_gather_distances: empty table")
     if on_cpu(vectors, ids, queries):
         return fused_gather_distances_plain(vectors, ids, queries, metric)
-    if d * 4 > SMEM_LIMIT:
-        raise ValueError(f"fused_gather_distances: d={d} too wide for one "
-                         f"block")
     out = torch.empty((q, k), dtype=torch.float32, device=vectors.device)
     if q and k:
         _GATHER_DIST.launch(vectors.data_ptr(), _ROW_DTYPES[vectors.dtype],

@@ -1,5 +1,6 @@
-"""Hold this checkout's K3 ``gathered_vec_dist`` and K2 ``packed_row_dist``
-CUDA kernels (``hnsw_tpu_torch``) against another checkout's, on one GPU.
+"""Hold this checkout's K3 ``gathered_vec_dist``, K2 ``packed_row_dist`` and
+K5 ``fused_gather_distances`` CUDA kernels (``hnsw_tpu_torch``) against
+another checkout's, on one GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -7,24 +8,29 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 DIR is another checkout of the repository, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory. Its
-``hnsw_tpu_torch/csrc/dist_kernel.cu`` is compiled by nvcc (the package's
-flags) into a library under DIR and loaded beside this checkout's. For each
-case both kernels get the same inputs on the card, at the shapes the main
-path gives them (K3: the serving hop and rerank, and the build's level-0
-hop, upper-level beam, descent and entry, on f32 rows and on the storage
-codecs' rows: uint8 + dequant (sq8) at d = 96 and bf16 at d = 128, and both
-at d = 100; K2: the packed hop at 8 and 4 bits, IP, two expansions, Q =
-8191, and rows of other widths). Their outputs must be equal bit for bit
-(``torch.equal``), except K3 on bf16 rows, which sums in another order
-than the first port's and is held within rtol 1e-5 + atol 1e-3; every
-case is also compared with the plain PyTorch version (chip_smoke.py's
-tolerances). Each case is then timed in turns,
+``hnsw_tpu_torch/csrc/dist_kernel.cu`` and ``hop_kernel.cu`` are compiled
+by nvcc (the package's flags) into a library under DIR and loaded beside
+this checkout's. For each case both kernels get the same inputs on the
+card, at the shapes the main path gives them (K3: the serving hop and
+rerank, and the build's level-0 hop, upper-level beam, descent and entry,
+on f32 rows and on the storage codecs' rows: uint8 + dequant (sq8) at d =
+96 and bf16 at d = 128, and both at d = 100; K5: the hop under
+``HNSW_TPU_PALLAS_HOP=1`` (K = 64), the greedy descent (K = 32) and the
+entry rescore (K = 5), f32 and bf16 rows, d = 128 and 100, with
+``chip_smoke.gather_ids``' ids; K2: the packed hop at 8 and 4 bits, IP,
+two expansions, Q = 8191, and rows of other widths). Their outputs must be
+equal bit for bit (``torch.equal``), except K3 on bf16 rows, which sums in
+another order than the first port's, and K5, whose first port summed in
+another order than K3's row engines: those are held within rtol 1e-5 +
+atol 1e-3, and each K5 case must equal this checkout's K3 on the same
+inputs bit for bit; every case is also compared with the plain PyTorch
+version (chip_smoke.py's tolerances). Each case is then timed in turns,
 other / this / this / other, with ``chip_smoke.time_ms``, and printed
-beside its bound. Each K3 case is also timed against a gather ceiling: a
-kernel (compiled from the source below) that reads the same rows by the
-same ids with 16-byte loads (4- or 1-byte loads where rows are not whole
-16-byte units) and does no arithmetic, the least time this card takes to
-fetch them. Exits non-zero if any output differs.
+beside its bound. Each K3 and K5 case is also timed against a gather
+ceiling: a kernel (compiled from the source below) that reads the same
+rows by the same ids with 16-byte loads (4- or 1-byte loads where rows
+are not whole 16-byte units) and does no arithmetic, the least time this
+card takes to fetch them. Exits non-zero if any output differs.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from hnsw_tpu_torch.ops import _cuda  # noqa: E402
 from hnsw_tpu_torch.ops import dist_kernel as dk  # noqa: E402
+from hnsw_tpu_torch.ops import hop_kernel as hk  # noqa: E402
 
 
 # K3's reads without its sums: warp w reads the rows of query w / chunks,
@@ -140,14 +147,14 @@ def ceiling_ms(ceil_lib, table: torch.Tensor, ids: torch.Tensor,
 
 
 def build_other(other: Path) -> ctypes.CDLL:
-    src = other / "hnsw_tpu_torch" / "csrc" / "dist_kernel.cu"
+    csrc = other / "hnsw_tpu_torch" / "csrc"
     out = other / "_ab_build" / "libother_dist.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(out),
-           str(src)]
+           str(csrc / "dist_kernel.cu"), str(csrc / "hop_kernel.cu")]
     subprocess.run(cmd, check=True)
     lib = ctypes.CDLL(str(out))
-    for name in ("hnsw_vec_dist", "hnsw_packed_dist"):
+    for name in ("hnsw_vec_dist", "hnsw_packed_dist", "hnsw_gather_dist"):
         fn = getattr(lib, name)
         fn.argtypes = list(_cuda._SIGNATURES[name])
         fn.restype = ctypes.c_int
@@ -191,6 +198,40 @@ def vec_case(lib, ceil_lib, tag, table, ids, qs, metric, dequant=None):
                                                      metric=metric),
                   1e-3, b, f"row-0 share {zero:.3f}",
                   exact=table.dtype != torch.bfloat16)
+
+
+def gather_case(lib, ceil_lib, tag, table, ids, qs, metric):
+    """K5: this kernel vs the other, within the tolerance (the first port's
+    K5 summed in another order); vs this checkout's K3 on the same inputs,
+    bit for bit; vs plain; timed, beside the gather ceiling. Returns both
+    verdicts."""
+    q, k = ids.shape
+    n, d = table.shape
+    ip = int(metric == "ip")
+    cs.log(f"{tag}: gather ceiling {ceiling_ms(ceil_lib, table, ids):.4f} "
+           f"ms")
+
+    def other():
+        out = torch.empty((q, k), device=table.device)
+        call(lib, "hnsw_gather_dist", table.data_ptr(),
+             hk._ROW_DTYPES[table.dtype], n, d, ids.data_ptr(), q, k,
+             qs.data_ptr(), ip, out.data_ptr())
+        return out
+
+    def this():
+        return hk.fused_gather_distances(table, ids, qs, metric)
+
+    as_k3 = torch.equal(this(), dk.gathered_vec_dist_ids(table, ids, qs,
+                                                          metric=metric))
+    cs.log(f"{tag}: equal to K3 bit for bit: {as_k3}")
+    b = cs.gather_bound(ids.clamp(0, n - 1), d, ip=bool(ip),
+                        row_elem=table.element_size())
+    same = report(tag, this, other,
+                  lambda: hk.fused_gather_distances_plain(table, ids, qs,
+                                                          metric),
+                  1e-3, b, f"{torch.unique(ids.clamp(0, n - 1)).numel()} "
+                  f"distinct rows", exact=False)
+    return [same, as_k3]
 
 
 def packed_case(lib, tag, codes, nbr_sq, cur, qs, bits, metric):
@@ -338,6 +379,25 @@ def main() -> None:
                                      ids, qs, metric, deq))
         del table
 
+    # K5 at the flagged search's shapes: the hop, the greedy descent and
+    # the entry rescore (4 seeds + the entry point at 1M)
+    for d in (128, 100):
+        table = torch.randn((n, d), generator=gen, device=dev)
+        for rows in (table, table.to(torch.bfloat16)):
+            name = str(rows.dtype).removeprefix("torch.")
+            for tag, k in (("hop", cs.HOP_K), ("descent", 32),
+                           ("entry", 5)):
+                ids = cs.gather_ids(cs.N_QUERIES, k, n, gen, dev)
+                qs = torch.randn((cs.N_QUERIES, d), generator=gen,
+                                 device=dev)
+                metrics = ("l2", "ip") if tag == "hop" and d == 128 \
+                    else ("l2",)
+                for metric in metrics:
+                    same += gather_case(lib, ceil_lib, f"K5 {name} {tag} "
+                                        f"Q={cs.N_QUERIES} K={k} d={d} "
+                                        f"{metric}", rows, ids, qs, metric)
+        del table, rows
+
     q, k, big = cs.N_QUERIES, cs.HOP_K, cs.PACKED_ROWS
     for d, bits, rows in ((128, 8, big), (128, 4, big), (100, 8, 20_000),
                           (127, 4, 20_000), (101, 8, 20_000)):
@@ -364,9 +424,10 @@ def main() -> None:
         del codes, nbr_sq
     if not all(same):
         raise SystemExit(f"torch_kernel_ab: {same.count(False)} of "
-                         f"{len(same)} cases differ from the other kernel")
-    cs.log(f"all {len(same)} cases equal the other checkout's kernels (bit "
-           f"for bit but K3 on bf16 rows: within the tolerance)")
+                         f"{len(same)} checks differ")
+    cs.log(f"all {len(same)} checks equal (bit for bit but K3 on bf16 rows "
+           f"and K5 against the other checkout's kernels: within the "
+           f"tolerance; K5 against this checkout's K3: bit for bit)")
 
 
 if __name__ == "__main__":

@@ -528,11 +528,11 @@ def test_vec_dist_uint8_table_past_2_31_bytes_on_card(card):
 
 @pytest.mark.cuda
 def test_gather_kernel_bf16_rows_match_plain_on_card(card):
-    """K5 on bf16 rows (16-byte loads at d = 128 and 96; one value a lane
-    at d = 100 and 33 and on a table at a 1-element offset) against its
-    plain version, L2 and IP, with negative and past-the-end ids (clamped);
-    launches counted as bfloat16. Tolerance as in chip_smoke.py: rtol 1e-5
-    + atol 1e-3."""
+    """K5 on bf16 rows (K3's bf16 engine: 16-byte loads at d = 128 and 96,
+    8-byte at d = 100; one value a lane at d = 33 and on a table at a
+    1-element offset) against its plain version, L2 and IP, with negative
+    and past-the-end ids (clamped); launches counted as bfloat16.
+    Tolerance as in chip_smoke.py: rtol 1e-5 + atol 1e-3."""
     _cuda.reset_launch_counts()
     g = torch.Generator(device=card).manual_seed(5)
     calls = 0
@@ -552,3 +552,40 @@ def test_gather_kernel_bf16_rows_match_plain_on_card(card):
                 calls += 1
     assert _cuda.tagged_launch_counts()["fused_gather_distances"] == {
         "bfloat16": calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (128, 96, 100, 33, 12800))
+def test_gather_kernel_equals_vec_dist_kernel_on_card(card, d):
+    """K5 runs K3's row engines: on the same f32 and bf16 rows, ids and
+    queries, its output equals K3's (``gathered_vec_dist_ids`` with no
+    affine) bit for bit, L2 and IP, on aligned tables and on copies at a
+    1-element offset (where bf16 rows take another engine), with negative and
+    past-the-end ids (K5 clamps them; K3 is given them clamped), at the
+    hop's K = 64, the descent's 32 and the entry's 5. d = 12800 is wider
+    than the first port's shared-memory query allowed. Both are also held
+    against the plain version (rtol 1e-5 + atol 1e-3)."""
+    _cuda.reset_launch_counts()
+    g = torch.Generator(device=card).manual_seed(d)
+    n = 2000 if d < 1000 else 300
+    table = torch.randn((n, d), generator=g, device=card)
+    calls = 0
+    for rows in (table, table.to(torch.bfloat16)):
+        for tab in (rows, misaligned_copy(rows)):
+            for q, k in ((300, 64), (300, 32), (77, 5)):
+                ids = torch.randint(-40, n + 40, (q, k), generator=g,
+                                    device=card, dtype=torch.int32)
+                qs = torch.randn((q, d), generator=g, device=card)
+                for metric in ("l2", "ip"):
+                    got = hop_kernel.fused_gather_distances(tab, ids, qs,
+                                                            metric)
+                    k3 = dist_kernel.gathered_vec_dist_ids(
+                        tab, ids.clamp(0, n - 1), qs, metric=metric)
+                    assert torch.equal(got, k3), (rows.dtype, q, k, metric)
+                    torch.testing.assert_close(
+                        got, hop_kernel.fused_gather_distances_plain(
+                            tab, ids, qs, metric), rtol=1e-5, atol=1e-3)
+                    calls += 1
+    assert _cuda.launch_counts()["fused_gather_distances"] == calls
+    assert _cuda.tagged_launch_counts()["fused_gather_distances"] == {
+        "float32": calls // 2, "bfloat16": calls // 2}

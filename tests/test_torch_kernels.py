@@ -273,6 +273,27 @@ def test_fused_gather_distances_negative_ids_clamped():
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_fused_gather_distances_plain_equals_vec_dist_plain(metric, dtype):
+    """K5 is K3's function without the affine (on the card both run K3's
+    row engines): their plain versions agree bit for bit on f32 and bf16
+    rows, with negative and past-the-end ids clamped."""
+    rng = np.random.default_rng(3)
+    cap, d, q, k = 300, 40, 6, 17
+    vecs = torch.from_numpy(rng.normal(size=(cap, d)).astype(np.float32))
+    if dtype == "bf16":
+        vecs = vecs.to(torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(-9, cap + 9, size=(q, k),
+                                        dtype=np.int32))
+    qs = torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32))
+    got = hop_kernel.fused_gather_distances_plain(vecs, ids, qs, metric)
+    want = dist_kernel.gathered_vec_dist_plain(vecs, ids, qs, metric=metric)
+    assert torch.equal(got, want)
+    assert torch.equal(hop_kernel.fused_gather_distances(vecs, ids, qs,
+                                                         metric), want)
+
+
 def _check_beam_against_reference(arrays, ef, ef_live):
     """The port's beam_update (plain version on the CPU) against the Pallas
     kernel in interpret mode: cur and ndis exactly, and each row's (key,
@@ -393,6 +414,27 @@ def test_dist_wrappers_take_what_the_kernels_take(monkeypatch, bits):
                 dist_kernel.packed_row_dist_ids(*args, bits=bits,
                                                 metric="l2")
     assert len(launched) == 2
+
+
+def test_gather_wrapper_takes_any_d(monkeypatch):
+    """K5's wrapper on the card, with the card faked (``on_cpu`` answers
+    False; launches are recorded, not run): it takes a d whose f32 query
+    would not fit in SMEM_LIMIT bytes, since the kernel keeps the query in
+    registers, on f32 and bf16 rows, and tags each launch by row dtype."""
+    launched = []
+    monkeypatch.setattr(hop_kernel, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(hop_kernel._GATHER_DIST, "launch",
+                        lambda *args: launched.append(args))
+    monkeypatch.setattr(hop_kernel._GATHER_DIST, "by_tag", {})
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    wide = _cuda.SMEM_LIMIT // 4 + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        out = hop_kernel.fused_gather_distances(
+            torch.zeros((5, wide), dtype=dtype), ids, torch.zeros((2, wide)))
+        assert out.shape == (2, 3) and out.dtype == torch.float32
+    assert [(a[1], a[2], a[3], a[5], a[6]) for a in launched] == [
+        (0, 5, wide, 2, 3), (1, 5, wide, 2, 3)]
+    assert hop_kernel._GATHER_DIST.by_tag == {"float32": 1, "bfloat16": 1}
 
 
 def test_words_and_gather_wrappers_refuse_what_the_kernels_do_not_take():
