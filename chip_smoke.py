@@ -45,7 +45,44 @@ Phases (any failure raises, and the exit code is not 0):
           two expansions), ``visited_mode="bitmap"`` unpacked, and a
           filtered search with the even ids allowed. Prints recall, qps,
           hops and ndis; requires the filtered result to hold only
-          allowed ids, no id twice in a row, and exact squared L2.
+          allowed ids, no id twice in a row, and exact squared L2;
+       i. the mutable index, on the same index after e (K1, K2, K3):
+          ``enable_packed(bits=8)`` anew, whose table must hold the
+          chunk-aligned 1,048,576 rows, and a packed ef=64 search;
+          ``grow(n + 4096)``, after which the same search returns identical
+          ids and distances; ``add`` of 2,048 points drawn (seed 4321)
+          around the workload's own 250 centres, whose table refresh must
+          take the incremental branch (rows and seconds printed) and keep
+          the quantization, rows [0, n + 2048) equal to a re-pack of the
+          adjacency, packed ef=64 recall against a new oracle within 0.01
+          of b's, self-queries of the new points first >= 99%, and
+          ``tune_operating_point`` on 1,024 queries (target 0.95; ef, hops
+          and recall printed); ``remove_ids`` of 2,048 ids (seed 7): the
+          filtered packed ef=64 search returns none of them, and its recall
+          against the survivors' oracle is within 0.01 of the same filtered
+          engine's before the removal with every id allowed (that engine
+          re-ranks only its k-slot result buffer, as the reference's does)
+          and no more than 0.05 below the fused search's after the add;
+          ``vacuum()`` (seconds and rows patched printed): ``check()``
+          clean with no link to a dead id, dead rows cleared, a live entry
+          point, the tables dropped; then
+          packed and unpacked ef=64 with no dead id and recall no more
+          than 0.02 below the filtered search's; ``range_search`` of 256
+          queries at the median 10th distance, every pair within the radius
+          in exact squared L2, the share of ``FlatIndex.range_search``'s
+          live pairs (on the host) printed; ``Searcher`` (k=10, ef=64,
+          max_bucket 8,192): requests of 1, 77, 1,000 and 10,000 rows equal
+          to ``HnswIndex.search`` row for row, then 64 ``submit`` calls of
+          1-128 rows and one ``flush``, equal to direct search, with its
+          launches, padded rows and qps against 64 direct searches;
+       j. cut to 100,000 f32 points (the first of the base; M=32,
+          efConstruction=100), the main index freed first: ``remove_ids``
+          of 1,000 and ``compacted()`` (the ``old_ids`` mapping,
+          ``check()``, recall@10 ef=64 >= 0.95 against the survivors);
+          ``merge_from`` a 20,000-point index carrying 100 tombstones; a
+          ``to_bytes`` -> ``from_bytes`` round trip with tombstones whose
+          search is identical. Both rebuilds are plain ``add()``, which a
+          measures at full scale.
 
   5. K3 at the storage codecs' rows, held against its plain version, timed
      and bounded at Q=8192, K=64: uint8 + dequant at d=96 and bf16 at
@@ -119,6 +156,9 @@ N_QUERIES, HOP_K = 8192, 64      # the main path's query batch and m0
 PACKED_ROWS = 300_000            # 8 KB rows: offsets cross 2^31 bytes
 SQ8_N = 1_000_000                # phase f: Deep10M cut to 1M (build time)
 SMALL_CODEC_N = 300_000          # phases g and h
+COMPACT_N = 100_000              # phase j: compacted() and merge_from rebuild
+MERGE_N = 20_000                 # phase j: the index merged in
+ADD_N = DEAD_N = 2048            # phase i: one insert batch; ids removed
 DEEP_D, DEEP_PQ_M = 96, 12       # Deep's width; pq_m = d // 8 (bench.py)
 # NVIDIA's H100 SXM data sheet: HBM bytes/s, and float32 operations/s
 # outside the tensor cores (none of these kernels uses them)
@@ -1028,10 +1068,323 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
 
     legacy = phase("legacy beam", ("packed_row_dist_words",
                                    "gathered_vec_dist"), totals, legacy_phase)
+    mutable = phase("mutable index", ("beam_update", "packed_row_dist",
+                                      "gathered_vec_dist"), totals,
+                    lambda: mutable_phase(idx, wl, queries, gt, recalls[64],
+                                          dev))
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del idx
+    torch.cuda.empty_cache()
+    compact = phase("compact and merge", ("beam_update",
+                                          "gathered_vec_dist"), totals,
+                    lambda: compact_phase(wl, queries, dev))
     return {"build_s": build_s, "recall": recalls, "unpacked": unpacked,
-            "words": words, "pallas": pallas, "legacy": legacy}
+            "words": words, "pallas": pallas, "legacy": legacy,
+            "mutable": mutable, "compact": compact}
+
+
+def live_oracle(queries, vectors, alive, n: int, k: int = 10):
+    """Exact top-k over the live rows < n (brute_force_topk on the card):
+    (squared L2 [Q, k], ids [Q, k] in the index's numbering)."""
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    live = torch.nonzero(alive[:n]).flatten()
+    d, i = brute_force_topk(queries, vectors[live], k)
+    return d, live[i]
+
+
+def no_dead(tag, ids, alive) -> None:
+    ok = ids >= 0
+    if not bool(alive[ids[ok].long()].all()):
+        raise AssertionError(f"{tag}: a removed id came back")
+
+
+def mutable_phase(idx, wl, queries, gt, recall64: float, dev) -> dict:
+    """Phase i (module docstring) on the main index after phase e; ``gt``
+    and ``recall64``: phase b's oracle ids and packed ef=64 recall."""
+    from hnsw_tpu_torch import FlatIndex, Searcher
+    from hnsw_tpu_torch.ops.packed import padded_rows, quantize_codes
+    from hnsw_tpu_torch.search import compute_sqnorms, entry_sample_size
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    out = {}
+    n = idx.ntotal
+
+    def packed64(tag, gt, q=queries, **kw):
+        res, secs = timed(lambda: idx.search(q, 10, ef_search=64,
+                                             with_stats=True,
+                                             device_out=True, **kw))
+        return report(tag, res, secs, gt), res
+
+    # 1. the bytes table, its chunk-aligned rows
+    idx.disable_packed()
+    idx.enable_packed(bits=8)
+    rows = idx._packed.nbr_sq.shape[0]
+    log(f"bytes table rows: {rows} for {n} ids")
+    if rows != padded_rows(n, 1 << 16):
+        raise AssertionError(f"table rows {rows} != "
+                             f"{padded_rows(n, 1 << 16)}")
+    _, (d0, i0, _) = packed64("packed ef=64 before grow", gt)
+
+    # 2. grow: the same search, bit for bit
+    sample = entry_sample_size(idx.config.capacity)
+    idx.grow(n + 4096)
+    if entry_sample_size(idx.config.capacity) != sample:
+        raise AssertionError("grow changed the entry sample size")
+    _, (d1, i1, _) = packed64("packed ef=64 after grow", gt)
+    if not (torch.equal(i0, i1) and torch.equal(d0, d1)):
+        raise AssertionError("grow changed the search")
+    log(f"grow({n + 4096}): capacity {idx.config.capacity}, upper "
+        f"{idx.config.upper_capacity}; search identical")
+
+    # 3. one insert batch of 2,048 around the workload's own centres
+    nc = wl.meta["n_clusters"]
+    centres = np.random.default_rng(1234).normal(
+        0.0, 1.0, size=(nc, 128)).astype(np.float32)
+    rng = np.random.default_rng(4321)
+    pts = centres[rng.integers(0, nc, size=ADD_N)] + rng.normal(
+        0.0, 0.35, size=(ADD_N, 128)).astype(np.float32)
+    off, sc = idx._packed.offset.clone(), idx._packed.scale.clone()
+    refresh_s = []
+    orig = idx._refresh_packed
+
+    def timed_refresh(*a):
+        t0 = time.time()
+        orig(*a)
+        torch.cuda.synchronize()
+        refresh_s.append(time.time() - t0)
+
+    idx._refresh_packed = timed_refresh
+    t0 = time.time()
+    idx.add(pts)
+    torch.cuda.synchronize()
+    add_s = time.time() - t0
+    del idx._refresh_packed
+    n2 = idx.ntotal
+    rf = idx._last_refresh
+    log(f"add of {ADD_N} at {n}: {add_s:.3f} s, of which the table refresh "
+        f"{refresh_s[0]:.3f} s: branch {rf['branch']}, {rf['rows']} rows "
+        f"re-packed")
+    pk = idx._packed
+    if rf["branch"] != "incremental" or not idx.packed_enabled:
+        raise AssertionError(f"refresh took the {rf['branch']} branch")
+    if not (torch.equal(pk.offset, off) and torch.equal(pk.scale, sc)):
+        raise AssertionError("the refresh retrained the quantization")
+    codes_all = quantize_codes(idx.vectors[:n2], off, sc, 8)
+    xhat_sq = compute_sqnorms(codes_all, (off, sc))
+    for r in range(0, n2, 1 << 16):
+        safe = idx.graph.neighbors0[r:min(r + (1 << 16), n2)].clamp(
+            min=0).long()
+        if not torch.equal(pk.nbr_codes[r:r + len(safe)],
+                           codes_all[safe].view(len(safe), -1)):
+            raise AssertionError(f"packed rows from {r} differ from a "
+                                 f"re-pack of the adjacency")
+        if not torch.allclose(pk.nbr_sq[r:r + len(safe)], xhat_sq[safe],
+                              rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"packed norms from {r} differ")
+    del codes_all, xhat_sq
+    log(f"rows [0, {n2}) equal a re-pack under the retained quantization")
+    _, gt2 = live_oracle(queries, idx.vectors, torch.ones(
+        n2, dtype=torch.bool, device=dev), n2)
+    r_add, _ = packed64(f"packed ef=64 after the add (oracle over {n2})",
+                        gt2.cpu().numpy())
+    if abs(r_add - recall64) > 0.01:
+        raise AssertionError(f"recall after the add {r_add:.4f} vs phase "
+                             f"b's {recall64:.4f} differ > 0.01")
+    # the filtered engine (legacy beam, a k-slot result buffer re-ranked
+    # alone, as the reference's) with every id allowed: what step 4's
+    # tombstoned search is held against
+    everyone = torch.ones(idx.config.capacity, dtype=torch.bool, device=dev)
+    r_add_f, _ = packed64("packed ef=64 after the add, filtered engine "
+                          "with every id allowed", gt2.cpu().numpy(),
+                          allowed=everyone)
+    _, own = idx.search(pts, 10, ef_search=64)
+    self_hit = float((own[:, 0] == np.arange(n, n2)).mean())
+    log(f"self-queries of the {ADD_N} new points: first {self_hit:.4f}")
+    if self_hit < 0.99:
+        raise AssertionError(f"self-query hit {self_hit:.4f} < 0.99")
+    t0 = time.time()
+    q1k = wl.queries[:1024]
+    ef, hops = idx.tune_operating_point(q1k, 0.95, set_default=False)
+    _, i_op = idx.search(q1k, 10, ef_search=ef, max_hops=hops)
+    r_op = recall_at_k(i_op, gt2[:1024].cpu().numpy(), 10)
+    log(f"tune_operating_point(1024 queries, 0.95): ef {ef}, hops {hops}, "
+        f"recall {r_op:.4f} ({time.time() - t0:.1f} s)")
+    out.update(add_s=add_s, refresh_s=refresh_s[0], refresh=rf,
+               recall_add=(r_add, r_add_f), self_hit=self_hit,
+               op=(ef, hops, r_op))
+
+    # 4. tombstones: a filtered packed search
+    dead = np.random.default_rng(7).choice(n, DEAD_N, replace=False)
+    idx.remove_ids(dead)
+    alive = idx._alive
+    d_live, gt_live = live_oracle(queries, idx.vectors, alive, n2)
+    gt_live_np = gt_live.cpu().numpy()
+    r_filt, (_, i_f, _) = packed64(f"packed ef=64 with {DEAD_N} "
+                                   f"tombstones (filtered)", gt_live_np)
+    no_dead("filtered search", i_f, alive)
+    log(f"  tombstones cost {r_add_f - r_filt:+.4f} recall on the filtered "
+        f"engine; the filtered engine {r_add - r_add_f:+.4f} against the "
+        f"fused search")
+    if abs(r_filt - r_add_f) > 0.01:
+        raise AssertionError(f"filtered recall {r_filt:.4f} vs {r_add_f:.4f} "
+                             f"with every id allowed differ > 0.01")
+    # and tombstoned serving stays near normal (fused) serving: an H100
+    # 80GB HBM3 at 700 W measured a gap of 0.038 (filtered engine alone)
+    if r_filt < r_add - 0.05:
+        raise AssertionError(f"filtered recall {r_filt:.4f} < the fused "
+                             f"search's {r_add:.4f} - 0.05")
+
+    # 5. vacuum
+    t0 = time.time()
+    idx.vacuum()
+    torch.cuda.synchronize()
+    vac_s = time.time() - t0
+    log(f"vacuum of {DEAD_N} ids: {vac_s:.2f} s, rows patched "
+        f"{idx._last_vacuum}")
+    t0 = time.time()
+    stats = idx.check()
+    log(f"check after vacuum: {time.time() - t0:.1f} s, errors "
+        f"{stats['errors']}, links_to_dead {stats['links_to_dead']}")
+    dead_t = torch.from_numpy(dead).to(dev)
+    if stats["errors"] or stats["links_to_dead"]:
+        raise AssertionError("vacuumed graph fails check()")
+    if not bool((idx.graph.neighbors0[dead_t] == -1).all()):
+        raise AssertionError("dead rows not cleared")
+    if not bool(alive[idx.graph.entry_point]) or idx.packed_enabled:
+        raise AssertionError("dead entry point, or tables not dropped")
+    idx.enable_packed(bits=8)
+    r_vac, (_, i_v, _) = packed64("packed ef=64 after vacuum", gt_live_np)
+    r_vac_u, (_, i_u, _) = packed64("unpacked ef=64 after vacuum",
+                                    gt_live_np, use_packed=False)
+    for tag, i in (("packed", i_v), ("unpacked", i_u)):
+        no_dead(f"{tag} search after vacuum", i, alive)
+    if min(r_vac, r_vac_u) < r_filt - 0.02:
+        raise AssertionError(f"vacuumed recall {r_vac:.4f} / {r_vac_u:.4f} "
+                             f"< filtered {r_filt:.4f} - 0.02")
+    out.update(recall_filtered=r_filt, vacuum_s=vac_s,
+               vacuum_rows=idx._last_vacuum, recall_vacuum=(r_vac, r_vac_u))
+
+    # 6. range search at the median 10th distance of 256 queries
+    q256 = wl.queries[:256]
+    radius = float(d_live[:256, 9].median())
+    lims, dr, ir = idx.range_search(q256, radius, ef_search=64)
+    qi = torch.from_numpy(np.repeat(np.arange(256), np.diff(lims))).to(dev)
+    x = idx.vectors[torch.from_numpy(ir).to(dev)]
+    exact = ((queries[qi] - x) ** 2).sum(1)
+    # the search's distance is ||x||² − 2 q·x + ||q||², (q − x)² here: the
+    # two may part in the last bits, so the bound takes rtol 1e-5
+    if not bool((exact < radius * (1 + 1e-5)).all()) or not torch.allclose(
+            torch.from_numpy(dr).to(dev), exact, rtol=1e-4, atol=1e-3):
+        raise AssertionError("range_search returned a pair out of range "
+                             "or a distance that is not exact")
+    t0 = time.time()
+    flat = FlatIndex(128, "l2", device="cpu")
+    flat.add(idx.reconstruct_n(0, n2))
+    fl, _, fi = flat.range_search(q256, radius)
+    del flat
+    alive_np = alive[:n2].cpu().numpy()
+    want = {(q, int(j)) for q in range(256)
+            for j in fi[fl[q]:fl[q + 1]] if alive_np[j]}
+    got = {(q, int(j)) for q in range(256) for j in ir[lims[q]:lims[q + 1]]}
+    share = len(want & got) / max(len(want), 1)
+    log(f"range_search(256 queries, radius {radius:.4f}): {len(ir)} pairs, "
+        f"{share:.4f} of the exact {len(want)} (FlatIndex.range_search on "
+        f"the host, {time.time() - t0:.1f} s)")
+    out["range_share"] = share
+
+    # 7. the Searcher front end over the packed index
+    s = Searcher(idx, k=10, ef_search=64, max_bucket=8192)
+    # the queries, then the new points: 10,240 rows at the full size
+    pool = np.resize(np.concatenate([wl.queries, pts]), (10_240, 128))
+    for size in (1, 77, 1000, 10000):
+        _, i_s = s.search(pool[:size])
+        _, i_d = idx.search(pool[:size], 10, ef_search=64)
+        bad = int((i_s != i_d).any(1).sum())
+        if bad:
+            raise AssertionError(f"Searcher request of {size} rows: {bad} "
+                                 f"rows differ from HnswIndex.search")
+    sizes = np.random.default_rng(5).integers(1, 129, size=64)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    before = dict(s.stats)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hs = [s.submit(pool[a:a + m]) for a, m in zip(starts, sizes)]
+    s.flush()
+    flush_s = time.time() - t0
+    got = np.concatenate([s.result(h)[1] for h in hs])
+    t0 = time.time()
+    direct = [idx.search(pool[a:a + m], 10, ef_search=64)[1]
+              for a, m in zip(starts, sizes)]
+    direct_s = time.time() - t0
+    if not np.array_equal(got, np.concatenate(direct)):
+        raise AssertionError("coalesced results differ from direct search")
+    rows_q = int(sizes.sum())
+    log(f"Searcher: {rows_q} rows in 64 requests, one flush "
+        f"{rows_q / flush_s:.0f} qps ({flush_s * 1e3:.1f} ms, launches "
+        f"{s.stats['launches'] - before['launches']}, rows padded "
+        f"{s.stats['rows_padded'] - before['rows_padded']}) against 64 "
+        f"direct searches {rows_q / direct_s:.0f} qps ({direct_s * 1e3:.1f} "
+        f"ms); totals {s.stats}")
+    out.update(flush_qps=rows_q / flush_s, direct_qps=rows_q / direct_s)
+    return out
+
+
+def compact_phase(wl, queries, dev) -> dict:
+    """Phase j (module docstring): compacted(), merge_from and a to_bytes
+    round trip with tombstones, at the cut of 100,000 f32 points."""
+    from hnsw_tpu_torch import HnswIndex
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    n = COMPACT_N
+    log(f"phase j cut: {n} of the main path's base vectors")
+    idx = HnswIndex(128, 32, "l2", capacity=n + MERGE_N, ef_construction=100,
+                    device=dev)
+    t0 = time.time()
+    idx.add(wl.base[:n])
+    torch.cuda.synchronize()
+    log(f"build of {n}: {time.time() - t0:.1f} s")
+    dead = np.random.default_rng(11).choice(n, 1000, replace=False)
+    idx.remove_ids(dead)
+    t0 = time.time()
+    new, old_ids = idx.compacted(wl.base[:n])
+    torch.cuda.synchronize()
+    keep = np.setdiff1d(np.arange(n), dead)
+    if new.ntotal != n - 1000 or not np.array_equal(old_ids, keep):
+        raise AssertionError("compacted(): wrong old_ids mapping")
+    stats = new.check()
+    if stats["errors"]:
+        raise AssertionError(f"compacted graph: {stats['errors']}")
+    _, gt = live_oracle(queries, idx.vectors, idx._alive, n)
+    _, i = new.search(queries, 10, ef_search=64)
+    r_c = recall_at_k(np.where(i >= 0, old_ids[np.maximum(i, 0)], -1),
+                      gt.cpu().numpy(), 10)
+    log(f"compacted(): {new.ntotal} ids in {time.time() - t0:.1f} s, "
+        f"recall@10 ef=64 {r_c:.4f} against the survivors")
+    if r_c < 0.95:
+        raise AssertionError(f"compacted recall {r_c:.4f} < 0.95")
+    del idx
+    other = HnswIndex(128, 32, "l2", capacity=MERGE_N, ef_construction=100,
+                      device=dev)
+    other.add(wl.base[n:n + MERGE_N])
+    other.remove_ids(np.arange(0, MERGE_N, MERGE_N // 100))
+    t0 = time.time()
+    merged = new.merge_from(other)
+    log(f"merge_from({MERGE_N} with 100 tombstones): {merged} in "
+        f"{time.time() - t0:.1f} s, ntotal {new.ntotal}")
+    if merged != MERGE_N - 100 or new.ntotal != n - 1000 + MERGE_N - 100:
+        raise AssertionError("merge_from merged the wrong rows")
+    new.remove_ids(np.arange(0, new.ntotal, 97))
+    d1, i1 = new.search(queries, 10, ef_search=64)
+    t0 = time.time()
+    blob = new.to_bytes()
+    back = HnswIndex.from_bytes(blob, device=dev)
+    d2, i2 = back.search(queries, 10, ef_search=64)
+    log(f"to_bytes / from_bytes with {back.n_deleted} tombstones: "
+        f"{len(blob)} bytes, {time.time() - t0:.1f} s")
+    if not (np.array_equal(i1, i2) and np.array_equal(d1, d2)):
+        raise AssertionError("search differs after the round trip")
+    if np.isin(i2[i2 >= 0], np.arange(0, new.ntotal, 97)).any():
+        raise AssertionError("round trip lost the tombstones")
+    return {"recall_compacted": r_c, "merged": merged}
 
 
 def stored_rows(idx):

@@ -27,11 +27,12 @@ from .models.hnsw import HnswIndex  # noqa: E402
 from .ops.distances import brute_force_topk  # noqa: E402
 from .ops.packed import PackedNeighbors, pack_neighbors  # noqa: E402
 from .search import hnsw_search  # noqa: E402
+from .serving import Searcher  # noqa: E402
 from .utils.datasets import synthetic_workload  # noqa: E402
 
 __all__ = [
     "IP", "L2", "HnswConfig", "GraphArrays", "HnswIndex", "FlatIndex",
     "brute_force_topk", "hnsw_search", "check_invariants",
     "PackedNeighbors", "pack_neighbors", "save_graph", "load_graph",
-    "synthetic_workload",
+    "synthetic_workload", "Searcher",
 ]

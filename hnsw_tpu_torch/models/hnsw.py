@@ -16,14 +16,22 @@ x̂. Packed routing rows come as sq rows (``enable_packed(bits=)``) or as
 PQ-coded rows (``enable_packed(mode="pq")``). ``save`` / ``load`` /
 ``to_bytes`` / ``from_bytes`` read and write the reference's ``.npz``.
 
-Not ported yet (they raise NotImplementedError): ``build="host"``; ``add``
-while packed tables are enabled (incremental row maintenance); deletion
-(tombstones) and the rest of the API breadth (ROADMAP.md Queue A).
+The index is mutable while it serves: ``add`` keeps enabled packed tables
+valid (the rows it changed are re-packed in place, ``_refresh_packed``);
+``remove_ids`` tombstones ids (filtered from results until ``vacuum``
+removes them from routing); ``compacted`` renumbers without them;
+``grow`` raises the capacity in place; ``merge_from`` absorbs another
+index. ``range_search``, the ``tune_ef_search`` / ``tune_operating_point``
+tuners and the ``serving.Searcher`` front end sit on ``search``.
+
+Not ported yet (raises NotImplementedError): ``build="host"``, the NumPy
+reference builder (ROADMAP.md A5).
 """
 
 from __future__ import annotations
 
 import io
+import logging
 
 import numpy as np
 import torch
@@ -34,6 +42,8 @@ from ..graph import (GraphArrays, check_invariants, empty_graph,
 from ..ops._cuda import default_device
 from ..ops.distances import decode_rows
 from ..search import hnsw_search
+
+log = logging.getLogger("hnsw_tpu_torch")
 
 
 class HnswIndex:
@@ -72,6 +82,18 @@ class HnswIndex:
                 dtype=getattr(torch, config.storage_dtype), device=self.device)
         self._builder = None
         self._packed = None
+        # enable_packed's arguments, the layout resolved: a full re-pack
+        # after add() rebuilds the same table format
+        self._packed_opts = None
+        # what the last add() did to the packed tables: {"branch":
+        # "incremental" | "full" | "failed", "rows": rows re-packed}
+        self._last_refresh = None
+        # tombstones: bool [capacity] (None: no removals); routing passes
+        # through dead ids and results are filtered until vacuum()
+        self._alive = None
+        self._routing_clean = True
+        # rows patched by the last vacuum(): {"level0": n, "upper": n}
+        self._last_vacuum = None
         # storage codecs, None until train(): each as device tensors (the
         # search) and numpy (the builder, and the host-side sq8 encode)
         self._sq = self._sq_np = None   # (offset [d], scale [d])
@@ -82,7 +104,15 @@ class HnswIndex:
 
     @property
     def ntotal(self) -> int:
+        """Slots used, tombstoned ids included (ids are stable: removal
+        does not renumber, ``compacted`` does)."""
         return self._graph.ntotal
+
+    @property
+    def n_deleted(self) -> int:
+        if self._alive is None:
+            return 0
+        return self.ntotal - int(self._alive[:self.ntotal].sum())
 
     @property
     def d(self) -> int:  # faiss naming
@@ -163,12 +193,7 @@ class HnswIndex:
                                "(faiss IndexHNSWSQ/IndexHNSWPQ parity)")
         if self.ntotal + len(x) > self.config.capacity:
             raise ValueError("capacity exceeded; create the index with a "
-                             "larger `capacity`")
-        if self._packed is not None:
-            raise NotImplementedError(
-                "add() with packed tables enabled: incremental packed-row "
-                "maintenance is not ported yet (ROADMAP.md A4); call "
-                "disable_packed() first")
+                             "larger `capacity` or grow() it")
         if self.config.is_sq:
             x = self._sq_encode(x)
         elif self.config.is_pq:
@@ -178,14 +203,134 @@ class HnswIndex:
             self._builder = DeviceBuilder(self.config, r_window=self.r_window,
                                           sq_params=self._sq_np,
                                           pq_cb=self._pq_np)
+        # packed tables: the adjacency rows' fingerprints before the build
+        # find the rows to re-pack after it (the tables stay on the device
+        # through the build; disable_packed() first to free them)
+        packed_was, fp_old, old_ntotal = self._packed, None, self.ntotal
+        if packed_was is not None:
+            from ..ops.packed import row_fingerprints
+            fp_old = row_fingerprints(self._graph.neighbors0)
+        self._packed = None   # stays None unless the refresh succeeds
         self._builder.add(self._graph, self._vectors, x,
                           ef_construction=self.ef_construction)
+        if self._route is not None and not self.config.is_pq:
+            self._encode_route(old_ntotal)
+        if fp_old is not None:
+            self._refresh_packed(packed_was, fp_old, old_ntotal)
+
+    def _encode_route(self, start: int) -> None:
+        """PQ routing codes of ids [start, ntotal) on the kept routing
+        codebooks, whether or not tables are live, so a later
+        ``enable_packed(mode="pq")`` never routes new ids on stale codes.
+        A failure is logged and drops the codebooks (the next PQ enable
+        trains anew): the add itself is kept."""
+        from ..ops.pq import encode_pq
+        cb, codes, _ = self._route
+        try:
+            codes[start:self.ntotal] = encode_pq(
+                self._vectors[start:self.ntotal], cb, dequant=self._sq)
+        except Exception:  # noqa: BLE001 — serving must not lose adds
+            log.warning("routing-code encode failed; routing codebooks "
+                        "dropped", exc_info=True)
+            self._route = None
+
+    def _refresh_packed(self, packed, fp_old: torch.Tensor,
+                        old_ntotal: int) -> None:
+        """Packed-table maintenance after add(): re-pack, in place, exactly
+        the rows the build changed (fingerprint diff) and the new ids, 4,096
+        at a time; re-pack in full when the new total exceeds the table's
+        rows or more than max(n // 4, 50,000) rows changed (a full re-pack
+        retrains the quantization). A failure is logged and leaves the
+        index unpacked: serving never loses an add."""
+        from ..ops.packed import (PackedPQ, row_fingerprints,
+                                  update_packed_pq_rows, update_packed_rows)
+        is_pq_rows = isinstance(packed, PackedPQ)
+        n = self.ntotal
+        try:
+            ids = None
+            rebuild = n > packed.nbr_codes.shape[0]
+            if not rebuild:
+                fp_new = row_fingerprints(self._graph.neighbors0)
+                changed = (fp_old[:n] != fp_new[:n]).any(1)
+                changed[old_ntotal:] = True          # new rows always re-pack
+                ids = torch.nonzero(changed).flatten().to(torch.int32)
+                rebuild = ids.numel() > max(n // 4, 50_000)
+            if rebuild:
+                packed = None      # free the old table before building anew
+                self.enable_packed(**self._packed_opts)
+                self._last_refresh = {"branch": "full", "rows": n}
+                log.info("packed tables fully re-packed after add()")
+                return
+            for i in range(0, ids.numel(), 4096):
+                part = ids[i:i + 4096]
+                if is_pq_rows:
+                    update_packed_pq_rows(
+                        packed.nbr_codes, self._graph.neighbors0,
+                        self._vectors if self.config.is_pq
+                        else self._route[1], part, pq_bits=packed.pq_bits)
+                else:
+                    update_packed_rows(
+                        packed.nbr_codes, packed.nbr_sq,
+                        self._graph.neighbors0, self._vectors,
+                        packed.offset, packed.scale, part,
+                        bits=self._packed_opts["bits"], dequant=self._sq)
+            self._packed = packed
+            self._last_refresh = {"branch": "incremental",
+                                  "rows": int(ids.numel())}
+            log.info("packed tables updated after add(): %d rows re-packed",
+                     ids.numel())
+        except Exception:  # noqa: BLE001 — serving must not lose adds
+            log.warning("packed-table refresh failed; packed mode disabled "
+                        "(call enable_packed() to restore)", exc_info=True)
+            self._packed = None
+            self._last_refresh = {"branch": "failed", "rows": 0}
+
+    def grow(self, capacity: int, *, upper_capacity: int = -1) -> None:
+        """Raise the preallocated ``capacity`` in place: every
+        capacity-sized tensor is padded to the new size one at a time (a
+        transient of one tensor's old + new, not a second index). Contents,
+        tombstones and the level RNG are kept, so a grown index searches
+        bit-identically and builds on as one made at the new capacity.
+        Packed tables hold rows for ids < ntotal, which a grow leaves
+        untouched: they stay valid."""
+        cfg = self.config
+        if capacity <= cfg.capacity:
+            raise ValueError(f"grow() needs capacity > current "
+                             f"({capacity} <= {cfg.capacity})")
+        new_cfg = cfg.replace(capacity=capacity,
+                              upper_capacity=upper_capacity)
+        if new_cfg.upper_capacity < cfg.upper_capacity:
+            new_cfg = cfg.replace(capacity=capacity,
+                                  upper_capacity=cfg.upper_capacity)
+
+        def pad(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
+            extra = rows - t.shape[0]
+            if extra <= 0:
+                return t
+            return torch.cat([t, t.new_full((extra, *t.shape[1:]), fill)])
+
+        c, u = capacity, new_cfg.upper_capacity
+        g = self._graph
+        for name in ("neighbors0", "levels", "upper_slot"):
+            setattr(g, name, pad(getattr(g, name), c, -1))
+        for name in ("upper_node", "upper_neighbors"):
+            setattr(g, name, pad(getattr(g, name), u, -1))
+        self._vectors = pad(self._vectors, c, 0)
+        if self._alive is not None:
+            self._alive = pad(self._alive, c, True)
+        if self._route is not None:    # PQ routing codes [capacity, pq_m]
+            cb, codes, bits = self._route
+            self._route = (cb, pad(codes, c, 0), bits)
+        self.config = new_cfg
+        if self._builder is not None:  # the level RNG carries on
+            self._builder.cfg = new_cfg
 
     # -- packed serving mode (ops/packed.py) -------------------------------
     def enable_packed(self, bits: int = 8, *, mode: str | None = None,
                       layout: str = "auto", pq_m: int | None = None,
                       pq_bits: int = 8, train_x: np.ndarray | None = None,
-                      max_bytes: int | None = None, reserve: int = 0) -> int:
+                      max_bytes: int | None = None, reserve: int = 0,
+                      chunk: int = 1 << 16) -> int:
         """Build packed neighbor-code tables: the level-0 beam then routes on
         distances from ONE code row per expanded node; the final buffer is
         re-ranked with storage-grade distances (exact f32 / sq8 x̂ / exact
@@ -200,7 +345,14 @@ class HnswIndex:
         4, on ``train_x``, else on up to 65,536 stored vectors).
         ``layout`` (sq rows): "bytes" (uint8 rows, K2), "words" (int32
         rows holding the same bits, K4) or "auto", which resolves to
-        "bytes" (the reference picks "words" only on a TPU)."""
+        "bytes" (the reference picks "words" only on a TPU).
+
+        The tables hold rows for ids < ntotal + ``reserve``, padded up to a
+        whole number of ``chunk``-row chunks (``ops/packed.py``
+        ``padded_rows``). Later ``add()`` calls keep them valid: in place
+        while the new total fits those rows, else by a full re-pack.
+        Tombstoned ids keep routing (results are filtered); ``vacuum()``
+        drops the tables."""
         if mode is None:
             mode = "pq" if self.config.is_pq else "sq"
         if mode not in ("sq", "pq"):
@@ -216,17 +368,21 @@ class HnswIndex:
                 raise ValueError(f"layout must be 'auto', 'bytes' or "
                                  f"'words', got {layout!r}")
             from ..ops.packed import pack_neighbors
+            layout = "bytes" if layout == "auto" else layout
             self._packed = pack_neighbors(
                 self._graph.neighbors0, self._vectors, self._graph.levels,
-                bits=bits, max_bytes=max_bytes, n_rows=n_rows,
-                dequant=self._sq,
-                layout="bytes" if layout == "auto" else layout)
+                bits=bits, max_bytes=max_bytes, n_rows=n_rows, chunk=chunk,
+                dequant=self._sq, layout=layout)
         else:
             from ..ops.packed import pack_pq_neighbors
             cb, codes, pq_bits = self._route_codebooks(pq_m, pq_bits, train_x)
             self._packed = pack_pq_neighbors(
                 self._graph.neighbors0, codes, cb, pq_bits=pq_bits,
-                max_bytes=max_bytes, n_rows=n_rows)
+                max_bytes=max_bytes, n_rows=n_rows, chunk=chunk)
+        self._packed_opts = dict(bits=bits, mode=mode, layout=layout,
+                                 pq_m=pq_m, pq_bits=pq_bits,
+                                 max_bytes=max_bytes, reserve=reserve,
+                                 chunk=chunk)
         return self._packed.nbytes
 
     def _route_codebooks(self, pq_m, pq_bits, train_x):
@@ -289,7 +445,11 @@ class HnswIndex:
         ``beam_keys``: "auto" | "bf16" | "f32", the legacy beam's merge
         keys; None uses ``self.beam_keys``. ``entry_mode``: "auto" |
         "sample" | "seed" | "descend" (see ``hnsw_search``). The
-        ``n_expand`` attribute sets the expansions per hop."""
+        ``n_expand`` attribute sets the expansions per hop.
+
+        Tombstoned ids (``remove_ids``) are filtered out, with a user
+        filter too (``allowed & alive``), until ``vacuum()``; when every id
+        is dead the result is empty (inf, -1)."""
         if use_packed is None:
             packed = self._packed
         elif use_packed:
@@ -299,7 +459,7 @@ class HnswIndex:
             packed = self._packed
         else:
             packed = None
-        if self.ntotal == 0:
+        if self.ntotal == 0 or self.n_deleted >= self.ntotal:
             n = len(x)
             return (np.full((n, k), np.inf, np.float32),
                     np.full((n, k), -1, np.int64))
@@ -308,6 +468,9 @@ class HnswIndex:
         x = x.to(self.device, torch.float32)
         if allowed is not None:
             allowed = self._normalize_allowed(allowed)
+        if self._alive is not None and not self._routing_clean:
+            allowed = self._alive if allowed is None \
+                else allowed & self._alive
         out = hnsw_search(
             self._graph, self._vectors, x, k=k,
             ef_search=int(ef_search or self.ef_search),
@@ -321,6 +484,88 @@ class HnswIndex:
             return out
         d, i = out[0].cpu().numpy(), out[1].cpu().numpy().astype(np.int64)
         return (d, i, out[2]) if with_stats else (d, i)
+
+    def _oracle_ids(self, x: torch.Tensor, k: int) -> np.ndarray:
+        """Exact top-k ids of ``x`` over the stored vectors (x̂ for a
+        codec), tombstoned ids included, as the reference's tuners."""
+        from ..ops.distances import brute_force_topk
+        _, gt = brute_force_topk(x, self._vectors, k,
+                                 metric=self.config.metric,
+                                 n_valid=self.ntotal, dequant=self._sq,
+                                 pq=self._pq)
+        return gt.cpu().numpy()
+
+    def _recall_at(self, x, gt, k: int, ef: int, hops: int = 0) -> float:
+        from ..utils.recall import recall_at_k
+        _, ii = self.search(x, k, ef_search=ef, max_hops=hops)
+        return recall_at_k(ii, gt, k)
+
+    def tune_ef_search(self, x: np.ndarray, target_recall: float = 0.95,
+                       *, k: int = 10, set_default: bool = True,
+                       ef_grid=(16, 24, 32, 48, 64, 96, 128, 192, 256,
+                                384, 512)) -> int:
+        """faiss AutoTune analogue: the smallest grid ef whose recall@k on
+        ``x``, against the exact oracle over the stored vectors, reaches
+        ``target_recall`` (the largest grid point if none does). With
+        ``set_default`` it becomes ``self.ef_search``."""
+        x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+        gt = self._oracle_ids(x, k)
+        chosen = ef_grid[-1]
+        for ef in ef_grid:
+            if ef >= k and self._recall_at(x, gt, k, ef) >= target_recall:
+                chosen = ef
+                break
+        if set_default:
+            self.ef_search = int(chosen)
+        return int(chosen)
+
+    def tune_operating_point(self, x: np.ndarray, target_recall: float = 0.95,
+                             *, k: int = 10, set_default: bool = True,
+                             ef_grid=(16, 24, 32, 40, 48, 56, 64, 80, 96,
+                                      128, 192, 256, 384, 512)) -> tuple:
+        """The cheapest (ef_search, max_hops) reaching ``target_recall``:
+        the smallest grid ef that reaches it at the auto hop cap, then the
+        smallest hop cap (binary search over [16, ef + 8]; recall does not
+        fall as the cap rises) that still does. Returns (ef, max_hops);
+        with ``set_default`` the ef becomes ``self.ef_search`` (pass
+        max_hops to each search)."""
+        x = torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+        gt = self._oracle_ids(x, k)
+        chosen_ef = ef_grid[-1]
+        for ef in ef_grid:
+            if ef >= k and self._recall_at(x, gt, k, ef) >= target_recall:
+                chosen_ef = int(ef)
+                break
+        lo, hi = 16, chosen_ef + 8
+        best = hi
+        while lo <= hi:
+            mid = (lo + hi) // 2
+            if self._recall_at(x, gt, k, chosen_ef, mid) >= target_recall:
+                best, hi = mid, mid - 1
+            else:
+                lo = mid + 1
+        if set_default:
+            self.ef_search = chosen_ef
+        return chosen_ef, int(best)
+
+    def range_search(self, x: np.ndarray, radius: float, *,
+                     ef_search: int | None = None, **kw):
+        """faiss ``IndexHNSW.range_search``: L2 keeps squared distance <
+        radius, IP keeps dot > radius; returns (lims [nq+1], D, I) in
+        faiss's CSR layout, each query's results best-first. Bounded by the
+        beam: at most ``ef_search`` candidates a query are tested (raise it
+        to widen coverage; ``FlatIndex.range_search`` is exact). Keyword
+        arguments go to :meth:`search`."""
+        ef = int(ef_search or self.ef_search)
+        d, i = self.search(x, k=ef, ef_search=ef, **kw)
+        if self.config.metric == L2:
+            keep = (i >= 0) & (d < radius)
+        else:
+            d = -d  # the search returns -dot ascending; faiss reports dot
+            keep = (i >= 0) & (d > radius)
+        lims = np.zeros(len(d) + 1, np.int64)
+        np.cumsum(keep.sum(1), out=lims[1:])
+        return lims, d[keep], i[keep]
 
     def _normalize_allowed(self, allowed) -> torch.Tensor:
         """A user id filter as a bool [capacity] mask on the index's device,
@@ -402,23 +647,123 @@ class HnswIndex:
         r[np.asarray(i) < 0] = np.nan
         return (d, i, r, *out[2:])
 
+    def merge_from(self, other: "HnswIndex") -> int:
+        """Absorb another index's live vectors (faiss ``merge_from``; a
+        batched re-insert, so graph quality equals a fresh add()).
+        Tombstoned ids of ``other`` are skipped and ``other`` is unchanged.
+        The merged vectors take ids from ``self.ntotal`` on. Returns how
+        many were merged."""
+        if other.config.dim != self.config.dim:
+            raise ValueError(f"merge_from: dim mismatch {other.config.dim} "
+                             f"!= {self.config.dim}")
+        if other.config.metric != self.config.metric:
+            raise ValueError("merge_from: metric mismatch")
+        if other.ntotal == 0:
+            return 0
+        x = other.reconstruct_n(0, other.ntotal)
+        if other._alive is not None:
+            x = x[other._alive[:other.ntotal].cpu().numpy()]
+        if len(x):
+            self.add(x)
+        return len(x)
+
+    # -- deletion (tombstones) ------------------------------------------------
+    def remove_ids(self, ids: np.ndarray) -> int:
+        """Tombstone ids: they leave the results at once but keep routing
+        queries (the graph stays whole) until ``vacuum()``. Slots are not
+        reused and other ids keep their numbers (faiss renumbers:
+        ``compacted``). Returns the number of ids newly removed."""
+        ids = np.asarray(ids).reshape(-1)
+        if ((ids < 0) | (ids >= self.ntotal)).any():
+            raise IndexError("remove_ids: id out of range")
+        if self._alive is None:
+            self._alive = torch.ones(self.config.capacity, dtype=torch.bool,
+                                     device=self.device)
+        before = self.n_deleted
+        self._alive[torch.from_numpy(ids.astype(np.int64)).to(
+            self.device)] = False
+        self._routing_clean = False
+        return self.n_deleted - before
+
+    def vacuum(self) -> int:
+        """Remove tombstoned nodes from routing (``ops/vacuum.py``): links
+        into dead nodes are deleted and the holes patched with live
+        candidates inherited from the dead nodes' lists, re-pruned by the
+        select-neighbors heuristic; dead rows are cleared and the entry
+        point moves to a live node. Searches then need no tombstone filter
+        (nor its full-convergence beam). Ids stay stable. Packed tables are
+        dropped (call ``enable_packed()`` again). Returns the number of
+        nodes vacuumed."""
+        if self._alive is None or self.n_deleted == 0:
+            self._routing_clean = True
+            return 0
+        from ..ops.vacuum import live_entry_point, vacuum_level0, vacuum_upper
+        n_dead = self.n_deleted
+        g, metric = self._graph, self.config.metric
+        dead = ~self._alive & (g.levels >= 0)
+        self._packed = None          # rows hold pre-vacuum adjacency
+        rows0 = vacuum_level0(g.neighbors0, self._vectors, dead,
+                              metric=metric, dequant=self._sq, pq=self._pq)
+        rows_up = vacuum_upper(g.upper_neighbors, g.upper_node, g.upper_slot,
+                               self._vectors, dead, metric=metric,
+                               dequant=self._sq, pq=self._pq)
+        g.entry_point, g.max_level = live_entry_point(g.levels, dead)
+        self._routing_clean = True
+        self._last_vacuum = {"level0": rows0, "upper": rows_up}
+        return n_dead
+
+    def compacted(self, x: np.ndarray | None = None) -> tuple[
+            "HnswIndex", np.ndarray]:
+        """A new index WITHOUT the tombstoned ids, renumbered like faiss
+        ``remove_ids``, on this index's device. Returns (new_index,
+        old_ids), ``old_ids[j]`` the original id of new id j. ``x``: the
+        original f32 vectors [ntotal, d]; by default the stored ones
+        (``reconstruct_n``; x̂ for a codec, which encodes to the same
+        codes)."""
+        n = self.ntotal
+        x = self.reconstruct_n(0, n) if x is None else \
+            np.asarray(x, np.float32)
+        if x.shape[0] != n:
+            raise ValueError(f"expected all {n} original vectors, "
+                             f"got {x.shape[0]}")
+        alive = np.ones(n, bool) if self._alive is None \
+            else self._alive[:n].cpu().numpy()
+        old_ids = np.flatnonzero(alive)
+        out = HnswIndex(config=self.config, device=self.device)
+        out.ef_construction = self.ef_construction
+        out.ef_search = self.ef_search
+        if self._sq_np is not None:
+            out._set_sq(*self._sq_np)
+        if self._pq_np is not None:
+            out._set_pq(self._pq_np)
+        if len(old_ids):
+            out.add(x[old_ids])
+        return out, old_ids
+
     # -- maintenance ----------------------------------------------------------
     def check(self, strict: bool = True) -> dict:
-        """Structural invariant check on the host (``check_invariants``)."""
-        return check_invariants(self._graph, self.config, strict=strict)
+        """Structural invariant check on the host (``check_invariants``);
+        tombstoned nodes are exempt from the liveness invariants, and
+        ``links_to_dead`` counts live links into them."""
+        alive = None if self._alive is None else self._alive.cpu().numpy()
+        return check_invariants(self._graph, self.config, strict=strict,
+                                alive=alive)
 
     # -- persistence (faiss write_index / read_index) -------------------------
     def save(self, path) -> None:
         """Write the reference's ``.npz`` (a file name or a binary file
         object): graph, vectors (codes for sq8 / PQ), config, the level-RNG
-        state, and the codec state (``sq_offset`` / ``sq_scale`` /
-        ``pq_codebooks``), so either package loads it and a resumed build
-        draws the levels an uninterrupted one would."""
-        extra = {"routing_clean": True}
+        state, the codec state (``sq_offset`` / ``sq_scale`` /
+        ``pq_codebooks``) and the tombstones (``alive``, ``routing_clean``),
+        so either package loads it and a resumed build draws the levels an
+        uninterrupted one would."""
+        extra = {"routing_clean": bool(self._routing_clean)}
         if self._builder is not None:
             extra["builder_rng_state"] = _jsonify(
                 self._builder.rng.bit_generator.state)
         xarr = {}
+        if self._alive is not None:
+            xarr["alive"] = self._alive.cpu().numpy()
         if self._sq_np is not None:
             xarr["sq_offset"], xarr["sq_scale"] = self._sq_np
         if self._pq_np is not None:
@@ -442,12 +787,9 @@ class HnswIndex:
     def load(cls, path, device=None) -> "HnswIndex":
         """Load a ``.npz`` written by either package (a file name or a
         binary file object). A saved level-RNG state carries over, so
-        further adds draw the levels the writer's would."""
+        further adds draw the levels the writer's would, and so do
+        tombstones: a file saved before ``vacuum()`` keeps filtering."""
         arrays, vectors, cfg, extra, xarr = load_graph(path)
-        if "alive" in xarr:
-            raise NotImplementedError(
-                "index file carries tombstones (xarr_alive): deletion is "
-                "not ported yet, ROADMAP.md A9")
         idx = cls(config=cfg, device=device, _alloc=False)
         idx._graph = graph_from_numpy(arrays, idx.device)
         idx._vectors = vectors_tensor(vectors, cfg, idx.device)
@@ -455,6 +797,10 @@ class HnswIndex:
             idx._set_sq(xarr["sq_offset"], xarr["sq_scale"])
         if "pq_codebooks" in xarr:
             idx._set_pq(xarr["pq_codebooks"])
+        if "alive" in xarr:
+            idx._alive = torch.from_numpy(
+                np.asarray(xarr["alive"], bool)).to(idx.device)
+            idx._routing_clean = bool(extra.get("routing_clean", False))
         if "builder_rng_state" in extra:
             from ..build import DeviceBuilder
             idx._builder = DeviceBuilder(cfg, r_window=idx.r_window,

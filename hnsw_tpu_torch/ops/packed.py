@@ -28,8 +28,16 @@ ntotal · m0 · word_width · 4) plus ntotal · m0 · 4 bytes of norms.
 
 PQ-coded rows (``PackedPQ``) hold each neighbor's ``pq_m`` routing codes
 instead, ntotal · m0 · pq_m · pq_bits/8 bytes, and route on ADC distances
-(table lookups), which need no shift. Not ported yet: incremental row
-maintenance after ``add()``.
+(table lookups), which need no shift.
+
+Row count: as in the reference, a table holds its rows padded up to a
+whole number of assembly chunks (``chunk``, 65,536 by default), so an
+index of n rows has up to chunk − 1 rows of headroom; pad rows hold the
+rows of a node whose neighbors are all id 0 and are never gathered.
+``update_packed_rows`` / ``update_packed_pq_rows`` rewrite given rows in
+place after an ``add()`` (``row_fingerprints`` finds which), so a served
+index takes inserts without a full re-pack while the new total fits the
+headroom.
 """
 
 from __future__ import annotations
@@ -165,21 +173,39 @@ def unpack_words(words: torch.Tensor, bits: int, d: int) -> torch.Tensor:
     return out[..., :d].to(torch.uint8)
 
 
+def padded_rows(n_rows: int, chunk: int) -> int:
+    """Rows of a table for ids < n_rows: n_rows rounded up to a whole
+    number of min(chunk, n_rows)-row chunks (the reference's assembly
+    chunk), so up to chunk − 1 rows of headroom for later adds."""
+    eff = min(chunk, n_rows)
+    return -(-n_rows // eff) * eff
+
+
+def _gather_rows(neighbors0: torch.Tensor, n_rows: int, pad_cap: int):
+    """int64 [pad_cap, m0] gather index of each row's neighbors (−1 read as
+    id 0), pad rows all id 0, as the reference's zero-padded adjacency."""
+    safe = neighbors0[:n_rows].clamp(min=0).long()
+    if pad_cap > n_rows:
+        safe = torch.cat([safe, safe.new_zeros(pad_cap - n_rows,
+                                               safe.shape[1])])
+    return safe
+
+
 def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
                    levels: torch.Tensor, *, bits: int = 8,
                    max_bytes: int | None = None, n_rows: int | None = None,
-                   dequant=None, layout: str = "bytes") -> PackedNeighbors:
+                   chunk: int = 1 << 16, dequant=None,
+                   layout: str = "bytes") -> PackedNeighbors:
     """Build the packed serving tables from a finished graph.
 
     bits: 8 (one byte per dim) or 4 (two dims per byte). max_bytes: refuse
     (ValueError) a table larger than this. n_rows: rows only for ids <
-    n_rows (pass ntotal: only inserted nodes are ever expanded). dequant:
-    (offset, scale) when ``vectors`` holds sq8 storage codes; at 8 bits the
-    stored codes are the routing codes (the same affine), at 4 bits x̂ is
-    quantized anew. layout: "bytes" (uint8 rows) or "words" (int32 rows,
-    the same bits; module docstring). The reference pads the row count to
-    its assembly chunk; the port holds exactly n_rows rows, and
-    ``max_bytes`` counts those."""
+    n_rows (pass ntotal: only inserted nodes are ever expanded); the table
+    holds ``padded_rows(n_rows, chunk)`` rows, and ``max_bytes`` counts
+    those. dequant: (offset, scale) when ``vectors`` holds sq8 storage
+    codes; at 8 bits the stored codes are the routing codes (the same
+    affine), at 4 bits x̂ is quantized anew. layout: "bytes" (uint8 rows)
+    or "words" (int32 rows, the same bits; module docstring)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if layout not in ("bytes", "words"):
@@ -196,7 +222,8 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
         row_bytes = m0 * wp * 4
     else:
         row_bytes = m0 * d if bits == 8 else m0 * ((d + 1) // 2)
-    total = n_rows * row_bytes + n_rows * m0 * 4
+    pad_cap = padded_rows(n_rows, chunk)
+    total = pad_cap * row_bytes + pad_cap * m0 * 4
     if max_bytes is not None and total > max_bytes:
         raise ValueError(
             f"packed table needs {total / 1e9:.1f} GB "
@@ -214,16 +241,90 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
         offset, scale = quantization_params(vectors, live, bits)
         codes_all = quantize_codes(vectors, offset, scale, bits)  # [cap, d]
     xhat_sq = compute_sqnorms(codes_all, (offset, scale))
-    if layout == "words":
-        payload = pack_words(codes_all, bits)
-    elif bits == 4:
-        payload = _pack_nibbles(codes_all)
-    else:
-        payload = codes_all
-    safe = neighbors0[:n_rows].clamp(min=0).long()               # [n_rows, m0]
-    nbr_codes = payload[safe].view(n_rows, m0 * payload.shape[1])
+    payload = _encode_payload(codes_all, bits, layout == "words")
+    safe = _gather_rows(neighbors0, n_rows, pad_cap)            # [rows, m0]
+    nbr_codes = payload[safe].view(pad_cap, m0 * payload.shape[1])
     return PackedNeighbors(nbr_codes, xhat_sq[safe], scale=scale,
                            offset=offset)
+
+
+def _encode_payload(codes: torch.Tensor, bits: int, words: bool):
+    """[..., d] code values -> the row segment the layout stores."""
+    if words:
+        return pack_words(codes, bits)
+    return _pack_nibbles(codes) if bits == 4 else codes
+
+
+def _valid_ids(ids: torch.Tensor) -> torch.Tensor:
+    """int64 ids of ``ids`` (int [U], −1 = pad) that are not pads."""
+    ids = ids.reshape(-1).long()
+    return ids[ids >= 0]
+
+
+def update_packed_rows(nbr_codes: torch.Tensor, nbr_sq: torch.Tensor,
+                       neighbors0: torch.Tensor, vectors: torch.Tensor,
+                       offset: torch.Tensor, scale: torch.Tensor,
+                       ids: torch.Tensor, dequant=None, *, bits: int):
+    """Rewrite, in place, the packed rows of ``ids`` (int [U], −1 = a pad,
+    skipped) from the CURRENT adjacency and vectors under the table's
+    retained ``offset`` / ``scale`` (no retraining: a later vector outside
+    the trained range has its routing codes clipped; the exact rerank is
+    unaffected). Bytes (8- or 4-bit) and words layouts; ``dequant`` for sq8
+    storage codes. Returns (nbr_codes, nbr_sq)."""
+    from ..search import compute_sqnorms
+
+    rows = _valid_ids(ids)
+    if rows.numel() == 0:
+        return nbr_codes, nbr_sq
+    nv = decode_rows(vectors[neighbors0[rows].clamp(min=0).long()],
+                     dequant)                                    # [U, m0, d]
+    nc = quantize_codes(nv, offset, scale, bits)
+    nsq = compute_sqnorms(nc, (offset, scale))                   # [U, m0]
+    upd = _encode_payload(nc, bits, nbr_codes.dtype == torch.int32)
+    nbr_codes.index_copy_(0, rows, upd.reshape(rows.numel(), -1))
+    nbr_sq.index_copy_(0, rows, nsq)
+    return nbr_codes, nbr_sq
+
+
+_M32 = 0xFFFFFFFF
+_FP_CHUNK = 1 << 16   # rows a row_fingerprints step hashes at a time
+
+
+def _mul32(v: torch.Tensor, m: int) -> torch.Tensor:
+    """(v · m) mod 2^32 for int64 v in [0, 2^32): two 16-bit halves of m,
+    so no product reaches 2^63 (CUDA torch has no uint32 multiply)."""
+    lo = v * (m & 0xFFFF)
+    hi = ((v * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix(v: torch.Tensor, m1: int, m2: int) -> torch.Tensor:
+    v = v ^ (v >> 16)
+    v = _mul32(v, m1)
+    v = v ^ (v >> 15)
+    v = _mul32(v, m2)
+    return v ^ (v >> 16)
+
+
+def row_fingerprints(neighbors0: torch.Tensor) -> torch.Tensor:
+    """Two position-salted 32-bit hashes per adjacency row, int64
+    [capacity, 2] holding the reference's uint32 values bit for bit: each
+    entry is mixed as a uint32 and the row's values are summed modulo 2^32.
+    Comparing them before and after an ``add()`` finds the rows it changed
+    without a second copy of the adjacency. Runs in ``_FP_CHUNK``-row
+    pieces so the int64 temporaries stay small."""
+    m0 = neighbors0.shape[1]
+    pos = torch.arange(m0, dtype=torch.int64, device=neighbors0.device)
+    salt1, salt2 = _mul32(pos, 0x9E3779B9), _mul32(pos, 0x85EBCA6B)
+    out = torch.empty((neighbors0.shape[0], 2), dtype=torch.int64,
+                      device=neighbors0.device)
+    for r in range(0, neighbors0.shape[0], _FP_CHUNK):
+        x = neighbors0[r:r + _FP_CHUNK].long() & _M32
+        out[r:r + _FP_CHUNK, 0] = _mix(x ^ salt1, 0x7FEB352D,
+                                       0x846CA68B).sum(1) & _M32
+        out[r:r + _FP_CHUNK, 1] = _mix(x ^ salt2, 0xC2B2AE35,
+                                       0x27D4EB2F).sum(1) & _M32
+    return out
 
 
 def make_packed_expand(packed: PackedNeighbors, neighbors0: torch.Tensor,
@@ -292,13 +393,14 @@ class PackedPQ:
 def pack_pq_neighbors(neighbors0: torch.Tensor, codes_all: torch.Tensor,
                       cb: torch.Tensor, *, pq_bits: int = 8,
                       max_bytes: int | None = None,
-                      n_rows: int | None = None) -> PackedPQ:
+                      n_rows: int | None = None,
+                      chunk: int = 1 << 16) -> PackedPQ:
     """Build PQ-coded packed rows from a finished graph. codes_all: uint8
     [capacity, pq_m] routing codes of every vector under ``cb`` (pq
     storage: the stored codes). pq_bits: 8 (a byte a code) or 4 (two codes
     a byte, low nibble first; needs ksub <= 16). Like ``pack_neighbors``,
-    the table holds exactly ``n_rows`` rows and ``max_bytes`` counts
-    those."""
+    the table holds ``padded_rows(n_rows, chunk)`` rows and ``max_bytes``
+    counts those."""
     if pq_bits not in (4, 8):
         raise ValueError(f"pq_bits must be 4 or 8, got {pq_bits}")
     if pq_bits == 4 and cb.shape[1] > 16:
@@ -311,16 +413,33 @@ def pack_pq_neighbors(neighbors0: torch.Tensor, codes_all: torch.Tensor,
                          f"{cb.shape[0]} subspaces")
     n_rows = cap if n_rows is None else max(1, min(int(n_rows), cap))
     bpn = pm if pq_bits == 8 else (pm + 1) // 2
-    total = n_rows * m0 * bpn
+    pad_cap = padded_rows(n_rows, chunk)
+    total = pad_cap * m0 * bpn
     if max_bytes is not None and total > max_bytes:
         raise ValueError(
             f"packed-pq table needs {total / 1e9:.1f} GB "
             f"(> budget {max_bytes / 1e9:.1f} GB); lower pq_m / use "
             f"pq_bits=4 or skip packing for this capacity")
     payload = _pack_nibbles(codes_all) if pq_bits == 4 else codes_all
-    safe = neighbors0[:n_rows].clamp(min=0).long()
-    return PackedPQ(payload[safe].view(n_rows, m0 * bpn), cb.float(),
+    safe = _gather_rows(neighbors0, n_rows, pad_cap)
+    return PackedPQ(payload[safe].view(pad_cap, m0 * bpn), cb.float(),
                     pq_bits)
+
+
+def update_packed_pq_rows(nbr_codes: torch.Tensor, neighbors0: torch.Tensor,
+                          codes_all: torch.Tensor, ids: torch.Tensor, *,
+                          pq_bits: int) -> torch.Tensor:
+    """Rewrite, in place, the PQ-coded rows of ``ids`` (int [U], −1 = a
+    pad) from the CURRENT adjacency and routing codes, as
+    ``update_packed_rows`` does for sq rows. Returns ``nbr_codes``."""
+    rows = _valid_ids(ids)
+    if rows.numel() == 0:
+        return nbr_codes
+    nc = codes_all[neighbors0[rows].clamp(min=0).long()]        # [U, m0, pm]
+    if pq_bits == 4:
+        nc = _pack_nibbles(nc)
+    nbr_codes.index_copy_(0, rows, nc.reshape(rows.numel(), -1))
+    return nbr_codes
 
 
 def make_packed_pq_expand(packed: PackedPQ, neighbors0: torch.Tensor,

@@ -254,18 +254,23 @@ def test_index_api_edges():
     with pytest.raises(ValueError, match="capacity"):
         idx.add(np.zeros((100, 8), np.float32))
     idx.enable_packed(bits=4)
-    with pytest.raises(NotImplementedError, match="disable_packed"):
-        idx.add(x)
+    idx.add(x)                                    # the tables are kept
+    assert idx.packed_enabled and idx.ntotal == 7
     with pytest.raises(NotImplementedError):
         hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, build="host",
                                  device="cpu")
-    # what stays unported: an index file with tombstones (deletion)
+    # an index file with tombstones loads them (no routing_clean key:
+    # results are filtered, as the reference reads such a file)
     from hnsw_tpu_torch.graph import save_graph
+    alive = np.ones(64, bool)
+    alive[0] = False
     buf = io.BytesIO()
     save_graph(buf, idx.graph, idx.vectors, idx.config,
-               extra_arrays={"alive": np.ones(64, bool)})
-    with pytest.raises(NotImplementedError, match="tombstones"):
-        hnsw_tpu_torch.HnswIndex.from_bytes(buf.getvalue(), device="cpu")
+               extra_arrays={"alive": alive})
+    back = hnsw_tpu_torch.HnswIndex.from_bytes(buf.getvalue(), device="cpu")
+    assert back.n_deleted == 1 and not back._routing_clean
+    _, i = back.search(x, k=3)
+    assert 0 not in i[0]
 
 
 def test_config_json_interchanges():

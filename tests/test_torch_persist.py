@@ -1,7 +1,8 @@
 """The port's persistence and utilities against the reference, on the CPU:
 ``save`` / ``load`` across the two packages both ways (f32, sq8, PQ and
-bf16 storage), ``to_bytes`` / ``from_bytes``, files with tombstones,
-``utils/stats.py`` and the dataset readers. Twins of
+bf16 storage), ``to_bytes`` / ``from_bytes``, what stays unported,
+``utils/stats.py`` and the dataset readers (files with tombstones:
+tests/test_torch_mutable.py). Twins of
 tests/test_serialization.py, tests/test_stats.py and
 tests/test_datasets.py."""
 
@@ -136,24 +137,14 @@ def test_to_bytes_from_bytes_roundtrip(workload):
 
 
 def test_load_of_unported_state_raises(workload, tmp_path):
-    """What stays unported is refused by name: a file with tombstones
-    (xarr_alive, ROADMAP A9), add() while packed tables are enabled (A4),
-    the host builder (A5), and PQ-coded routing rows with 4-bit codes on
-    8-bit codebooks."""
+    """What stays unported is refused by name: the host builder (ROADMAP
+    A5); and PQ-coded routing rows with 4-bit codes on 8-bit codebooks are
+    refused as the reference refuses them."""
     port = _port_index("float32", workload)
-    p1, p2 = str(tmp_path / "port.npz"), str(tmp_path / "dead.npz")
-    port.save(p1)
-    ref = hnsw_tpu.HnswIndex.load(p1)
-    ref.remove_ids(np.array([3, 7]))
-    ref.save(p2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        hnsw_tpu_torch.HnswIndex.load(p2, device="cpu")
-    port.enable_packed(mode="pq", pq_m=4, train_x=workload.base)
-    with pytest.raises(NotImplementedError, match="A4"):
-        port.add(workload.base[:2])
     with pytest.raises(NotImplementedError, match="A5"):
         hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, dtype="sq8",
                                  build="host", device="cpu")
+    port.enable_packed(mode="pq", pq_m=4, train_x=workload.base)
     from hnsw_tpu_torch.ops.packed import pack_pq_neighbors
     with pytest.raises(ValueError, match="ksub"):
         pack_pq_neighbors(port.graph.neighbors0, port._route[1],
