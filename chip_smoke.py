@@ -93,7 +93,9 @@ Phases (any failure raises, and the exit code is not 0):
      just before it and read just after, K3's and K5's launches also by
      row dtype:
        f. sq8 storage, Deep10M-shaped (``synthetic_workload(1_000_000, 96,
-          n_queries=8192, seed=1234)``, M=32, efConstruction=100):
+          n_queries=8192, seed=1234)``, M=32, efConstruction=100), built
+          through ``RefineFlatIndex(k_factor=4)``, whose ``add`` also fills
+          the f32 store phase k reranks on:
           ``train(base[:262144])``, ``add``, ``check()`` (K3 on uint8 rows,
           timed at the build's shapes as in 4a); the x̂ oracle
           ``brute_force_topk(dequant=)`` and the true f32 ground truth;
@@ -121,6 +123,32 @@ Phases (any failure raises, and the exit code is not 0):
           ``from_bytes()`` round trip whose search returns identical ids
           and distances.
 
+  7. phase k, the host builder and the faiss wrappers: one phase with the
+     launch counts set to 0 before it and read after (K1, K2 and K3 must
+     launch):
+       k1. ``build="host"`` on the first 3,000 points of the north-star
+           workload (cut: the host builder is serial numpy), ``check()``,
+           the device arrays equal to the host builder's; packed 8-bit
+           ef=64 recall@10 against ``brute_force_topk`` >= 0.95, and a
+           device build of the same points no more than 0.03 below it;
+       k2. phase f's sq8 index and its refine: unpacked k=10 at ef 64 and
+           128, inner and refined (k_factor 4, K3 at K=40), recall against
+           the f32 truth and synced walls; refined >= inner at each ef and
+           >= 0.95 at ef=128, its distances exact f32 squared L2;
+       k3. ``index_factory(128, "IDMap,PCA64,HNSW32,Flat")`` on the first
+           300,000 points (cut as phase g): PCA trained on 65,536,
+           ``add_with_ids`` of distinct seeded int64 ids, packed 8-bit
+           ef=64; every result id a user id, equal to ``ids[inner row]``;
+           recall >= 0.95 against the oracle in the PCA space (against the
+           128-d truth printed); ``save`` / ``load`` through a temporary
+           directory, the search identical;
+       k4. ``index_factory(96, "OPQ12,HNSW32,PQ12,RFlat")`` on phase h's
+           data: OPQ and PQ trained on 65,536 (seconds printed), inner and
+           refined at ef 64 and 128 against the f32 truth, beside phase
+           h's; refined >= inner at each ef.
+     Then K3 at the refine's own ids, held against its plain version and
+     timed against its bound at k2's shape (Q=8192, K=40, d=96).
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -132,8 +160,8 @@ device busy, busy share, the top ops by device time); its searches count
 as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over every phase of 4 and 6; K3 and K5 by row dtype, one row
-each),
+(summed over every phase of 4, 6 and 7; K3 and K5 by row dtype, one row
+each, and K3 at the refine's shape with the refine's own launches),
 error, times and bound, and the ``nvidia-smi`` name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -157,6 +185,8 @@ PACKED_ROWS = 300_000            # 8 KB rows: offsets cross 2^31 bytes
 SQ8_N = 1_000_000                # phase f: Deep10M cut to 1M (build time)
 SMALL_CODEC_N = 300_000          # phases g and h
 COMPACT_N = 100_000              # phase j: compacted() and merge_from rebuild
+HOST_N = 3000                    # phase k1: the serial numpy host builder
+WRAP_N = 300_000                 # phase k3: IDMap over PCA
 MERGE_N = 20_000                 # phase j: the index merged in
 ADD_N = DEAD_N = 2048            # phase i: one insert batch; ids removed
 DEEP_D, DEEP_PQ_M = 96, 12       # Deep's width; pq_m = d // 8 (bench.py)
@@ -764,28 +794,47 @@ def phase(name: str, need: tuple, totals: dict, fn, need_tags: tuple = ()):
     return result
 
 
-def capture_build_k3(build, k3_build: dict):
-    """Run ``build`` with K3's entry point wrapped: count its launches by
-    K (candidates a query) and keep each K's last call at its widest Q
-    (a late insert batch, at ~n points), which ``measure_build_k3``
-    times."""
-    import hnsw_tpu_torch.search as search
-    orig = search.gathered_vec_dist_ids
+@contextlib.contextmanager
+def k3_calls(module, rec: dict, key):
+    """``module``'s K3 entry point (``gathered_vec_dist_ids``) wrapped for
+    the block: each call's launches read from K3's own counter, just before
+    and just after it (where CUDA is available, a call with work that did
+    not launch K3 exactly once raises; a rehearsal on the CPU expects none),
+    added to ``rec[key(ids)]["launches"]``, and each key's last
+    call at its widest Q kept as ``"args"`` (table, ids, qs, dequant,
+    metric), which ``measure_build_k3`` / ``measure_refine_k3`` hold and
+    time. As a decorator it wraps one function's run."""
+    from hnsw_tpu_torch.ops import _cuda
+    orig = module.gathered_vec_dist_ids
+    on_card = torch.cuda.is_available()
 
     def recording(table, ids, qs, dequant=None, *, metric):
-        k = ids.shape[1]
-        rec = k3_build.setdefault(k, {"launches": 0, "args": None})
-        rec["launches"] += 1
-        if rec["args"] is None or ids.shape[0] >= rec["args"][1].shape[0]:
-            # the last widest call
-            rec["args"] = (table, ids, qs, dequant, metric)
-        return orig(table, ids, qs, dequant, metric=metric)
+        before = _cuda.launch_counts()["gathered_vec_dist"]
+        out = orig(table, ids, qs, dequant, metric=metric)
+        launched = _cuda.launch_counts()["gathered_vec_dist"] - before
+        if launched != int(on_card and ids.numel() > 0):
+            raise AssertionError(f"{module.__name__}: a K3 call at ids "
+                                 f"{tuple(ids.shape)} on {ids.device} "
+                                 f"launched K3 {launched} times")
+        r = rec.setdefault(key(ids), {"launches": 0, "args": None})
+        r["launches"] += launched
+        if r["args"] is None or ids.shape[0] >= r["args"][1].shape[0]:
+            r["args"] = (table, ids, qs, dequant, metric)
+        return out
 
-    search.gathered_vec_dist_ids = recording
+    module.gathered_vec_dist_ids = recording
     try:
-        return build()
+        yield
     finally:
-        search.gathered_vec_dist_ids = orig
+        module.gathered_vec_dist_ids = orig
+
+
+def build_k3_calls(k3_build: dict):
+    """K3's calls from the search module (the build's), keyed by K
+    (candidates a query); the widest call of each K is a late insert
+    batch, at ~n points."""
+    import hnsw_tpu_torch.search as search
+    return k3_calls(search, k3_build, lambda ids: ids.shape[1])
 
 
 K5_SPAN = "K5 fused_gather_distances"
@@ -923,7 +972,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
         return build_s
 
     build_s = phase("build", ("gathered_vec_dist",), totals,
-                    lambda: capture_build_k3(build, k3_build))
+                    build_k3_calls(k3_build)(build))
     queries = torch.from_numpy(wl.queries).to(dev)
     measure_build_k3(k3_build)
     del k3_build
@@ -1458,8 +1507,12 @@ def build_codec(idx, base: np.ndarray, train_x: np.ndarray, tag: str):
 
 
 def codec_path(dev, totals: dict, profile: bool = False) -> dict:
-    """Phases f, g and h (module docstring): sq8, bf16 and PQ storage."""
-    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    """Phases f, g and h (module docstring): sq8, bf16 and PQ storage.
+    Phase f's index is built through ``RefineFlatIndex``, which phase k
+    searches: it is returned (``out["sq8_refine"]``) with its queries and
+    f32 truth."""
+    from hnsw_tpu_torch import HnswIndex, RefineFlatIndex, synthetic_workload
+    from hnsw_tpu_torch.utils.recall import recall_at_k
     out = {}
 
     def search(idx, queries, ef, packed=None):
@@ -1479,11 +1532,13 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     idx = HnswIndex(d, 32, "l2", capacity=n, ef_construction=100,
                     dtype="sq8", device=dev)
+    # its add() also fills the refine's f32 store, which phase k reranks on
+    refined = RefineFlatIndex(idx, k_factor=4.0)
     k3_build: dict = {}
     out["sq8_build_s"] = phase(
         "sq8 build", ("gathered_vec_dist",), totals,
-        lambda: capture_build_k3(lambda: build_codec(
-            idx, wl.base, wl.base[:262144], "sq8"), k3_build),
+        build_k3_calls(k3_build)(lambda: build_codec(
+            refined, wl.base, wl.base[:262144], "sq8")),
         need_tags=(("gathered_vec_dist", "uint8"),))
     measure_build_k3(k3_build)
     del k3_build
@@ -1555,7 +1610,8 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
         f"{idx.graph.neighbors0.numel() * 4} bytes, PQ routing rows "
         f"{idx._packed.nbytes} bytes; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del idx, wl, queries
+    out["sq8_refine"] = (refined, queries, gt_true)
+    del idx, refined, wl, queries
     torch.cuda.empty_cache()
 
     # ---- g. bf16 storage, SIFT-shaped at 300k
@@ -1568,8 +1624,8 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
     k3_build = {}
     out["bf16_build_s"] = phase(
         "bf16 build", ("gathered_vec_dist",), totals,
-        lambda: capture_build_k3(lambda: build_codec(
-            idx, wl.base, wl.base, "bf16"), k3_build),
+        build_k3_calls(k3_build)(lambda: build_codec(
+            idx, wl.base, wl.base, "bf16")),
         need_tags=(("gathered_vec_dist", "bfloat16"),))
     measure_build_k3(k3_build)
     del k3_build
@@ -1652,6 +1708,8 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
         for ef in (64, 128, 256):
             res, secs = search(idx, queries, ef)
             report(f"pq unpacked ef={ef}", res, secs, hat, truth=truth)
+            out["pq_truth"][ef] = recall_at_k(res[1].cpu().numpy(), truth,
+                                              10)
             exact_l2(f"pq unpacked ef={ef}", queries, res[0], res[1],
                      stored_rows(idx))
             rec[ef] = recall_ties(res[0], res[1], hat_d)
@@ -1685,9 +1743,326 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
                                  "from_bytes")
         return rec
 
+    out["pq_truth"] = {}     # recall@10 against the f32 truth, for phase k
     out["pq"] = phase("pq", ("beam_update",), totals, pq_phase)
     log(f"pq peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def refine_k3_calls(rec: dict, tag: str):
+    """The refine's K3 calls (``models/refine.py``), kept under ``tag``."""
+    import hnsw_tpu_torch.models.refine as refine
+    return k3_calls(refine, rec, lambda ids: tag)
+
+
+def measure_refine_k3(rec: dict) -> dict:
+    """K3 at each refine's own shape (its last call's store, ids and
+    queries): held against its plain version (check_vec_dist's tolerance);
+    the first tag's call also timed against its bound (each distinct row
+    once). Returns that tag's numbers for the ``kernels`` line, launches
+    summed over every tag."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    out = None
+    for tag, r in rec.items():
+        table, ids, qs, _, metric = r["args"]
+        shape = (f"Q={ids.shape[0]} K={ids.shape[1]} d={table.shape[1]} "
+                 f"{metric}")
+        err = compare(f"gathered_vec_dist at the refine's ids ({tag}, "
+                      f"{shape})",
+                      dk.gathered_vec_dist_ids(table, ids, qs, metric=metric),
+                      dk.gathered_vec_dist_plain(table, ids, qs,
+                                                 metric=metric),
+                      rtol=1e-5, atol=1e-3)
+        if out is not None:
+            continue
+        b = gather_bound(ids, table.shape[1], ip=metric == "ip")
+        ms = time_ms(lambda: dk.gathered_vec_dist_ids(table, ids, qs,
+                                                      metric=metric))
+        plain = time_ms(lambda: dk.gathered_vec_dist_plain(table, ids, qs,
+                                                           metric=metric))
+        rows = torch.unique(ids).numel()
+        log(f"K3 at the refine's shape ({tag}, {shape}, {table.shape[0]} "
+            f"f32 rows): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes'] / 1e6:.2f} MB, {rows} distinct rows), share of "
+            f"bound {b['bound_ms'] / ms:.2f}")
+        out = dict(b, max_abs_err=err, ms=ms, plain_ms=plain,
+                   shape=shape)
+    out["launches"] = sum(r["launches"] for r in rec.values())
+    log(f"K3 launches by the refine's rerank in phase k: "
+        f"{ {t: r['launches'] for t, r in rec.items()} }")
+    return out
+
+
+def check_pca_training(pca, x: np.ndarray) -> None:
+    """k3's PCA trained on the card held to a float64 PCA of the same
+    points in numpy: orthonormal rows, the variance they capture within
+    1e-5 of the top ``d_out`` eigenvalues' sum (a swap of two close
+    eigenvectors, or a flipped sign, costs nothing here; a wrong covariance
+    does), and the bias ``-A·mean``."""
+    x64 = x.astype(np.float64)
+    mean = x64.mean(0)
+    cov = (x64 - mean).T @ (x64 - mean) / len(x64)
+    best = np.linalg.eigvalsh(cov)[::-1][: pca.d_out].sum()
+    a = pca.a.astype(np.float64)
+    captured = float(np.trace(a @ cov @ a.T))
+    ortho = float(np.abs(a @ a.T - np.eye(pca.d_out)).max())
+    bias = float(np.abs(pca.b - (-(a @ mean))).max())
+    log(f"k3 PCA{pca.d_out} trained on the card against float64 numpy: "
+        f"captured variance {captured:.6f} of the best {best:.6f} "
+        f"({1 - captured / best:.2e} short), |A Aᵀ - I| {ortho:.2e}, "
+        f"|b + A mean| {bias:.2e}")
+    if abs(captured - best) > 1e-5 * best or ortho > 1e-4 or bias > 1e-3:
+        raise AssertionError("k3: the PCA trained on the card is not the "
+                             "float64 PCA of its data")
+
+
+def check_opq_training(opq, x: np.ndarray, dev) -> None:
+    """k4's OPQ trained on the card held to the same training on the CPU
+    (the port's plain path, which tests/test_torch_wrappers.py holds to the
+    reference) by the PQ reconstruction error of the rotated points:
+    within 2% of it (the two alternate 16 times, with sums in another
+    order), and below the error of the seeded rotation both start from
+    (OPQ12 keeps d=96, so that rotation, not a PCA, is the start)."""
+    from hnsw_tpu_torch.ops import transforms as T
+    from hnsw_tpu_torch.ops.pq import decode_pq, encode_pq, train_pq
+    t0 = time.time()
+    cpu = T.OPQMatrix(opq.d_in, opq.m, opq.d_out, ksub=opq.ksub,
+                      niter=opq.niter, pq_iters=opq.pq_iters,
+                      max_points=opq.max_points, seed=opq.seed, device="cpu")
+    cpu.train(x)
+    cpu_s = time.time() - t0
+    xt = torch.from_numpy(x).to(dev)
+
+    def pq_err(a: np.ndarray) -> float:
+        xr = torch.matmul(xt, torch.from_numpy(a).to(dev).T)
+        cb = torch.from_numpy(train_pq(xr.cpu().numpy(), opq.m, iters=10,
+                                       seed=0, device=dev)).to(dev)
+        return float(((xr - decode_pq(encode_pq(xr, cb), cb)) ** 2).sum())
+
+    start = T._random_rotation(opq.d_in, opq.d_out, opq.seed)
+    e_card, e_cpu, e_start = pq_err(opq.a), pq_err(cpu.a), pq_err(start)
+    ortho = float(np.abs(opq.a.astype(np.float64) @ opq.a.T
+                         - np.eye(opq.d_out)).max())
+    log(f"k4 OPQ{opq.m} trained on the card against the CPU ({cpu_s:.1f} "
+        f"s): PQ{opq.m} reconstruction error {e_card:.1f} against the "
+        f"CPU's {e_cpu:.1f} ({e_card / e_cpu - 1:+.4f}) and the starting "
+        f"rotation's {e_start:.1f}; |A Aᵀ - I| {ortho:.2e}")
+    if abs(e_card - e_cpu) > 0.02 * e_cpu or not e_card < e_start \
+            or ortho > 1e-4:
+        raise AssertionError("k4: the OPQ trained on the card is not the "
+                             "CPU's, or does not beat its start")
+
+
+def recall_of(ids, truth) -> float:
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    ids = ids.cpu().numpy() if isinstance(ids, torch.Tensor) else ids
+    return recall_at_k(ids, truth, 10)
+
+
+def host_build_phase(wl, queries, dev) -> dict:
+    """k1: ``build="host"`` on the first HOST_N points of the north-star
+    workload against a device build of the same points."""
+    from hnsw_tpu_torch import HnswIndex
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    base = wl.base[:HOST_N]
+    log(f"phase k1 cut: {HOST_N} of the north-star workload's "
+        f"{len(wl.base)} points (the host builder is serial numpy)")
+    _, gt = brute_force_topk(queries, torch.from_numpy(base).to(dev), 10)
+    gt = gt.cpu().numpy()
+    out = {}
+    for mode in ("host", "device"):
+        idx = HnswIndex(128, 32, "l2", capacity=HOST_N, ef_construction=100,
+                        build=mode, device=dev)
+        t0 = time.time()
+        idx.add(base)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        stats = idx.check()
+        log(f"k1 {mode} build of {HOST_N} x 128: {secs:.1f} s, errors "
+            f"{stats['errors']}, deg0_mean {stats['deg0_mean']:.2f}")
+        if stats["errors"]:
+            raise AssertionError(f"k1 {mode} graph: {stats['errors']}")
+        if mode == "host":
+            hg = idx._host.to_graph_arrays()
+            same = all(np.array_equal(v, hg[k])
+                       for k, v in idx.graph.numpy().items())
+            same &= torch.equal(idx.vectors.cpu(), torch.from_numpy(
+                idx._host.vectors))
+            log(f"k1 host: device arrays equal the host builder's: {same}")
+            if not same:
+                raise AssertionError("k1: the device graph is not the host "
+                                     "builder's")
+        idx.enable_packed(bits=8)
+        res, s = timed(lambda: idx.search(queries, 10, ef_search=64,
+                                          with_stats=True, device_out=True))
+        out[mode] = report(f"k1 {mode}-built, packed ef=64", res, s, gt)
+        out[f"{mode}_s"] = secs
+    if out["host"] < 0.95 or out["device"] < out["host"] - 0.03:
+        raise AssertionError(f"k1 recall: host {out['host']:.4f} (>= 0.95), "
+                             f"device {out['device']:.4f} (>= host - 0.03)")
+    return out
+
+
+def refine_sq8_phase(sq8, k3_rec: dict) -> dict:
+    """k2: phase f's sq8 index, inner and refined (k_factor 4), at ef 64
+    and 128, recall against the f32 truth."""
+    refined, queries, truth = sq8
+    inner = refined.index
+    out = {}
+    for ef in (64, 128):
+        res, s_in = timed(lambda: inner.search(
+            queries, 10, ef_search=ef, use_packed=False, device_out=True))
+        with refine_k3_calls(k3_rec, "k2 sq8"):
+            (d, i), s_rf = timed(lambda: refined.search(
+                queries, 10, ef_search=ef, use_packed=False))
+        r_in, r_rf = recall_of(res[1], truth), recall_of(i, truth)
+        log(f"k2 sq8 {inner.ntotal} x 96 ef={ef}: recall@10 against the "
+            f"f32 truth "
+            f"inner {r_in:.4f} ({s_in * 1e3:.1f} ms), refined k_factor 4 "
+            f"{r_rf:.4f} ({s_rf * 1e3:.1f} ms, best of 2 synced walls)")
+        if r_rf < r_in or (ef == 128 and r_rf < 0.95):
+            raise AssertionError(f"k2 ef={ef}: refined {r_rf:.4f} vs inner "
+                                 f"{r_in:.4f} (>= inner, >= 0.95 at 128)")
+        ok = i >= 0
+        rows = refined._materialize()[torch.from_numpy(i[ok]).to(
+            queries.device)]
+        exact = ((queries[torch.from_numpy(np.nonzero(ok)[0]).to(
+            queries.device)] - rows) ** 2).sum(-1).cpu().numpy()
+        if not np.allclose(d[ok], exact, rtol=1e-4, atol=1e-3):
+            raise AssertionError("k2: refined distances are not exact f32 "
+                                 "squared L2")
+        out[ef] = (r_in, r_rf, s_in, s_rf)
+    return out
+
+
+def idmap_pca_phase(wl, queries, dev) -> dict:
+    """k3: IDMap over PCA64 over HNSW32 on the first WRAP_N points."""
+    from hnsw_tpu_torch import IdMapIndex, PreTransformIndex, index_factory
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    base = wl.base[:WRAP_N]
+    log(f"phase k3 cut: {WRAP_N} of the north-star workload's "
+        f"{len(wl.base)} points")
+    idx = index_factory(128, "IDMap,PCA64,HNSW32,Flat", capacity=WRAP_N,
+                        ef_construction=100, device=dev)
+    ids = 10 ** 12 + np.random.default_rng(99).permutation(WRAP_N) \
+        .astype(np.int64) * 7
+    t0 = time.time()
+    idx.train(base[:65536])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    idx.add_with_ids(base, ids)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    nbytes = idx.index.index.enable_packed(bits=8)
+    log(f"k3 IDMap,PCA64,HNSW32,Flat: PCA train {t1 - t0:.1f} s, add "
+        f"{t2 - t1:.1f} s, packed {nbytes} bytes")
+    check_pca_training(idx.index.transforms[0], base[:65536])
+    qn = queries.cpu().numpy()
+    (d, i), secs = timed(lambda: idx.search(qn, 10, ef_search=64))
+    _, rows = idx.index.search(qn, 10, ef_search=64)
+    if not (i >= 0).all() or not np.isin(i, ids).all() or \
+            not np.array_equal(i, ids[rows]):
+        raise AssertionError("k3: result ids are not the user ids of the "
+                             "inner rows")
+    pca = idx.index.transforms[0]
+    base_dev = torch.from_numpy(base).to(dev)
+    _, gt_pca = brute_force_topk(pca.apply(queries), pca.apply(base_dev), 10)
+    _, gt_raw = brute_force_topk(queries, base_dev, 10)
+    del base_dev
+    r_pca = recall_of(i, ids[gt_pca.cpu().numpy()])
+    r_raw = recall_of(i, ids[gt_raw.cpu().numpy()])
+    log(f"k3 packed ef=64: recall@10 {r_pca:.4f} against the PCA-space "
+        f"oracle, {r_raw:.4f} against the 128-d truth (what PCA64 loses); "
+        f"{len(qn) / secs:.0f} qps ({secs * 1e3:.1f} ms)")
+    if r_pca < 0.95:
+        raise AssertionError(f"k3 recall in the PCA space {r_pca:.4f} < 0.95")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        path = os.path.join(tmp, "idmap_pca.npz")
+        idx.save(path)
+        back = IdMapIndex.load(path, index_cls=PreTransformIndex, device=dev)
+        back.index.index.enable_packed(bits=8)
+        d2, i2 = back.search(qn, 10, ef_search=64)
+        same = np.array_equal(i2, i) and np.array_equal(d2, d)
+        log(f"k3 save / load ({time.time() - t0:.1f} s): search identical: "
+            f"{same}")
+        if not same:
+            raise AssertionError("k3 search differs after save / load")
+    return {"pca": r_pca, "raw": r_raw}
+
+
+def opq_pipeline_phase(dev, pq_truth: dict, k3_rec: dict) -> dict:
+    """k4: OPQ12,HNSW32,PQ12,RFlat on phase h's data."""
+    from hnsw_tpu_torch import index_factory, synthetic_workload
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    wl = synthetic_workload(SMALL_CODEC_N, DEEP_D, n_queries=N_QUERIES,
+                            seed=1234)
+    queries = torch.from_numpy(wl.queries).to(dev)
+    pipe = index_factory(DEEP_D, f"OPQ{DEEP_PQ_M},HNSW32,PQ{DEEP_PQ_M},RFlat",
+                         capacity=SMALL_CODEC_N, ef_construction=100,
+                         device=dev)
+    opq, refined = pipe.transforms[0], pipe.index
+    t0 = time.time()
+    opq.train(wl.base[:65536])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    pipe.train(wl.base[:65536])          # the PQ codebooks, rotated space
+    torch.cuda.synchronize()
+    t2 = time.time()
+    pipe.add(wl.base)
+    torch.cuda.synchronize()
+    log(f"k4 OPQ{DEEP_PQ_M},HNSW32,PQ{DEEP_PQ_M},RFlat: OPQ train "
+        f"{t1 - t0:.1f} s, PQ train {t2 - t1:.1f} s, add "
+        f"{time.time() - t2:.1f} s")
+    check_opq_training(opq, wl.base[:65536], dev)
+    _, truth = brute_force_topk(queries, torch.from_numpy(wl.base).to(dev),
+                                10)
+    truth = truth.cpu().numpy()
+    rotated = opq.apply(queries)
+    out = {}
+    for ef in (64, 128):
+        res, s_in = timed(lambda: refined.index.search(
+            rotated, 10, ef_search=ef, device_out=True))
+        with refine_k3_calls(k3_rec, "k4 OPQ pipeline"):
+            (_, i), s_rf = timed(lambda: pipe.search(queries, 10,
+                                                     ef_search=ef))
+        r_in, r_rf = recall_of(res[1], truth), recall_of(i, truth)
+        log(f"k4 ef={ef}: recall@10 against the f32 truth inner (OPQ + "
+            f"PQ12) {r_in:.4f} ({s_in * 1e3:.1f} ms), refined {r_rf:.4f} "
+            f"({s_rf * 1e3:.1f} ms); phase h's PQ12 without OPQ "
+            f"{pq_truth.get(ef, float('nan')):.4f}")
+        if r_rf < r_in:
+            raise AssertionError(f"k4 ef={ef}: refined {r_rf:.4f} < inner "
+                                 f"{r_in:.4f}")
+        out[ef] = (r_in, r_rf)
+    return out
+
+
+def wrappers_path(dev, totals: dict, sq8, pq_truth: dict) -> dict:
+    """Phase k (module docstring): the host builder and the faiss wrappers,
+    one phase with the launch counts set to 0 before it and read after."""
+    from hnsw_tpu_torch import synthetic_workload
+    t0 = time.time()
+    wl = synthetic_workload(NORTH_STAR_N, 128, n_queries=N_QUERIES,
+                            seed=1234)
+    queries = torch.from_numpy(wl.queries).to(dev)
+    log(f"phase k workload: the north-star {NORTH_STAR_N} x 128 "
+        f"({time.time() - t0:.1f} s)")
+    k3_rec: dict = {}
+
+    def run():
+        return {"k1": host_build_phase(wl, queries, dev),
+                "k2": refine_sq8_phase(sq8, k3_rec),
+                "k3": idmap_pca_phase(wl, queries, dev),
+                "k4": opq_pipeline_phase(dev, pq_truth, k3_rec)}
+
+    out = phase("k host builder and wrappers", ("beam_update",
+                "packed_row_dist", "gathered_vec_dist"), totals, run)
+    log(f"phase k: {time.time() - t0:.1f} s, its workload included")
+    out["refine_k3"] = measure_refine_k3(k3_rec)
     return out
 
 
@@ -1755,7 +2130,10 @@ def main() -> None:
             f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
             f"{m['bound_by']} ({m['bytes'] / 1e6:.1f} MB)")
     torch.cuda.empty_cache()
-    codec_path(dev, totals, args.profile)
+    codec = codec_path(dev, totals, args.profile)
+    torch.cuda.empty_cache()
+    wrapped = wrappers_path(dev, totals, codec.pop("sq8_refine"),
+                            codec["pq_truth"])
     by_tag = totals.pop("by_tag")
     log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
         f"by row dtype {by_tag}")
@@ -1784,6 +2162,9 @@ def main() -> None:
     rows.append(row(k5_name, k5_bf16,
                     by_tag.get((k5_name, "bfloat16"), 0),
                     f"{k5_name} (bfloat16 rows, d=128)"))
+    refine_k3 = wrapped["refine_k3"]
+    rows.append(row(k3, refine_k3, refine_k3["launches"],
+                    f"{k3} (refine rerank, f32 rows, {refine_k3['shape']})"))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

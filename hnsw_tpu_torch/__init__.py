@@ -20,19 +20,30 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .config import IP, L2, HnswConfig  # noqa: E402
+from .factory import index_factory  # noqa: E402
 from .graph import (GraphArrays, check_invariants, load_graph,  # noqa: E402
                     save_graph)
 from .models.brute import FlatIndex  # noqa: E402
 from .models.hnsw import HnswIndex  # noqa: E402
+from .models.idmap import IdMapIndex  # noqa: E402
+from .models.pretransform import PreTransformIndex  # noqa: E402
+from .models.refine import RefineFlatIndex  # noqa: E402
 from .ops.distances import brute_force_topk  # noqa: E402
 from .ops.packed import PackedNeighbors, pack_neighbors  # noqa: E402
+from .ops.transforms import (NormalizationTransform,  # noqa: E402
+                             OPQMatrix, PCAMatrix, RandomRotation,
+                             VectorTransform)
+from .reference_impl import NumpyHnsw  # noqa: E402
 from .search import hnsw_search  # noqa: E402
 from .serving import Searcher  # noqa: E402
 from .utils.datasets import synthetic_workload  # noqa: E402
 
 __all__ = [
     "IP", "L2", "HnswConfig", "GraphArrays", "HnswIndex", "FlatIndex",
+    "IdMapIndex", "PreTransformIndex", "RefineFlatIndex",
+    "VectorTransform", "NormalizationTransform", "RandomRotation",
+    "PCAMatrix", "OPQMatrix", "NumpyHnsw",
     "brute_force_topk", "hnsw_search", "check_invariants",
-    "PackedNeighbors", "pack_neighbors", "save_graph", "load_graph",
-    "synthetic_workload", "Searcher",
+    "PackedNeighbors", "pack_neighbors", "index_factory", "save_graph",
+    "load_graph", "synthetic_workload", "Searcher",
 ]

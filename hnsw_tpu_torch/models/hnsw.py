@@ -5,8 +5,11 @@ ported to PyTorch: ``HnswIndex(d, m, metric, capacity=…)`` → ``add(x)`` →
 Vectors and graph live as tensors on one device (``device``; the default
 is the first CUDA device, and with no card the constructor and ``load``
 raise: pass ``device="cpu"`` to run on the CPU). ``add`` runs the batched
-device build; ``search`` the batched query pipeline, with filters
-(``allowed``), ``beam_keys`` and the ``n_expand`` attribute.
+device build (``build="device"``, the default) or the serial numpy
+reference builder (``build="host"``, ``reference_impl.NumpyHnsw``: f32 and
+bf16 storage), which builds on the host and then copies the graph and
+vectors to ``device``; ``search`` runs the batched query pipeline, with
+filters (``allowed``), ``beam_keys`` and the ``n_expand`` attribute.
 
 Storage codecs (``dtype``): "float32", "bfloat16", "sq8" (faiss
 ``IndexHNSWSQ``: uint8 codes and a per-dim affine trained by ``train``) and
@@ -23,9 +26,6 @@ removes them from routing); ``compacted`` renumbers without them;
 ``grow`` raises the capacity in place; ``merge_from`` absorbs another
 index. ``range_search``, the ``tune_ef_search`` / ``tune_operating_point``
 tuners and the ``serving.Searcher`` front end sit on ``search``.
-
-Not ported yet (raises NotImplementedError): ``build="host"``, the NumPy
-reference builder (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -56,13 +56,13 @@ class HnswIndex:
                 raise ValueError("dim or config required")
             config = HnswConfig(dim=dim, m=m, metric=metric,
                                 capacity=capacity or 1_000_000, **kw)
-        if build == "host":
-            raise NotImplementedError(
-                "build='host' (the NumPy reference builder) is not ported "
-                "yet: ROADMAP.md A5")
-        if build != "device":
+        if build not in ("device", "host"):
             raise ValueError(f"build must be 'device' or 'host', got {build!r}")
+        if build == "host" and (config.is_sq or config.is_pq):
+            raise ValueError("sq8/pq storage requires build='device' "
+                             "(the NumPy reference builder is f32-only)")
         self.config = config
+        self.build_mode = build
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.ef_search = config.ef_search
@@ -81,6 +81,7 @@ class HnswIndex:
                 (config.capacity, config.storage_width),
                 dtype=getattr(torch, config.storage_dtype), device=self.device)
         self._builder = None
+        self._host = None   # build="host": the NumpyHnsw holding the graph
         self._packed = None
         # enable_packed's arguments, the layout resolved: a full re-pack
         # after add() rebuilds the same table format
@@ -198,25 +199,54 @@ class HnswIndex:
             x = self._sq_encode(x)
         elif self.config.is_pq:
             x = self._pq_encode_decode(x)
-        from ..build import DeviceBuilder
-        if self._builder is None:
-            self._builder = DeviceBuilder(self.config, r_window=self.r_window,
-                                          sq_params=self._sq_np,
-                                          pq_cb=self._pq_np)
         # packed tables: the adjacency rows' fingerprints before the build
         # find the rows to re-pack after it (the tables stay on the device
-        # through the build; disable_packed() first to free them)
+        # through the build; disable_packed() first to free them). A host
+        # build drops the tables, as the reference's does.
         packed_was, fp_old, old_ntotal = self._packed, None, self.ntotal
-        if packed_was is not None:
+        if packed_was is not None and self.build_mode == "device":
             from ..ops.packed import row_fingerprints
             fp_old = row_fingerprints(self._graph.neighbors0)
         self._packed = None   # stays None unless the refresh succeeds
-        self._builder.add(self._graph, self._vectors, x,
-                          ef_construction=self.ef_construction)
+        if self.build_mode == "host":
+            self._add_host(x)
+        else:
+            from ..build import DeviceBuilder
+            if self._builder is None:
+                self._builder = DeviceBuilder(
+                    self.config, r_window=self.r_window,
+                    sq_params=self._sq_np, pq_cb=self._pq_np)
+            self._builder.add(self._graph, self._vectors, x,
+                              ef_construction=self.ef_construction)
         if self._route is not None and not self.config.is_pq:
             self._encode_route(old_ntotal)
         if fp_old is not None:
             self._refresh_packed(packed_was, fp_old, old_ntotal)
+
+    def _add_host(self, x: np.ndarray) -> None:
+        """build="host": serial inserts by ``NumpyHnsw`` on the host, then
+        the whole graph and the vectors copied to ``self.device``."""
+        from ..reference_impl import NumpyHnsw
+        if self._host is None:
+            self._host = NumpyHnsw(self.config.replace(
+                ef_construction=self.ef_construction))
+        self._host.cfg = self._host.cfg.replace(
+            ef_construction=self.ef_construction)
+        self._host.add(x)
+        self._sync_from_host()
+
+    def _sync_from_host(self) -> None:
+        """The host builder's graph and vectors (cast to the storage dtype)
+        as this index's tensors on ``self.device``. The host graph still
+        links tombstoned ids that a ``vacuum()`` had cut from the device
+        graph, so results are filtered again until the next vacuum."""
+        h = self._host
+        self._graph = graph_from_numpy(h.to_graph_arrays(), self.device)
+        self._vectors = torch.from_numpy(h.vectors).to(
+            self.device, getattr(torch, self.config.storage_dtype),
+            copy=True)      # never a view of the builder's array
+        if self.n_deleted:
+            self._routing_clean = False
 
     def _encode_route(self, start: int) -> None:
         """PQ routing codes of ids [start, ntotal) on the kept routing
@@ -321,6 +351,16 @@ class HnswIndex:
         if self._route is not None:    # PQ routing codes [capacity, pq_m]
             cb, codes, bits = self._route
             self._route = (cb, pad(codes, c, 0), bits)
+        if self._host is not None:     # build="host": its numpy arrays
+            h = self._host
+            h.cfg = h.cfg.replace(capacity=c, upper_capacity=u)
+            for name, rows in (("vectors", c), ("neighbors0", c),
+                               ("levels", c), ("upper_slot", c),
+                               ("upper_node", u), ("upper_neighbors", u)):
+                a = getattr(h, name)
+                setattr(h, name, np.pad(
+                    a, [(0, rows - len(a))] + [(0, 0)] * (a.ndim - 1),
+                    constant_values=0 if name == "vectors" else -1))
         self.config = new_cfg
         if self._builder is not None:  # the level RNG carries on
             self._builder.cfg = new_cfg
@@ -729,7 +769,8 @@ class HnswIndex:
         alive = np.ones(n, bool) if self._alive is None \
             else self._alive[:n].cpu().numpy()
         old_ids = np.flatnonzero(alive)
-        out = HnswIndex(config=self.config, device=self.device)
+        out = HnswIndex(config=self.config, build=self.build_mode,
+                        device=self.device)
         out.ef_construction = self.ef_construction
         out.ef_search = self.ef_search
         if self._sq_np is not None:

@@ -98,7 +98,7 @@ def train_pq(x: np.ndarray, m_sub: int, *, ksub: int = KSUB, iters: int = 25,
         if init_cb.shape != (m_sub, ksub, dsub):
             raise ValueError(f"init_cb shape {init_cb.shape} != "
                              f"{(m_sub, ksub, dsub)}")
-        cb = np.asarray(init_cb, np.float32)
+        cb = np.array(init_cb, np.float32)      # a copy the steps may own
     else:
         # a shared random sample of training points seeds every subspace
         cb = np.ascontiguousarray(

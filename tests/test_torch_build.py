@@ -256,9 +256,11 @@ def test_index_api_edges():
     idx.enable_packed(bits=4)
     idx.add(x)                                    # the tables are kept
     assert idx.packed_enabled and idx.ntotal == 7
-    with pytest.raises(NotImplementedError):
-        hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, build="host",
+    with pytest.raises(ValueError, match="build must be"):
+        hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, build="numpy",
                                  device="cpu")
+    assert hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, build="host",
+                                    device="cpu").build_mode == "host"
     # an index file with tombstones loads them (no routing_clean key:
     # results are filtered, as the reference reads such a file)
     from hnsw_tpu_torch.graph import save_graph

@@ -625,3 +625,114 @@ def test_vacuum_on_card_matches_cpu(card, dtype):
     assert bool(gpu._alive[gpu.graph.entry_point])
     _, i = gpu.search(wl.queries, 10, ef_search=64)
     assert not np.isin(i[i >= 0], dead).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_refine_rerank_on_card_matches_cpu(card, metric):
+    """The refine's rerank (K3 at K = k * k_factor = 40, then topk) on the
+    card against its CPU run (K3's plain version) on the same store,
+    queries and candidate ids with -1 holes: distances within K3's
+    tolerance (rtol 1e-5 + atol 1e-3), ids equal where no two distances
+    tie within it, K3 launched."""
+    from hnsw_tpu_torch.models.refine import rerank
+    g = torch.Generator().manual_seed(3)
+    store = torch.randn((20_000, 96), generator=g)
+    qs = torch.randn((512, 96), generator=g)
+    ids = torch.randint(0, 20_000, (512, 40), generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand((512, 40), generator=g) < 0.1] = -1
+    ids[7] = -1
+    want_d, want_i = rerank(store, qs, ids, k=10, metric=metric)
+    _cuda.reset_launch_counts()
+    d, i = rerank(store.to(card), qs.to(card), ids.to(card), k=10,
+                  metric=metric)
+    assert _cuda.launch_counts()["gathered_vec_dist"] == 1
+    d, i = d.cpu(), i.cpu()
+    fin = torch.isfinite(want_d)
+    assert torch.equal(torch.isfinite(d), fin)
+    torch.testing.assert_close(d[fin], want_d[fin], rtol=1e-5, atol=1e-3)
+    gap = (want_d[:, 1:] - want_d[:, :-1]).abs().nan_to_num(1.0)
+    tie = torch.zeros_like(fin)
+    tie[:, 1:] |= gap <= 1e-3 + 1e-5 * want_d[:, 1:].abs()
+    tie[:, :-1] |= gap <= 1e-3 + 1e-5 * want_d[:, 1:].abs()
+    assert torch.equal(i[~tie], want_i[~tie])
+    assert (i[7] == -1).all()
+
+
+@pytest.mark.cuda
+def test_transforms_apply_on_card_match_numpy(card):
+    """PCA and OPQ trained on the card (covariance, cross term and PQ steps
+    there): each ``apply`` on the card, from numpy and from a CUDA tensor,
+    equals ``x @ a.T + b`` in float64 numpy within rtol 1e-5 (atol 1e-4);
+    the PCA's eigenvalues equal a CPU training's within rtol 1e-5, and the
+    OPQ's PQ reconstruction error a CPU training's within 2% (the CPU
+    wrapper tests' tolerance against the reference), below that of the
+    seeded rotation it starts from."""
+    from hnsw_tpu_torch.ops import transforms as tf
+    from hnsw_tpu_torch.ops.pq import decode_pq, encode_pq, train_pq
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((64, 64)) * np.linspace(2.0, 0.05, 64)[None, :]
+    x = (rng.standard_normal((20_000, 64)) @ w.T).astype(np.float32)
+    pca = tf.PCAMatrix(64, 32, device=card)
+    pca.train(x)
+    cpu = tf.PCAMatrix(64, 32, device="cpu")
+    cpu.train(x)
+    np.testing.assert_allclose(pca.eigenvalues, cpu.eigenvalues, rtol=1e-5)
+    opq = tf.OPQMatrix(64, 8, ksub=64, niter=3, device=card)
+    opq.train(x)
+    np.testing.assert_allclose(opq.a @ opq.a.T, np.eye(64), atol=1e-4)
+    opq_cpu = tf.OPQMatrix(64, 8, ksub=64, niter=3, device="cpu")
+    opq_cpu.train(x)
+
+    def pq_err(a):
+        xr = torch.from_numpy(x @ a.T)
+        cb = torch.from_numpy(train_pq(xr.numpy(), 8, ksub=64, iters=10,
+                                       seed=0, device="cpu"))
+        return float(((xr - decode_pq(encode_pq(xr, cb), cb)) ** 2).sum())
+
+    err, err_cpu = pq_err(opq.a), pq_err(opq_cpu.a)
+    assert abs(err - err_cpu) <= 0.02 * err_cpu, (err, err_cpu)
+    assert err < pq_err(tf._random_rotation(64, 64, 42)), err
+    for t in (pca, opq):
+        assert t._a_dev.device.type == card.type
+        want = x.astype(np.float64) @ t.a.T.astype(np.float64) + t.b
+        np.testing.assert_allclose(t.apply(x), want, rtol=1e-5, atol=1e-4)
+        y = t.apply(torch.from_numpy(x).to(card))
+        assert y.device.type == card.type
+        np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_host_built_index_on_card(card):
+    """build="host" with device=card: the host builder's graph, copied to
+    the card, equals a CPU index's host build array for array; its search
+    on the card (K1, K3; packed 8-bit also K2) returns the CPU run's ids
+    (>= 99%) and distances (rtol 1e-5 on matched ids)."""
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    wl = synthetic_workload(1500, 32, n_queries=200, seed=6)
+    cpu = HnswIndex(32, 8, capacity=2048, ef_construction=60, build="host",
+                    device="cpu")
+    gpu = HnswIndex(32, 8, capacity=2048, ef_construction=60, build="host",
+                    device=card)
+    for idx in (cpu, gpu):
+        idx.add(wl.base)
+    assert gpu.graph.neighbors0.device.type == card.type
+    for k, v in cpu.graph.numpy().items():
+        np.testing.assert_array_equal(gpu.graph.numpy()[k], v, err_msg=k)
+    assert torch.equal(gpu.vectors.cpu(), cpu.vectors)
+    for packed in (False, True):
+        if packed:
+            cpu.enable_packed(bits=8)
+            gpu.enable_packed(bits=8)
+        _cuda.reset_launch_counts()
+        d, i = gpu.search(wl.queries, 10, ef_search=48)
+        counts = _cuda.launch_counts()
+        cd, ci = cpu.search(wl.queries, 10, ef_search=48)
+        same = i == ci
+        assert same.mean() >= 0.99, (packed, same.mean())
+        np.testing.assert_allclose(d[same], cd[same], rtol=1e-5, atol=1e-4)
+        assert counts["beam_update"] > 0 and counts["gathered_vec_dist"] > 0
+        if packed:
+            assert counts["packed_row_dist"] > 0

@@ -137,11 +137,11 @@ def test_to_bytes_from_bytes_roundtrip(workload):
 
 
 def test_load_of_unported_state_raises(workload, tmp_path):
-    """What stays unported is refused by name: the host builder (ROADMAP
-    A5); and PQ-coded routing rows with 4-bit codes on 8-bit codebooks are
-    refused as the reference refuses them."""
+    """What stays refused is refused as the reference refuses it: sq8
+    storage under the host builder (f32-only), naming build='device'; and
+    PQ-coded routing rows with 4-bit codes on 8-bit codebooks."""
     port = _port_index("float32", workload)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="build='device'"):
         hnsw_tpu_torch.HnswIndex(8, 4, capacity=64, dtype="sq8",
                                  build="host", device="cpu")
     port.enable_packed(mode="pq", pq_m=4, train_x=workload.base)

@@ -280,8 +280,8 @@ def test_pack_neighbors_budget_and_unported_layout(host_index):
 def test_unported_search_options_raise(host_index, small_workload,
                                        monkeypatch):
     """Every legacy option runs now; unknown option values raise, and so
-    does what stays unported at the index level, the host builder. add()
-    with (4-bit PQ-coded) packed tables enabled keeps them."""
+    does an unknown build mode (the host builder is ported: it constructs).
+    add() with (4-bit PQ-coded) packed tables enabled keeps them."""
     _, _, tg, tv = _both(host_index, monkeypatch)
     q = torch.from_numpy(small_workload.queries[:4])
     for kw in ({"visited_mode": "hash"}, {"beam_keys": "fp16"},
@@ -297,9 +297,12 @@ def test_unported_search_options_raise(host_index, small_workload,
     assert idx.packed_enabled and idx._packed.pq_bits == 4
     _, i = idx.search(base[40:41], 1, ef_search=32, use_packed=True)
     assert i[0, 0] == 40
-    with pytest.raises(NotImplementedError, match="A5"):
-        hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, build="host",
+    with pytest.raises(ValueError, match="build must be"):
+        hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, build="gpu",
                                  device="cpu")
+    host = hnsw_tpu_torch.HnswIndex(32, 8, capacity=64, build="host",
+                                    device="cpu")
+    assert host.build_mode == "host"
 
 
 def test_static_sizes_match_reference():
