@@ -149,6 +149,37 @@ Phases (any failure raises, and the exit code is not 0):
      Then K3 at the refine's own ids, held against its plain version and
      timed against its bound at k2's shape (Q=8192, K=40, d=96).
 
+  8. phase l, sharded mode, every earlier index freed: the north-star
+     workload (1,000,000 x 128, 8,192 queries) as ``ShardedHnswIndex(128,
+     32, "l2", mesh=make_mesh(4, devices=[card] * 4),
+     capacity_per_shard=250_000, ef_construction=100)``, four shards on
+     the one card, driven one after another; each sub-phase with the
+     launch counts set to 0 before it and read after:
+       l1. the build (K3), timed, ``check()`` clean on every shard; then
+           K3 at each K the shards' insert batches gave it (Q=1,024 a
+           batch), on the last widest call's own ids, held against its
+           plain version and timed against its bound;
+       l2. fan-out searches, k=10, recall@10 against ``brute_force_topk``
+           on the card beside phase b's and c's unsharded recall at the
+           same ef, synced walls (best of 2) and qps: unpacked ef=64,
+           packed bytes ef 32 / 64 / 128, packed words ef=64 (ids and
+           distances equal to bytes'); the merge of the per-shard results
+           timed alone on the card (K1, K2, K3, K4). Requires recall
+           >= 0.95 at the best packed ef;
+       l3. ``health_check`` all ok; ``mark_shard_failed(1)``: no id = 1
+           (mod 4) returned; after ``mark_shard_ok(1)`` the results equal
+           the healthy ones;
+       l4. ``remove_ids`` of 2,048 ids (seed 7): the filtered search
+           returns none of them; ``vacuum()``, timed, ``check()`` clean
+           with no link to a dead id, the tables dropped; the unpacked
+           search returns no dead id (recall against the survivors);
+       l5. cut to 100,000 points (4 x 25,000; a save of the 1M shards is
+           ~0.8 GB of compressed npz, which the time limit does not
+           hold): an add of two halves against a save after the first,
+           a load and the second add, equal array for array; ``save``,
+           shard 2's vectors set to NaN, ``health_check`` failing exactly
+           shard 2, ``restore_shards``, the search identical to before.
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -160,8 +191,10 @@ device busy, busy share, the top ops by device time); its searches count
 as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over every phase of 4, 6 and 7; K3 and K5 by row dtype, one row
-each, and K3 at the refine's shape with the refine's own launches),
+(summed over every phase of 4, 6, 7 and 8; K3 and K5 by row dtype, one row
+each, K3 at the refine's shape with the refine's own launches, and K3
+at the shape that took the sharded build's most kernel time, with all of
+the build's K3 launches),
 error, times and bound, and the ``nvidia-smi`` name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -189,6 +222,8 @@ HOST_N = 3000                    # phase k1: the serial numpy host builder
 WRAP_N = 300_000                 # phase k3: IDMap over PCA
 MERGE_N = 20_000                 # phase j: the index merged in
 ADD_N = DEAD_N = 2048            # phase i: one insert batch; ids removed
+SHARDS, SHARD_CAP = 4, 250_000  # phase l: the 1M as 4 shards of 250k
+SHARD_CUT_N = 100_000           # phase l5: checkpoint, restore, resume
 DEEP_D, DEEP_PQ_M = 96, 12       # Deep's width; pq_m = d // 8 (bench.py)
 # NVIDIA's H100 SXM data sheet: HBM bytes/s, and float32 operations/s
 # outside the tensor cores (none of these kernels uses them)
@@ -864,18 +899,20 @@ def k5_calls(by_k: dict, span: bool = False):
         search.fused_gather_distances = orig
 
 
-def measure_build_k3(k3_build: dict) -> None:
+def measure_build_k3(k3_build: dict) -> dict:
     """K3 at the build's shapes (PERF.md's build row): per K, its launches
     in the build, and on the last call's own ids the kernel held against
     its plain version (check_vec_dist's tolerance), the kernel and plain
     times and the bound (each distinct row once). Ids the caller masked
-    read row 0; their share is printed."""
+    read row 0; their share is printed. Returns each K's numbers (the
+    bound's keys, max_abs_err, ms, plain_ms, launches, shape)."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
+    out = {}
     for k in sorted(k3_build):
         rec = k3_build[k]
         table, ids, qs, deq, metric = rec["args"]
         rows_of = str(table.dtype).removeprefix("torch.")
-        compare(f"gathered_vec_dist ({rows_of} rows) at the build's "
+        err = compare(f"gathered_vec_dist ({rows_of} rows) at the build's "
                 f"Q={ids.shape[0]} K={k}",
                 dk.gathered_vec_dist_ids(table, ids, qs, deq, metric=metric),
                 dk.gathered_vec_dist_plain(table, ids, qs, deq,
@@ -896,6 +933,10 @@ def measure_build_k3(k3_build: dict) -> None:
             f"{b['bound_by']} ({b['bytes'] / 1e6:.2f} MB, {rows} distinct "
             f"rows, row-0 share {float((ids == 0).float().mean()):.3f}), "
             f"share of bound {b['bound_ms'] / ms:.2f}")
+        out[k] = dict(b, max_abs_err=err, ms=ms, plain_ms=plain,
+                      launches=rec["launches"],
+                      shape=f"Q={ids.shape[0]} K={k} d={table.shape[1]}")
+    return out
 
 
 def timed(fn, runs=2):
@@ -2066,6 +2107,235 @@ def wrappers_path(dev, totals: dict, sq8, pq_truth: dict) -> dict:
     return out
 
 
+def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
+    """Phase l (module docstring): the north-star workload as four shards
+    of 250,000 on the card, one sub-phase each for the build, the fan-out
+    searches, the health checks, the tombstones and vacuum, and the
+    checkpoint (cut to 100,000 points). ``unsharded``: main_path's
+    recalls, printed beside the sharded ones."""
+    import tempfile
+    from hnsw_tpu_torch import ShardedHnswIndex, make_mesh, synthetic_workload
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    from hnsw_tpu_torch.parallel.sharded import merge_topk
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    n = SHARDS * SHARD_CAP
+    t0 = time.time()
+    wl = synthetic_workload(n, 128, n_queries=N_QUERIES, seed=1234)
+    log(f"phase l workload: {n} x 128 ({time.time() - t0:.1f} s); device "
+        f"memory in use {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    mesh = make_mesh(SHARDS, devices=[dev] * SHARDS)
+    idx = ShardedHnswIndex(128, 32, "l2", mesh=mesh,
+                           capacity_per_shard=SHARD_CAP, ef_construction=100)
+    out: dict = {}
+
+    def check_clean(tag, index):
+        for s, st in enumerate(index.check()):
+            if st["errors"] or st.get("links_to_dead", 0):
+                raise AssertionError(f"{tag} shard {s}: {st['errors']}, "
+                                     f"{st.get('links_to_dead')} links to "
+                                     f"dead ids")
+
+    def build():
+        t0 = time.time()
+        idx.add(wl.base)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        t1 = time.time()
+        stats = idx.check()
+        for s, st in enumerate(stats):
+            if st["errors"]:
+                raise AssertionError(f"l1 shard {s}: {st['errors']}")
+        log(f"l1 sharded build: {n} points, {SHARDS} shards of {SHARD_CAP} "
+            f"(counts {idx._counts.tolist()}): {secs:.1f} s "
+            f"({n / secs:.0f} inserts/s); check() clean on every shard "
+            f"({time.time() - t1:.1f} s), deg0_mean "
+            f"{[round(st['deg0_mean'], 2) for st in stats]}, max_level "
+            f"{[st['max_level'] for st in stats]}")
+        return secs
+
+    k3_build: dict = {}
+    out["build_s"] = phase("l1 sharded build", ("gathered_vec_dist",),
+                           totals, build_k3_calls(k3_build)(build))
+    by_k = measure_build_k3(k3_build)
+    del k3_build
+    # the kernels line's row: K3 at the K that took the most kernel time
+    # (launches x ms) in the shards' insert batches, with every K3 launch
+    # of the build
+    out["build_k3"] = dict(
+        max(by_k.values(), key=lambda m: m["launches"] * m["ms"]),
+        launches=sum(m["launches"] for m in by_k.values()))
+    queries = torch.from_numpy(wl.queries).to(dev)
+    base = torch.from_numpy(wl.base).to(dev)
+    _, gt_t = brute_force_topk(queries, base, 10)
+    gt = gt_t.cpu().numpy()
+
+    def run(ef, tag, unsharded_recall):
+        (d, i), secs = timed(lambda: idx.search(wl.queries, 10, ef_search=ef))
+        if i.shape != (N_QUERIES, 10) or not np.isfinite(d[i >= 0]).all():
+            raise AssertionError(f"l sharded {tag}: search output malformed")
+        r = recall_at_k(i, gt, 10)
+        log(f"  sharded {tag} ef={ef}: recall@10 {r:.4f} (unsharded, phase "
+            f"b-c: {unsharded_recall:.4f}), {N_QUERIES / secs:.0f} qps "
+            f"(best of 2, {secs * 1e3:.1f} ms)")
+        out[f"{tag} ef={ef}"] = {"recall": r, "ms": secs * 1e3}
+        return d, i, r
+
+    def merge_ms(ef):
+        """The merge alone: per-shard results made once, then
+        ``merge_topk`` timed on the card (CUDA events after a spin)."""
+        parts = [idx._search_shard(s, wl.queries, 10, ef, None)
+                 for s in range(SHARDS)]
+        ms = time_ms(lambda: merge_topk([p[0] for p in parts],
+                                        [p[1] for p in parts], 10))
+        log(f"  merge of {SHARDS} x [{N_QUERIES}, 10] (cat, stable sort, "
+            f"gather): {ms:.4f} ms on the card")
+        return ms
+
+    def searches():
+        run(64, "unpacked", unsharded["unpacked"])
+        t0 = time.time()
+        nbytes = idx.enable_packed(bits=8)
+        torch.cuda.synchronize()
+        log(f"  enable_packed(bits=8): {nbytes} bytes over {SHARDS} shards "
+            f"in {time.time() - t0:.1f} s")
+        by_ef = {ef: run(ef, "packed bytes", unsharded["recall"][ef])
+                 for ef in (32, 64, 128)}
+        out["merge_ms"] = merge_ms(64)
+        idx.disable_packed()
+        idx.enable_packed(bits=8, layout="words")
+        d, i, r = run(64, "packed words", unsharded["words"][64])
+        if not (np.array_equal(i, by_ef[64][1])
+                and np.array_equal(d, by_ef[64][0])):
+            raise AssertionError("l2 words rows differ from bytes rows")
+        best = max(v[2] for v in by_ef.values())
+        if best < 0.95:
+            raise AssertionError(f"l2 sharded packed recall@10 {best:.4f} "
+                                 f"< 0.95")
+        return d, i
+
+    d64, i64 = phase("l2 sharded search", ("beam_update", "packed_row_dist",
+                                           "packed_row_dist_words",
+                                           "gathered_vec_dist"), totals,
+                     searches)
+
+    def health():
+        t0 = time.time()
+        report = idx.health_check()
+        log(f"l3 health_check: {[r['ok'] for r in report]} "
+            f"({time.time() - t0:.2f} s)")
+        if not all(r["ok"] for r in report):
+            raise AssertionError(f"l3 health_check: {report}")
+        idx.mark_shard_failed(1)
+        d, i, r = run(64, "packed words, shard 1 failed", float("nan"))
+        if (i[i >= 0] % SHARDS == 1).any():
+            raise AssertionError("l3 a failed shard's id came back")
+        idx.mark_shard_ok(1)
+        d, i = idx.search(wl.queries, 10, ef_search=64)
+        if not (np.array_equal(i, i64) and np.array_equal(d, d64)):
+            raise AssertionError("l3 results differ after mark_shard_ok")
+        log("  after mark_shard_ok(1): results equal to the healthy ones")
+
+    phase("l3 sharded health", ("beam_update", "packed_row_dist_words",
+                                "gathered_vec_dist"), totals, health)
+
+    def tombstones():
+        dead = np.random.default_rng(7).choice(n, DEAD_N, replace=False)
+        idx.remove_ids(dead)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        alive[torch.from_numpy(dead).to(dev)] = False
+        _, gt_live = live_oracle(queries, base, alive, n)
+        gt_live = gt_live.cpu().numpy()
+        (d, i), secs = timed(lambda: idx.search(wl.queries, 10,
+                                                ef_search=64))
+        if np.isin(i[i >= 0], dead).any():
+            raise AssertionError("l4 a removed id came back (filtered)")
+        log(f"l4 {DEAD_N} tombstones, filtered packed ef=64: recall@10 "
+            f"{recall_at_k(i, gt_live, 10):.4f} against the survivors, "
+            f"{N_QUERIES / secs:.0f} qps")
+        t0 = time.time()
+        nv = idx.vacuum()
+        torch.cuda.synchronize()
+        secs_v = time.time() - t0
+        check_clean("l4 after vacuum", idx)
+        if nv != DEAD_N or idx.packed_enabled:
+            raise AssertionError(f"l4 vacuum: {nv} nodes, tables kept "
+                                 f"{idx.packed_enabled}")
+        (d, i), secs = timed(lambda: idx.search(wl.queries, 10,
+                                                ef_search=64))
+        if np.isin(i[i >= 0], dead).any():
+            raise AssertionError("l4 a removed id came back (vacuumed)")
+        r = recall_at_k(i, gt_live, 10)
+        log(f"  vacuum(): {nv} nodes in {secs_v:.2f} s, check() clean; "
+            f"unpacked ef=64 recall@10 {r:.4f} against the survivors, "
+            f"{N_QUERIES / secs:.0f} qps")
+        return {"vacuum_s": secs_v, "recall": r}
+
+    out["vacuum"] = phase("l4 sharded tombstones and vacuum",
+                          ("beam_update", "gathered_vec_dist"), totals,
+                          tombstones)
+    del idx, base
+    torch.cuda.empty_cache()
+
+    def checkpoint():
+        m = SHARD_CUT_N
+        log(f"l5 cut: {m} of the base vectors, {SHARDS} shards of "
+            f"{m // SHARDS}")
+        half = m // 2
+
+        def make():
+            return ShardedHnswIndex(128, 32, "l2", mesh=mesh,
+                                    capacity_per_shard=m // SHARDS,
+                                    ef_construction=100)
+
+        t0 = time.time()
+        a = make()
+        a.add(wl.base[:half])
+        a.add(wl.base[half:m])
+        b = make()
+        b.add(wl.base[:half])
+        with tempfile.TemporaryDirectory() as tmp:
+            p = os.path.join(tmp, "mid.npz")
+            b.save(p)
+            c = ShardedHnswIndex.load(p, mesh=mesh)
+            c.add(wl.base[half:m])
+            same = all(
+                torch.equal(getattr(ga, f), getattr(gc, f))
+                if torch.is_tensor(getattr(ga, f))
+                else getattr(ga, f) == getattr(gc, f)
+                for ga, gc in zip(a._graphs, c._graphs) for f in vars(ga))
+            same &= all(torch.equal(x, y) for x, y in
+                        zip(a._global_ids + a._vectors,
+                            c._global_ids + c._vectors))
+            log(f"  mid-build save / load / add against an uninterrupted "
+                f"build: equal array for array {same} "
+                f"({time.time() - t0:.1f} s for the three builds)")
+            if not same:
+                raise AssertionError("l5 resumed build differs")
+            d0, i0 = c.search(wl.queries, 10, ef_search=64)
+            t0 = time.time()
+            p = os.path.join(tmp, "full.npz")
+            c.save(p)
+            secs_save = time.time() - t0
+            c._vectors[2].fill_(float("nan"))
+            failed = [r["shard"] for r in c.health_check() if not r["ok"]]
+            t0 = time.time()
+            restored = c.restore_shards(p)
+            secs_restore = time.time() - t0
+            d1, i1 = c.search(wl.queries, 10, ef_search=64)
+            log(f"  save {secs_save:.1f} s ({os.path.getsize(p)} bytes); "
+                f"shard 2 NaN'd: health_check failed {failed}; "
+                f"restore_shards {restored} in {secs_restore:.1f} s; "
+                f"search equal to before: "
+                f"{np.array_equal(i1, i0) and np.array_equal(d1, d0)}")
+        if failed != [2] or restored != [2] or not (
+                np.array_equal(i1, i0) and np.array_equal(d1, d0)):
+            raise AssertionError("l5 corrupt / restore round trip failed")
+
+    phase("l5 sharded checkpoint", ("beam_update", "gathered_vec_dist"),
+          totals, checkpoint)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
@@ -2121,7 +2391,7 @@ def main() -> None:
     if args.n < NORTH_STAR_N:
         log(f"main path cut: n={args.n} of {NORTH_STAR_N}")
     totals: dict = {}
-    main_path(args.n, dev, totals, args.profile)
+    unsharded = main_path(args.n, dev, totals, args.profile)
     torch.cuda.empty_cache()       # the f32 index and its tables are gone
     log("K3 at the storage codecs' rows, and ADC, on the card:")
     codec_k3 = check_vec_dist_codecs(dev, gen)
@@ -2134,6 +2404,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     wrapped = wrappers_path(dev, totals, codec.pop("sq8_refine"),
                             codec["pq_truth"])
+    del codec
+    torch.cuda.empty_cache()
+    sharded = sharded_path(dev, totals, unsharded)
+    log(f"phase l: build {sharded['build_s']:.1f} s, merge "
+        f"{sharded['merge_ms']:.4f} ms")
     by_tag = totals.pop("by_tag")
     log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
         f"by row dtype {by_tag}")
@@ -2165,6 +2440,9 @@ def main() -> None:
     refine_k3 = wrapped["refine_k3"]
     rows.append(row(k3, refine_k3, refine_k3["launches"],
                     f"{k3} (refine rerank, f32 rows, {refine_k3['shape']})"))
+    shard_k3 = sharded["build_k3"]
+    rows.append(row(k3, shard_k3, shard_k3["launches"],
+                    f"{k3} (sharded build, f32 rows, {shard_k3['shape']})"))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ from .ops.packed import PackedNeighbors, pack_neighbors  # noqa: E402
 from .ops.transforms import (NormalizationTransform,  # noqa: E402
                              OPQMatrix, PCAMatrix, RandomRotation,
                              VectorTransform)
+from .parallel.sharded import ShardedHnswIndex, make_mesh  # noqa: E402
 from .reference_impl import NumpyHnsw  # noqa: E402
 from .search import hnsw_search  # noqa: E402
 from .serving import Searcher  # noqa: E402
@@ -45,5 +46,6 @@ __all__ = [
     "PCAMatrix", "OPQMatrix", "NumpyHnsw",
     "brute_force_topk", "hnsw_search", "check_invariants",
     "PackedNeighbors", "pack_neighbors", "index_factory", "save_graph",
-    "load_graph", "synthetic_workload", "Searcher",
+    "load_graph", "synthetic_workload", "Searcher", "ShardedHnswIndex",
+    "make_mesh",
 ]

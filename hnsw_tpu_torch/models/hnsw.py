@@ -795,10 +795,12 @@ class HnswIndex:
         """Write the reference's ``.npz`` (a file name or a binary file
         object): graph, vectors (codes for sq8 / PQ), config, the level-RNG
         state, the codec state (``sq_offset`` / ``sq_scale`` /
-        ``pq_codebooks``) and the tombstones (``alive``, ``routing_clean``),
-        so either package loads it and a resumed build draws the levels an
-        uninterrupted one would."""
-        extra = {"routing_clean": bool(self._routing_clean)}
+        ``pq_codebooks``), the tombstones (``alive``, ``routing_clean``) and
+        the back-link window (``r_window``, which the reference's load
+        ignores), so either package loads it and a resumed build draws the
+        levels and repairs the links an uninterrupted one would."""
+        extra = {"routing_clean": bool(self._routing_clean),
+                 "r_window": int(self.r_window)}
         if self._builder is not None:
             extra["builder_rng_state"] = _jsonify(
                 self._builder.rng.bit_generator.state)
@@ -829,9 +831,11 @@ class HnswIndex:
         """Load a ``.npz`` written by either package (a file name or a
         binary file object). A saved level-RNG state carries over, so
         further adds draw the levels the writer's would, and so do
-        tombstones: a file saved before ``vacuum()`` keeps filtering."""
+        tombstones: a file saved before ``vacuum()`` keeps filtering, and the
+        back-link window (16 where the file has none, as the reference's)."""
         arrays, vectors, cfg, extra, xarr = load_graph(path)
         idx = cls(config=cfg, device=device, _alloc=False)
+        idx.r_window = int(extra.get("r_window", idx.r_window))
         idx._graph = graph_from_numpy(arrays, idx.device)
         idx._vectors = vectors_tensor(vectors, cfg, idx.device)
         if "sq_offset" in xarr:

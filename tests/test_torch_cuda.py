@@ -736,3 +736,81 @@ def test_host_built_index_on_card(card):
         assert counts["beam_update"] > 0 and counts["gathered_vec_dist"] > 0
         if packed:
             assert counts["packed_row_dist"] > 0
+
+
+def _sharded(devices, wl, **kw):
+    from hnsw_tpu_torch import ShardedHnswIndex, make_mesh
+    idx = ShardedHnswIndex(32, 8, "l2", mesh=make_mesh(4, devices=devices),
+                           capacity_per_shard=2048, ef_construction=60,
+                           seed=13, **kw)
+    idx.train(wl.base)
+    idx.add(wl.base)
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "sq8"])
+def test_sharded_on_card_matches_cpu(card, dtype):
+    """The same sharded build and searches on four shards of the card and
+    on four of the CPU (the kernels against their plain versions through
+    the whole slice): at most 0.2% of each shard's level-0 rows differ (a
+    near tie may flip: K3 and its plain version sum in another order);
+    searches unpacked, packed bytes and words rows, filtered and with a
+    failed shard return the CPU's ids on >= 99% of slots, distances
+    within rtol 1e-5 + atol 1e-4 there; K1, K2, K3 and K4 launched."""
+    from hnsw_tpu_torch import synthetic_workload
+    wl = synthetic_workload(6000, 32, n_queries=256, seed=5)
+    _cuda.reset_launch_counts()
+    gpu = _sharded([card] * 4, wl, dtype=dtype)
+    assert _cuda.launch_counts()["gathered_vec_dist"] > 0
+    cpu = _sharded([torch.device("cpu")] * 4, wl, dtype=dtype)
+    assert gpu._counts.tolist() == cpu._counts.tolist() == [1500] * 4
+    for s in range(4):
+        differ = int((gpu._graphs[s].neighbors0.cpu() !=
+                      cpu._graphs[s].neighbors0).any(1).sum())
+        print(f"sharded {dtype} shard {s}: {differ} of 1500 rows differ")
+        assert differ <= 0.002 * 1500, (s, differ)
+    allowed = np.arange(6000) % 3 == 0
+    for case in ("unpacked", "bytes", "words", "filtered", "degraded"):
+        kw = {"allowed": allowed} if case == "filtered" else {}
+        for idx in (gpu, cpu):
+            if case in ("bytes", "words"):
+                idx.enable_packed(bits=8, layout=case)
+            if case == "degraded":
+                idx.mark_shard_failed(2)
+        _cuda.reset_launch_counts()
+        d, i = gpu.search(wl.queries, 10, ef_search=64, **kw)
+        counts = _cuda.launch_counts()
+        cd, ci = cpu.search(wl.queries, 10, ef_search=64, **kw)
+        same = i == ci
+        assert same.mean() >= 0.99, (case, same.mean())
+        np.testing.assert_allclose(d[same], cd[same], rtol=1e-5, atol=1e-4)
+        assert counts["gathered_vec_dist"] > 0
+        want = {"bytes": "packed_row_dist", "words": "packed_row_dist_words",
+                "unpacked": "beam_update"}.get(case)
+        assert want is None or counts[want] > 0, (case, counts)
+    assert gpu.check()[0]["errors"] == []
+
+
+@pytest.mark.cuda
+def test_sharded_nan_shard_probe_on_card(card, tmp_path):
+    """A shard whose vectors are all NaN fails the health probe on the
+    card (K3 returns NaN distances, K1 merges NaN keys: no fault, no
+    endless loop, no finite hit), exactly that shard; a restore from the
+    checkpoint gives back the healthy results."""
+    from hnsw_tpu_torch import synthetic_workload
+    wl = synthetic_workload(3000, 32, n_queries=64, seed=8)
+    idx = _sharded([card] * 4, wl)
+    d0, i0 = idx.search(wl.queries, 10, ef_search=64)
+    p = str(tmp_path / "ckpt.npz")
+    idx.save(p)
+    idx._vectors[2].fill_(float("nan"))
+    report = idx.health_check()
+    assert [r["shard"] for r in report if not r["ok"]] == [2], report
+    _, i = idx.search(wl.queries, 10, ef_search=64)
+    assert not (i[i >= 0] % 4 == 2).any()
+    assert idx.restore_shards(p) == [2]
+    assert all(r["ok"] for r in idx.health_check())
+    d1, i1 = idx.search(wl.queries, 10, ef_search=64)
+    np.testing.assert_array_equal(i1, i0)
+    np.testing.assert_array_equal(d1, d0)

@@ -15,9 +15,12 @@ import torch
 import hnsw_tpu
 import hnsw_tpu_torch
 from hnsw_tpu.utils import datasets as ref_ds
+from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu.utils.stats import HnswStats as RefStats
 from hnsw_tpu_torch.utils import datasets as ds
 from hnsw_tpu_torch.utils.stats import HnswStats, Timer
+
+from conftest import exact_knn
 
 WL = dict(n=400, d=16, n_queries=40, seed=3)
 IDX = dict(capacity=512, ef_construction=40, seed=11)
@@ -265,3 +268,94 @@ def test_eval_workload_matches_reference(tmp_path, monkeypatch):
     assert wl.name == rw.name == "sift10k-synthetic"
     np.testing.assert_array_equal(wl.base, rw.base)
     np.testing.assert_array_equal(wl.queries, rw.queries)
+
+
+# ----- mid-build resume: twins of tests/test_checkpoint_resume.py and
+# tests/test_staged_build.py::test_incremental_adds_match_single_add
+RESUME = dict(capacity=1024, ef_construction=40, seed=77)
+
+
+def _graph_arrays(idx):
+    return {k: np.asarray(v) for k, v in (
+        idx.graph.numpy() if isinstance(idx, hnsw_tpu_torch.HnswIndex)
+        else idx.graph._asdict()).items()}
+
+
+def test_resume_matches_reference(tmp_path):
+    """A mid-build save, loaded and resumed twice by the port and once by
+    the reference: the resumes are deterministic and equal the reference's
+    edge for edge; the level stream continues the uninterrupted build's;
+    the graph is healthy and its recall within 0.03 of that build's."""
+    wl = hnsw_tpu_torch.synthetic_workload(900, 16, n_queries=80, seed=44)
+    full = hnsw_tpu_torch.HnswIndex(16, 8, device="cpu", **RESUME)
+    full.add(wl.base)
+    part = hnsw_tpu_torch.HnswIndex(16, 8, device="cpu", **RESUME)
+    part.add(wl.base[:500])
+    p = str(tmp_path / "ckpt.npz")
+    part.save(p)
+    resumed = []
+    for _ in range(2):
+        r = hnsw_tpu_torch.HnswIndex.load(p, device="cpu")
+        assert r.ntotal == 500 and r.r_window == 16
+        r.add(wl.base[500:])
+        resumed.append(r)
+    a, b = resumed
+    ref = hnsw_tpu.HnswIndex.load(p)
+    ref.add(wl.base[500:])
+    assert torch.equal(a.graph.neighbors0, b.graph.neighbors0)
+    for k, v in _graph_arrays(a).items():
+        np.testing.assert_array_equal(v, _graph_arrays(ref)[k], err_msg=k)
+    assert torch.equal(a.graph.levels[:900], full.graph.levels[:900])
+    assert a.check()["errors"] == []
+    _, gt = exact_knn(wl.base, wl.queries, 10, "l2")
+    _, i_full = full.search(wl.queries, k=10, ef_search=64)
+    _, i_res = a.search(wl.queries, k=10, ef_search=64)
+    assert recall_at_k(i_res, gt, 10) >= recall_at_k(i_full, gt, 10) - 0.03
+
+
+def test_incremental_adds_match_single_add():
+    """One add() against two: the same counters and healthy graphs, both
+    finding the true neighbours; the two-add graph equals the reference's
+    two-add graph edge for edge."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(900, 16)).astype(np.float32)
+    kw = dict(capacity=2048, ef_construction=40, seed=2)
+    a = hnsw_tpu_torch.HnswIndex(16, 8, device="cpu", **kw)
+    a.add(x)
+    b = hnsw_tpu_torch.HnswIndex(16, 8, device="cpu", **kw)
+    ref = hnsw_tpu.HnswIndex(16, 8, **kw)
+    for idx in (b, ref):
+        idx.add(x[:500])
+        idx.add(x[500:])
+    assert a.ntotal == b.ntotal == ref.ntotal == 900
+    a.check(strict=True)
+    b.check(strict=True)
+    for k, v in _graph_arrays(b).items():
+        np.testing.assert_array_equal(v, _graph_arrays(ref)[k], err_msg=k)
+    q = rng.normal(size=(32, 16)).astype(np.float32)
+    _, gt = exact_knn(x, q, 5, "l2")
+    for idx in (a, b):
+        _, i = idx.search(q, k=5, ef_search=48)
+        assert recall_at_k(i, gt, 5) > 0.9
+
+
+def test_resume_keeps_a_non_default_r_window(tmp_path):
+    """The back-link window is saved and loaded (the reference's load
+    resets it to 16): a resume from the file equals the build that never
+    left memory, and differs from a resume at the default window."""
+    wl = hnsw_tpu_torch.synthetic_workload(900, 16, n_queries=8, seed=44)
+    part = hnsw_tpu_torch.HnswIndex(16, 8, device="cpu", **RESUME)
+    part.r_window = 2
+    part.add(wl.base[:500])
+    p = str(tmp_path / "ckpt.npz")
+    part.save(p)
+    back = hnsw_tpu_torch.HnswIndex.load(p, device="cpu")
+    assert back.r_window == back._builder.r_window == 2
+    default = hnsw_tpu_torch.HnswIndex.load(p, device="cpu")
+    default.r_window = default._builder.r_window = 16
+    for idx in (part, back, default):
+        idx.add(wl.base[500:])
+    assert part._builder.backlink_dropped_total > 0
+    for k, v in part.graph.numpy().items():
+        np.testing.assert_array_equal(back.graph.numpy()[k], v, err_msg=k)
+    assert not torch.equal(default.graph.neighbors0, part.graph.neighbors0)
