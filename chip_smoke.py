@@ -34,6 +34,10 @@ Phases (any failure raises, and the exit code is not 0):
           128} packed and ef=64 unpacked (K1, K2, K3). Requires packed
           recall@10 >= 0.95 at the best ef and packed and unpacked within
           0.01 at ef=64;
+       b2. the same index and table under ``HNSW_TPU_BEAM_KERNEL=0``
+          (restored after): packed ef=64 takes the legacy beam, so K1
+          must launch 0 times and K2 and K3 more than 0; its recall is
+          printed beside b's;
        c. ``enable_packed(bits=8, layout="words")`` after
           ``disable_packed()``; its table must equal the bytes table bit
           for bit; the same packed searches (K1, K4, K3). Requires recall
@@ -180,6 +184,28 @@ Phases (any failure raises, and the exit code is not 0):
            shard 2's vectors set to NaN, ``health_check`` failing exactly
            shard 2, ``restore_shards``, the search identical to before.
 
+  9. phase m, sharded mode across processes on the one card (NCCL puts no
+     two ranks on one device, so the ranks use gloo): l5's uninterrupted
+     100,000-point index searched first in one process (m1: unpacked
+     ef=64, packed bytes ef 32 / 64, shard 1 failed at ef=64); then two
+     ranks of this script (``--rank R --world 2 --port P``; 127.0.0.1),
+     each owning 2 of the 4 shards on the card, make the same calls (two
+     adds of half the cut, the same searches). Each rank's shards must
+     equal the one-process index's array for array, its ids at every
+     search equal and its distances within K3's tolerance (rtol 1e-5 +
+     atol 1e-3); with shard 1 failed no id = 1 (mod 4); each rank must
+     launch K1, K2 and K3, and its counts join the ``kernels`` line.
+     Prints each rank's build seconds, walls per search, and the
+     all_gather plus merge ms. A rank that fails or outlasts 300 s fails
+     the script.
+ 10. phase n, ``native.cpu_baseline.CpuHnsw`` (the serial C++ baseline, on
+     one host core) beside the device build on ``synthetic_workload(
+     20_000, 128, n_queries=1000, seed=1234)`` (M=32, efC=100): recall@10
+     of each at ef 16 / 32 / 64 against ``brute_force_topk``; the device
+     build within 0.03 of ``CpuHnsw`` at each ef (tests/test_parity.py's
+     bar); ``CpuHnsw``'s build seconds and single-core qps printed with
+     the host CPU's model and the card's name and power limit.
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -191,12 +217,12 @@ device busy, busy share, the top ops by device time); its searches count
 as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over every phase of 4, 6, 7 and 8; K3 and K5 by row dtype, one row
-each, K3 at the refine's shape with the refine's own launches, and K3
-at the shape that took the sharded build's most kernel time, with all of
-the build's K3 launches),
-error, times and bound, and the ``nvidia-smi`` name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+(summed over every phase of 4 and 6-10, phase m's ranks' included; K3 and
+K5 by row dtype, one row each, K3 at the refine's shape with the refine's
+own launches, and K3 at the shape that took the sharded build's most
+kernel time, with all of the build's K3 launches), error, times and
+bound, and the ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -207,6 +233,7 @@ import itertools
 import json
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -1062,6 +1089,31 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     recalls, unpacked = phase(
         "bytes search", ("beam_update", "packed_row_dist",
                          "gathered_vec_dist"), totals, bytes_phase)
+
+    def kill_switch_phase():
+        from hnsw_tpu_torch.ops import _cuda
+        before = os.environ.get("HNSW_TPU_BEAM_KERNEL")
+        os.environ["HNSW_TPU_BEAM_KERNEL"] = "0"
+        try:
+            r, (d, i, _) = run(64, True, "packed bytes HNSW_TPU_BEAM_KERNEL=0")
+        finally:
+            if before is None:
+                del os.environ["HNSW_TPU_BEAM_KERNEL"]
+            else:
+                os.environ["HNSW_TPU_BEAM_KERNEL"] = before
+        torch.cuda.synchronize()
+        k1 = _cuda.launch_counts()["beam_update"]
+        if k1:
+            raise AssertionError(f"HNSW_TPU_BEAM_KERNEL=0 launched K1 {k1} "
+                                 f"times: the fused beam ran")
+        check_exact("HNSW_TPU_BEAM_KERNEL=0", d[:, :1], i[:, :1])
+        log(f"  the legacy beam (bf16 keys) beside the fused beam at ef=64: "
+            f"{r:.4f} vs {recalls[64]:.4f}")
+        return r
+
+    phase("kill switch HNSW_TPU_BEAM_KERNEL=0", ("packed_row_dist",
+                                                  "gathered_vec_dist"),
+          totals, kill_switch_phase)
 
     def words_phase():
         # the bytes table waits on the host, so two 8.45 GB tables never
@@ -2330,10 +2382,274 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
         if failed != [2] or restored != [2] or not (
                 np.array_equal(i1, i0) and np.array_equal(d1, d0)):
             raise AssertionError("l5 corrupt / restore round trip failed")
+        return a
 
-    phase("l5 sharded checkpoint", ("beam_update", "gathered_vec_dist"),
-          totals, checkpoint)
+    one = phase("l5 sharded checkpoint", ("beam_update", "gathered_vec_dist"),
+                totals, checkpoint)
+    out["multiprocess"] = multiprocess_phase(
+        dev, totals, one, wl.base[:SHARD_CUT_N], wl.queries)
     return out
+
+
+# phase m: what each rank searches, in this order (unpacked, then packed
+# bytes at each ef, then shard 1 failed on the packed rows)
+MP_SEARCHES = (("unpacked", 64), ("packed", 32), ("packed", 64),
+               ("degraded", 64))
+MP_TIMEOUT = 300                # seconds a rank may take, start-up included
+
+
+def mp_searches(idx, queries, timer) -> dict:
+    """The searches of phase m on ``idx`` (one-process or one rank's), in
+    ``MP_SEARCHES`` order: {tag: (D, I, best synced wall s)}. Leaves shard
+    1 ok and the packed tables on."""
+    out = {}
+    for kind, ef in MP_SEARCHES:
+        if kind == "packed" and not idx.packed_enabled:
+            idx.enable_packed(bits=8)
+        if kind == "degraded":
+            idx.mark_shard_failed(1)
+        (d, i), secs = timer(lambda: idx.search(queries, 10, ef_search=ef))
+        out[f"{kind} ef={ef}"] = (d, i, secs)
+        idx.mark_shard_ok(1)
+    return out
+
+
+def mp_child(args) -> None:
+    """One rank of phase m (``--rank R --world W --port P --mp-dir DIR``):
+    ``torch.distributed`` under gloo on 127.0.0.1, this rank's block of the
+    four shards on ``--mp-device``, the same calls as the one-process
+    index (two adds of half the cut, then ``mp_searches``); writes this
+    rank's shards, results, launch counts and times to DIR."""
+    import torch.distributed as dist
+    from hnsw_tpu_torch import ShardedHnswIndex, make_mesh
+    from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
+    from hnsw_tpu_torch.ops import _cuda
+    from hnsw_tpu_torch.parallel.sharded import merge_topk
+    dev = torch.device(args.mp_device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timer(fn, runs=2):
+        """Best synced wall of ``runs``, each started with the other ranks
+        (a search's collective waits for the slowest)."""
+        best = None
+        for _ in range(runs):
+            sync()
+            dist.barrier()
+            t = time.time()
+            res = fn()
+            sync()
+            best = min(best or 1e9, time.time() - t)
+        return res, best
+
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{args.port}",
+                            rank=args.rank, world_size=args.world)
+    try:
+        base = np.load(os.path.join(args.mp_dir, "base.npy"))
+        queries = np.load(os.path.join(args.mp_dir, "queries.npy"))
+        mesh = make_mesh(SHARDS, devices=[dev] * (SHARDS // args.world))
+        idx = ShardedHnswIndex(128, 32, "l2", mesh=mesh,
+                               capacity_per_shard=len(base) // SHARDS,
+                               ef_construction=100)
+        _cuda.reset_launch_counts()
+        half = len(base) // 2
+        (_, build_s) = timer(lambda: (idx.add(base[:half]),
+                                      idx.add(base[half:])), runs=1)
+        res = mp_searches(idx, queries, timer)
+        counts = _cuda.launch_counts()
+        tagged = _cuda.tagged_launch_counts()
+        # the collective and the merge alone, on this rank's shard results
+        parts = [idx._search_shard(s, queries, 10, 64, None)
+                 for s in idx._local]
+        walls = []
+        for _ in range(5):
+            sync()
+            t = time.perf_counter()
+            every = idx._gather_parts(parts, len(queries), 10)
+            merge_topk([p[0] for p in every], [p[1] for p in every], 10)
+            sync()
+            walls.append(time.perf_counter() - t)
+        arrays = {}
+        for s in idx._local:
+            g = idx._graphs[s]
+            for f in TENSOR_FIELDS:
+                arrays[f"s{s}_{f}"] = getattr(g, f).cpu().numpy()
+            for f in SCALAR_FIELDS:
+                arrays[f"s{s}_{f}"] = np.int64(getattr(g, f))
+            arrays[f"s{s}_vectors"] = idx._vectors[s].cpu().numpy()
+            arrays[f"s{s}_global_ids"] = idx._global_ids[s].cpu().numpy()
+        for tag, (d, i, _) in res.items():
+            arrays[f"D {tag}"], arrays[f"I {tag}"] = d, i
+        np.savez(os.path.join(args.mp_dir, f"rank{args.rank}.npz"), **arrays)
+        with open(os.path.join(args.mp_dir, f"rank{args.rank}.json"),
+                  "w") as f:
+            json.dump({"local": idx._local, "build_s": build_s,
+                       "walls_s": {t: r[2] for t, r in res.items()},
+                       "gather_merge_ms": float(np.median(walls)) * 1e3,
+                       "counts": counts, "tagged": tagged,
+                       "jax_imported": "jax" in sys.modules}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def multiprocess_phase(dev, totals: dict, one, base: np.ndarray,
+                       queries: np.ndarray) -> dict:
+    """Phase m (module docstring): two ranks under gloo on this device
+    against ``one``, the one-process index of l5 built on the same cut."""
+    import socket
+    import tempfile
+    from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
+    want = phase("m1 one-process sharded searches",
+                 ("beam_update", "packed_row_dist", "gathered_vec_dist"),
+                 totals, lambda: mp_searches(one, queries, timed))
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "base.npy"), base)
+        np.save(os.path.join(tmp, "queries.npy"), queries)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--world", "2", "--port", str(port), "--mp-dir", tmp,
+             "--mp-device", str(dev)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=MP_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.time() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"m2 rank {r} exited {p.returncode}:\n"
+                                     + "\n".join(text.splitlines()[-30:]))
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info = json.load(f)
+            info["arrays"] = dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+            ranks.append(info)
+    checked = 0
+    for r, info in enumerate(ranks):
+        a = info.pop("arrays")
+        if info["jax_imported"]:
+            raise AssertionError(f"m2 rank {r} imported jax")
+        for s in info["local"]:
+            g = one._graphs[s]
+            pairs = [(f, getattr(g, f).cpu().numpy()) for f in TENSOR_FIELDS]
+            pairs += [(f, np.int64(getattr(g, f))) for f in SCALAR_FIELDS]
+            pairs += [("vectors", one._vectors[s].cpu().numpy()),
+                      ("global_ids", one._global_ids[s].cpu().numpy())]
+            for f, arr in pairs:
+                if not np.array_equal(a[f"s{s}_{f}"], arr):
+                    raise AssertionError(f"m2 rank {r} shard {s} {f} "
+                                         f"differs from the one-process "
+                                         f"index")
+                checked += 1
+        for tag, (d, i, _) in want.items():
+            if not np.array_equal(a[f"I {tag}"], i):
+                raise AssertionError(f"m2 rank {r} {tag}: ids differ from "
+                                     f"the one-process index")
+            np.testing.assert_allclose(a[f"D {tag}"], d, rtol=1e-5,
+                                       atol=1e-3, err_msg=f"m2 {tag}")
+        deg = a["I degraded ef=64"]
+        if (deg[deg >= 0] % SHARDS == 1).any():
+            raise AssertionError(f"m2 rank {r}: a failed shard's id came "
+                                 f"back")
+        missing = [k for k in ("beam_update", "packed_row_dist",
+                               "gathered_vec_dist") if info["counts"][k] == 0]
+        if missing and dev.type == "cuda":   # a CPU rehearsal launches none
+            raise AssertionError(f"m2 rank {r}: kernels never launched: "
+                                 f"{missing}")
+        for k, c in info["counts"].items():
+            totals[k] = totals.get(k, 0) + c
+        by_tag = totals.setdefault("by_tag", {})
+        for k, tags in info["tagged"].items():
+            for t, c in tags.items():
+                by_tag[(k, t)] = by_tag.get((k, t), 0) + c
+        walls = ", ".join(f"{t} {w * 1e3:.1f} ms ({len(queries) / w:.0f} "
+                          f"qps)" for t, w in info["walls_s"].items())
+        log(f"m2 rank {r} (shards {info['local']}): build "
+            f"{info['build_s']:.1f} s; {walls}; all_gather + merge "
+            f"{info['gather_merge_ms']:.3f} ms; kernel launches "
+            f"{info['counts']}, by tag {info['tagged']}")
+    one_walls = ", ".join(f"{t} {w * 1e3:.1f} ms" for t, (_, _, w)
+                          in want.items())
+    log(f"m2 two ranks under gloo on {dev}, {wall:.1f} s with start-up: "
+        f"{checked} shard arrays equal to the one-process index's, ids "
+        f"equal at {[t for t in want]} and distances within rtol 1e-5 + "
+        f"atol 1e-3; shard 1 failed: no id = 1 (mod {SHARDS}); the "
+        f"one-process index's walls: {one_walls}")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+CPU_BASE_N, CPU_BASE_Q = 20_000, 1_000   # phase n
+
+
+def cpu_baseline_phase(dev, totals: dict, card: str) -> dict:
+    """Phase n (module docstring): the serial C++ ``CpuHnsw`` on one host
+    core beside the device build, on the same 20,000 x 128 points."""
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    from hnsw_tpu_torch.native.cpu_baseline import (CpuHnsw, build_library,
+                                                    cpu_model)
+    from hnsw_tpu_torch.ops.distances import brute_force_topk
+    from hnsw_tpu_torch.utils.recall import recall_at_k
+    wl = synthetic_workload(CPU_BASE_N, 128, n_queries=CPU_BASE_Q, seed=1234)
+    _, gt = brute_force_topk(torch.from_numpy(wl.queries).to(dev),
+                             torch.from_numpy(wl.base).to(dev), 10)
+    gt = gt.cpu().numpy()
+    t0 = time.time()
+    build_library()
+    lib_s = time.time() - t0
+    cpu = CpuHnsw(128, 32, seed=1)
+    t0 = time.time()
+    cpu.add(wl.base, ef_construction=100)
+    cpu_build_s = time.time() - t0
+    cpu_out = {}
+    for ef in (16, 32, 64):
+        t0 = time.time()
+        ids = cpu.search(wl.queries, 10, ef_search=ef)
+        secs = time.time() - t0
+        cpu_out[ef] = (recall_at_k(ids, gt, 10), CPU_BASE_Q / secs)
+
+    def device():
+        idx = HnswIndex(128, 32, "l2", capacity=CPU_BASE_N,
+                        ef_construction=100, seed=1, device=dev)
+        t0 = time.time()
+        idx.add(wl.base)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        out = {}
+        for ef in (16, 32, 64):
+            (_, i), wall = timed(lambda: idx.search(wl.queries, 10,
+                                                    ef_search=ef))
+            out[ef] = (recall_at_k(i, gt, 10), CPU_BASE_Q / wall)
+        return secs, out
+
+    dev_build_s, dev_out = phase("n device build beside CpuHnsw",
+                                 ("beam_update", "gathered_vec_dist"),
+                                 totals, device)
+    host = cpu_model()
+    log(f"n CpuHnsw (serial C++, one core of {host}): library "
+        f"{lib_s:.1f} s, build of {CPU_BASE_N} x 128 (M=32, efC=100) "
+        f"{cpu_build_s:.2f} s ({CPU_BASE_N / cpu_build_s:.0f} inserts/s); "
+        f"device build on {card} {dev_build_s:.2f} s")
+    for ef in (16, 32, 64):
+        (rc, qc), (rd, qd) = cpu_out[ef], dev_out[ef]
+        log(f"  ef={ef}: recall@10 CpuHnsw {rc:.4f} at {qc:.0f} qps "
+            f"(one core), device build {rd:.4f} at {qd:.0f} qps "
+            f"({CPU_BASE_Q} queries, best of 2)")
+        if rd < rc - 0.03:
+            raise AssertionError(f"n ef={ef}: the device build's recall "
+                                 f"{rd:.4f} is more than 0.03 below "
+                                 f"CpuHnsw's {rc:.4f}")
+    return {"cpu_build_s": cpu_build_s, "cpu": cpu_out, "device": dev_out,
+            "host_cpu": host}
 
 
 def main() -> None:
@@ -2344,7 +2660,15 @@ def main() -> None:
                     help="also profile ef=64 searches: packed bytes and "
                          "words rows, HNSW_TPU_PALLAS_HOP=1, sq8 (adds "
                          "their runs to the launch counts)")
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-device", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:      # one rank of phase m
+        mp_child(args)
+        return
     if args.n < PACKED_ROWS:  # smaller tables keep row offsets below 2^31
         raise SystemExit(f"chip_smoke: --n {args.n} is below {PACKED_ROWS}")
 
@@ -2409,6 +2733,8 @@ def main() -> None:
     sharded = sharded_path(dev, totals, unsharded)
     log(f"phase l: build {sharded['build_s']:.1f} s, merge "
         f"{sharded['merge_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    cpu_baseline_phase(dev, totals, card)
     by_tag = totals.pop("by_tag")
     log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
         f"by row dtype {by_tag}")

@@ -19,16 +19,37 @@ per shard, a fan-out search and a global top-k merge.
     ``health_check``) is left out of the merge until ``restore_shards``
     reloads it from a ``save()`` checkpoint.
 
-A mesh (``make_mesh``) is an [S, q] grid of devices. One process drives
-every shard, one after another; a device may repeat, so one card (or the
-CPU) holds many shards. A shard's state lives on its row's device, so the
-q devices of a row must be one device here: the q axis keeps the
-reference's API, and each shard searches the whole batch at once (each
-query is searched on its own, so the results are the same). The
-multi-process form (one process per card) is not ported.
+A mesh (``make_mesh``) is an [S, q] grid of devices; a device may repeat,
+so one card (or the CPU) holds many shards. A shard's state lives on its
+row's device, so the q devices of a row must be one device here: the q axis
+keeps the reference's API, and each shard searches the whole batch at once
+(each query is searched on its own, so the results are the same).
+
+Two forms, as the reference's mesh may span ``jax.distributed`` processes:
+
+  * one process drives every shard, one after another;
+  * under an initialized ``torch.distributed`` group, one process per card
+    (or per block of shards): the mesh is every rank's local devices in
+    rank order, and the rank that owns a row's devices owns its shard. The
+    contract is the reference's SPMD one: every rank makes the same calls
+    with the same arguments (the same ``x``, the same queries). A rank
+    inserts only its own shards but replays the others' level draws from
+    their seeded generators, so every rank follows the one-process form's
+    lockstep schedule and every shard's graph equals that form's edge for
+    edge. A search runs ``hnsw_search`` on the rank's own shards, one
+    ``all_gather`` over the ranks collects the [S, Q, k] results, and every
+    rank merges them into the full (D, I). The backend is the caller's:
+    under NCCL the gathered tensors stay on the card, under gloo they go
+    through host memory for the collective only. Failed shards, tombstones
+    and the sq8 quantizer (trained on the rank that owns shard 0 and
+    broadcast) are the same on every rank; ``health_check`` and ``check``
+    gather each rank's reports on its own shards.
 
 ``save`` / ``load`` read and write the reference's ``.npz`` key for key,
-so a sharded index moves between the packages either way.
+so a sharded index moves between the packages either way. Across processes
+``save`` raises, as the reference's must (it fetches arrays that span
+other processes' devices); ``load`` and ``restore_shards`` read each
+rank's own shards from a file every rank can open.
 """
 
 from __future__ import annotations
@@ -57,10 +78,16 @@ log = logging.getLogger("hnsw_tpu_torch")
 
 class Mesh:
     """An [S, q] grid of ``torch.device``s: row s serves shard s.
-    ``shape`` is keyed like the reference's."""
+    ``shape`` is keyed like the reference's. ``ranks`` (same grid) names
+    the process that owns each device; ``rank`` / ``world`` are this
+    process's place in the group (0 / 1 in the one-process form, where
+    every device is local)."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, ranks=None, rank: int = 0, world: int = 1):
         self.devices = [[torch.device(d) for d in row] for row in devices]
+        self.ranks = ranks if ranks is not None else \
+            [[rank] * len(row) for row in self.devices]
+        self.rank, self.world = rank, world
 
     @property
     def shape(self) -> dict:
@@ -73,22 +100,47 @@ def make_mesh(n_shards: int | None = None, q_parallel: int = 1,
     """All ``devices`` on the shard axis (``n_shards`` rows of
     ``q_parallel``); by default every visible CUDA device, and with no card
     this raises. A list may repeat a device: ``[torch.device("cuda")] * 4``
-    puts four shards on one card."""
+    puts four shards on one card. Under an initialized ``torch.distributed``
+    group ``devices`` are this rank's local devices (every rank calls
+    ``make_mesh`` with the same counts), and the mesh spans every rank's,
+    in rank order: ``make_mesh(4, 2, devices=[cpu] * 4)`` on each of two
+    ranks puts shards 0-1 on rank 0 and shards 2-3 on rank 1."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass devices="
                                "[torch.device('cpu')] * n to run on the CPU")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-    devices = list(devices)
+    import torch.distributed as dist
+    devices = [torch.device(d) for d in devices]
+    rank, world = 0, 1
+    if dist.is_available() and dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
+    owners = [rank] * len(devices)
+    if world > 1:
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, [str(d) for d in devices])
+        devices = [torch.device(d) for r in per_rank for d in r]
+        owners = [r for r in range(world) for _ in per_rank[r]]
     if n_shards is None:
         n_shards = max(1, len(devices) // q_parallel)
     if n_shards < 1 or q_parallel < 1 or \
             n_shards * q_parallel > len(devices):
         raise ValueError(f"a mesh of {n_shards} x {q_parallel} needs that "
                          f"many devices, got {len(devices)}")
-    return Mesh([devices[s * q_parallel:(s + 1) * q_parallel]
-                 for s in range(n_shards)])
+    rows = [slice(s * q_parallel, (s + 1) * q_parallel)
+            for s in range(n_shards)]
+    return Mesh([devices[r] for r in rows], [owners[r] for r in rows],
+                rank, world)
+
+
+class _RemoteShard:
+    """Another rank's shard, as this rank tracks it: the scalars of the
+    lockstep schedule (``ntotal`` sizes every batch), no tensors."""
+
+    def __init__(self):
+        self.ntotal = self.n_upper = self.entry_point = 0
+        self.max_level = -1
 
 
 class ShardedHnswIndex:
@@ -109,23 +161,36 @@ class ShardedHnswIndex:
             raise ValueError("ShardedHnswIndex does not take dtype='pq' "
                              "storage (no codebooks per shard); use "
                              "HnswIndex for PQ storage")
-        for row in self.mesh.devices:
-            if any(d != row[0] for d in row):
+        for row, owners in zip(self.mesh.devices, self.mesh.ranks):
+            if any(d != row[0] for d in row) or \
+                    any(r != owners[0] for r in owners):
                 raise ValueError("the q devices of a mesh row must be one "
                                  "device: a shard's state lives on one "
-                                 f"device, got {row}")
+                                 f"device, got {row} on ranks {owners}")
         self.config = config
         self.ef_search = config.ef_search
         self.ef_construction = config.ef_construction
         cfg, S = config, self.n_shards
         self._dev = [row[0] for row in self.mesh.devices]
-        self._graphs = [empty_graph(cfg, d) for d in self._dev]
+        self._rank, self._world = self.mesh.rank, self.mesh.world
+        # the rank that owns each shard, and each rank's shards in order
+        self._owner = [owners[0] for owners in self.mesh.ranks]
+        self._shards_of = [[s for s in range(S) if self._owner[s] == r]
+                           for r in range(self._world)]
+        self._local = self._shards_of[self._rank]
+        # the merge runs on this rank's first shard's device
+        self._merge_dev = self._dev[self._local[0]] if self._local \
+            else torch.device("cpu")
+        self._graphs = [empty_graph(cfg, self._dev[s]) if self._is_local(s)
+                        else _RemoteShard() for s in range(S)]
         self._vectors = [torch.zeros((cfg.capacity, cfg.dim),
                                      dtype=getattr(torch, cfg.storage_dtype),
-                                     device=d) for d in self._dev]
+                                     device=self._dev[s])
+                         if self._is_local(s) else None for s in range(S)]
         # local row -> user id (insertion order), -1 unused
         self._global_ids = [torch.full((cfg.capacity,), -1, dtype=torch.int32,
-                                       device=d) for d in self._dev]
+                                       device=self._dev[s])
+                            if self._is_local(s) else None for s in range(S)]
         self._builders = [DeviceBuilder(cfg.replace(seed=cfg.seed + s))
                           for s in range(S)]
         self._ntotal = 0
@@ -144,6 +209,19 @@ class ShardedHnswIndex:
     @property
     def ntotal(self) -> int:
         return self._ntotal
+
+    def _is_local(self, s: int) -> bool:
+        return self._owner[s] == self._rank
+
+    def _gather_objects(self, obj) -> list:
+        """Every rank's ``obj``, in rank order (``[obj]`` in one
+        process)."""
+        if self._world == 1:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * self._world
+        dist.all_gather_object(out, obj)
+        return out
 
     @property
     def d(self) -> int:  # faiss naming; lets the wrappers compose
@@ -172,10 +250,18 @@ class ShardedHnswIndex:
             raise RuntimeError("train() after add(): stored codes would "
                                "decode under different params")
         from ..ops.packed import quantization_params
-        xt = torch.from_numpy(np.asarray(x, np.float32)).to(self._dev[0])
-        off, sc = quantization_params(
-            xt, torch.ones(len(xt), dtype=torch.bool, device=xt.device), 8)
-        self._set_sq(off.cpu().numpy(), sc.cpu().numpy())
+        params = None
+        if self._is_local(0):   # on shard 0's device, as in one process
+            xt = torch.from_numpy(np.asarray(x, np.float32)).to(self._dev[0])
+            off, sc = quantization_params(
+                xt, torch.ones(len(xt), dtype=torch.bool, device=xt.device), 8)
+            params = [off.cpu().numpy(), sc.cpu().numpy()]
+        if self._world > 1:
+            import torch.distributed as dist
+            box = [params]
+            dist.broadcast_object_list(box, src=self._owner[0])
+            params = box[0]
+        self._set_sq(*params)
 
     def _set_sq(self, offset, scale) -> None:
         self._sq_np = (np.array(offset, np.float32),
@@ -196,7 +282,9 @@ class ShardedHnswIndex:
         smallest shard (``DeviceBuilder.BATCH_SIZES``), a shard's levels are
         drawn a batch at a time, and when a batch's level>=1 points pass
         ``upper_batch_cap`` its tail is spilled to the next batch with its
-        drawn levels thrown away (the generator has moved past them)."""
+        drawn levels thrown away (the generator has moved past them).
+        Across processes every rank passes the same ``x``: a rank inserts
+        its own shards and replays the others' draws."""
         cfg = self.config
         if self._packed is not None:
             log.warning("add() on a packed sharded index drops the packed "
@@ -232,14 +320,21 @@ class ShardedHnswIndex:
     def _insert_rows(self, s: int, x: np.ndarray, rows: np.ndarray,
                      user_ids: np.ndarray, size: int, efc: int) -> int:
         """One lockstep step on shard ``s``: ``rows`` (indices into ``x``,
-        at most ``size``). Returns how many rows it consumed."""
+        at most ``size``). Returns how many rows it consumed. Another
+        rank's shard takes the same draws and scalars, and no insert."""
         cfg, b = self.config, self._builders[s]
         g, vec, gids, dev = (self._graphs[s], self._vectors[s],
                              self._global_ids[s], self._dev[s])
+        local = self._is_local(s)
         seeded = 0
         if g.ntotal == 0:   # the first point of an empty shard
-            b._seed_first(g, vec, x[rows[0]], int(b._draw_levels(1)[0]))
-            gids[0] = int(user_ids[rows[0]])
+            lv0 = int(b._draw_levels(1)[0])
+            if local:
+                b._seed_first(g, vec, x[rows[0]], lv0)
+                gids[0] = int(user_ids[rows[0]])
+            else:
+                g.entry_point, g.max_level, g.ntotal = 0, lv0, 1
+                g.n_upper = int(lv0 >= 1)
             rows, seeded = rows[1:], 1
             if not len(rows):
                 return seeded
@@ -254,19 +349,21 @@ class ShardedHnswIndex:
         ups = np.flatnonzero(lv_sorted >= 1)
         if g.n_upper + len(ups) > cfg.upper_capacity:
             raise ValueError("upper_capacity exceeded")
-        slots = np.full(len(rows), -1, np.int32)
-        slots[ups] = np.arange(g.n_upper, g.n_upper + len(ups),
-                               dtype=np.int32)
+        if local:
+            slots = np.full(len(rows), -1, np.int32)
+            slots[ups] = np.arange(g.n_upper, g.n_upper + len(ups),
+                                   dtype=np.int32)
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        ids_t = t(pids)
-        sq_params, _ = b._codecs(dev)
-        _insert_batch(g, vec, t(x[rows][perm]), ids_t, t(lv_sorted),
-                      t(slots), lv_sorted, cfg=cfg, ef_construction=efc,
-                      intra_k=INTRA_K, r_window=R_WINDOW, sq_params=sq_params)
-        gids[ids_t.long()] = t(user_ids[rows][perm].astype(np.int32))
+            ids_t = t(pids)
+            sq_params, _ = b._codecs(dev)
+            _insert_batch(g, vec, t(x[rows][perm]), ids_t, t(lv_sorted),
+                          t(slots), lv_sorted, cfg=cfg, ef_construction=efc,
+                          intra_k=INTRA_K, r_window=R_WINDOW,
+                          sq_params=sq_params)
+            gids[ids_t.long()] = t(user_ids[rows][perm].astype(np.int32))
         # the scalars after the step: the batch's first point has its max
         if int(lv_sorted[0]) > g.max_level:
             g.entry_point, g.max_level = int(pids[0]), int(lv_sorted[0])
@@ -286,7 +383,8 @@ class ShardedHnswIndex:
         otherwise each shard trains its quantizer on its live rows.
         ``layout``: "bytes", "words" or "auto" ("bytes"; the reference
         picks "words" only on a TPU). ``add()`` and ``vacuum()`` drop the
-        tables. Returns the tables' bytes over every shard."""
+        tables. Returns the tables' bytes over every shard (every rank's,
+        across processes)."""
         from ..ops.packed import pack_neighbors
         if bits not in (4, 8):
             raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -302,8 +400,10 @@ class ShardedHnswIndex:
             pack_neighbors(g.neighbors0, v, g.levels, bits=bits,
                            n_rows=n_rows, chunk=min(1 << 16, n_rows),
                            dequant=self._sq(s), layout=layout)
+            if self._is_local(s) else None
             for s, (g, v) in enumerate(zip(self._graphs, self._vectors))]
-        return sum(p.nbytes for p in self._packed)
+        return sum(self._gather_objects(
+            sum(p.nbytes for p in self._packed if p is not None)))
 
     def disable_packed(self) -> None:
         self._packed = None
@@ -315,7 +415,8 @@ class ShardedHnswIndex:
         arrays of USER ids (-1, inf past the reachable set). ``allowed``:
         a user-id filter, a bool mask or an int id list; it composes with
         the tombstones of ``remove_ids``. Raise ef_search when filtering
-        hard: each shard's traversal is unfiltered."""
+        hard: each shard's traversal is unfiltered. Across processes every
+        rank passes the same queries and gets the full merged result."""
         x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
                        np.float32)
         if self._ntotal == 0:
@@ -328,14 +429,41 @@ class ShardedHnswIndex:
             permit = alive if permit is None else permit & alive
         ef = max(int(ef_search or self.ef_search), k)
         parts = [self._search_shard(s, x, k, ef, permit)
-                 for s in range(self.n_shards)]
+                 for s in self._local]
+        if self._world > 1:
+            parts = self._gather_parts(parts, len(x), k)
         d, i = merge_topk([p[0] for p in parts], [p[1] for p in parts], k)
         return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+
+    def _gather_parts(self, parts: list, n: int, k: int) -> list:
+        """Every shard's (D, I), in shard order, from each rank's own
+        ``parts``: one ``all_gather`` of [L, 2, n, k] float32 (the ids'
+        int32 bits ride as float32), L the most shards a rank owns (a rank
+        with fewer pads with rows it drops). Under NCCL the tensors stay on
+        the card; otherwise they go through host memory for the collective
+        only, and the merge runs back on this rank's device."""
+        import torch.distributed as dist
+        width = max(len(sh) for sh in self._shards_of)
+        dev = self._merge_dev
+        host = not (dev.type == "cuda" and "nccl" in str(dist.get_backend()))
+        mine = torch.zeros((width, 2, n, k), dtype=torch.float32, device=dev)
+        for j, (d, i) in enumerate(parts):
+            mine[j, 0], mine[j, 1] = d, i.view(torch.float32)
+        if host:
+            mine = mine.cpu()
+        out = [torch.empty_like(mine) for _ in range(self._world)]
+        dist.all_gather(out, mine)
+        every = [None] * self.n_shards
+        for r, shards in enumerate(self._shards_of):
+            for j, s in enumerate(shards):
+                row = out[r][j].to(dev)
+                every[s] = (row[0], row[1].view(torch.int32))
+        return every
 
     def _search_shard(self, s: int, x: np.ndarray, k: int, ef: int, permit):
         """Shard ``s``'s top k of every query of ``x``, as user ids on the
         merge device; (inf, -1) for a failed or empty shard."""
-        merge_dev, dev = self._dev[0], self._dev[s]
+        merge_dev, dev = self._merge_dev, self._dev[s]
         if not self._shard_ok[s] or self._graphs[s].ntotal == 0:
             return (torch.full((len(x), k), float("inf"), device=merge_dev),
                     torch.full((len(x), k), -1, dtype=torch.int32,
@@ -371,9 +499,12 @@ class ShardedHnswIndex:
         levels against the count) and a self-query of the shard's first
         live row through the search (k=1, ef=8): a corrupt graph or NaN
         rows fail to return it at a finite distance. One dict per shard;
-        with ``auto_mark`` failing shards leave the merge."""
-        out = []
-        for s, g in enumerate(self._graphs):
+        with ``auto_mark`` failing shards leave the merge. Across
+        processes each rank probes its own shards and every rank gets
+        every report."""
+        mine = []
+        for s in self._local:
+            g = self._graphs[s]
             errors, cnt = [], g.ntotal
             if cnt > 0:
                 if not 0 <= g.entry_point < cnt:
@@ -386,10 +517,13 @@ class ShardedHnswIndex:
                     errors.append(f"self-query probe missed (d={d:.3g})")
             if cnt > self.config.capacity:
                 errors.append("count exceeds capacity")
-            if auto_mark and errors:
-                self._shard_ok[s] = False
-            out.append({"shard": s, "ok": not errors, "count": cnt,
-                        "errors": errors})
+            mine.append({"shard": s, "ok": not errors, "count": cnt,
+                         "errors": errors})
+        out = sorted((r for rs in self._gather_objects(mine) for r in rs),
+                     key=lambda r: r["shard"])
+        for r in out:
+            if auto_mark and not r["ok"]:
+                self._shard_ok[r["shard"]] = False
         return out
 
     def _probe(self, s: int) -> tuple[bool, float]:
@@ -418,7 +552,8 @@ class ShardedHnswIndex:
         """Reload the given shards (default: every failed one) from a
         ``save()`` checkpoint, leaving the other shards as they are, and
         return them to the merge. The checkpoint must hold this index's
-        config and shard count."""
+        config and shard count. Across processes each rank reloads its own
+        shards of the list."""
         shards = self.failed_shards if shards is None else list(shards)
         if not shards:
             return []
@@ -431,7 +566,8 @@ class ShardedHnswIndex:
                                  f"index has {self.n_shards}")
             states = json.loads(bytes(z["rng_states"].item()).decode())
             for s in shards:
-                self._load_shard(z, s)
+                if self._is_local(s):
+                    self._load_shard(z, s)
                 self._builders[s].rng.bit_generator.state = states[s]
                 self._shard_ok[s] = True
         return shards
@@ -480,14 +616,16 @@ class ShardedHnswIndex:
         (``ops/vacuum.py``, shard by shard): links into dead nodes are
         re-pruned away, dead rows cleared, each shard's entry point moved
         to a live node. Searches then skip the tombstone filter; packed
-        tables are dropped. Returns the number of nodes vacuumed."""
+        tables are dropped. Returns the number of nodes vacuumed. Across
+        processes each rank vacuums its own shards."""
         if self._removed is None or self.n_deleted == 0:
             self._routing_clean = True
             return 0
         from ..ops.vacuum import live_entry_point, vacuum_level0, vacuum_upper
         n_dead, metric = self.n_deleted, self.config.metric
         self._packed = None          # rows hold the pre-vacuum adjacency
-        for s, g in enumerate(self._graphs):
+        for s in self._local:
+            g = self._graphs[s]
             gids, vec, sq = self._global_ids[s], self._vectors[s], self._sq(s)
             removed = torch.from_numpy(self._removed).to(self._dev[s])
             dead = (gids >= 0) & removed[gids.clamp(min=0).long()]
@@ -525,7 +663,14 @@ class ShardedHnswIndex:
         """One ``.npz`` with the per-shard arrays stacked on a leading
         shard axis, the config and the host state (the reference's keys):
         loadable by either package onto a mesh of the same shard count.
-        bf16 vectors are widened to f32 (exact), as ``HnswIndex.save``."""
+        bf16 vectors are widened to f32 (exact), as ``HnswIndex.save``.
+        One process only: across processes this raises, as the
+        reference's does."""
+        if self._world > 1:
+            raise RuntimeError("ShardedHnswIndex.save() has no multi-process "
+                               "form: the reference's fetches arrays that "
+                               "span other processes' devices, which JAX "
+                               "refuses")
         gs = self._graphs
         arrs = {f"graph_{f}": np.stack([getattr(g, f).cpu().numpy()
                                         for g in gs]) for f in TENSOR_FIELDS}
@@ -559,7 +704,8 @@ class ShardedHnswIndex:
         (by default every CUDA device), which must have the saved shard
         count. The level generators carry over, so further adds draw what
         the writer's would; tombstones saved before ``vacuum()`` keep
-        filtering."""
+        filtering. On a mesh across processes every rank loads the same
+        file and keeps its own shards."""
         with np.load(path, allow_pickle=False) as z:
             cfg = HnswConfig.from_json(bytes(z["config_json"].item()).decode())
             idx = cls(config=cfg, mesh=mesh)
@@ -569,7 +715,14 @@ class ShardedHnswIndex:
             if "sq_offset" in z.files:
                 idx._set_sq(z["sq_offset"], z["sq_scale"])
             for s in range(idx.n_shards):
-                idx._load_shard(z, s)
+                if idx._is_local(s):
+                    idx._load_shard(z, s)
+                else:
+                    g = idx._graphs[s]
+                    g.entry_point, g.max_level = (int(z["entry"][s]),
+                                                  int(z["max_level"][s]))
+                    g.ntotal, g.n_upper = (int(z["counts"][s]),
+                                           int(z["n_upper"][s]))
             idx._ntotal = int(z["ntotal"])
             states = json.loads(bytes(z["rng_states"].item()).decode())
             for b, st in zip(idx._builders, states):
@@ -583,17 +736,21 @@ class ShardedHnswIndex:
         return idx
 
     def check(self, strict: bool = True) -> list[dict]:
-        """Per-shard structural invariants (``check_invariants``);
-        tombstoned ids are exempt from the liveness invariants."""
-        out = []
-        for s, g in enumerate(self._graphs):
+        """Per-shard structural invariants (``check_invariants``), one dict
+        a shard in shard order; tombstoned ids are exempt from the liveness
+        invariants. Across processes each rank checks its own shards and
+        every rank gets every report."""
+        mine = []
+        for s in self._local:
             alive = None
             if self._removed is not None:
                 gs = self._global_ids[s].cpu().numpy()
                 alive = ~((gs >= 0) & self._removed[np.maximum(gs, 0)])
-            out.append(check_invariants(g, self.config, strict=strict,
-                                        alive=alive))
-        return out
+            mine.append((s, check_invariants(self._graphs[s], self.config,
+                                             strict=strict, alive=alive)))
+        return [st for _, st in sorted(
+            (p for ps in self._gather_objects(mine) for p in ps),
+            key=lambda p: p[0])]
 
 
 def merge_topk(dists: list, ids: list, k: int):

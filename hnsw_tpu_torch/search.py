@@ -12,10 +12,10 @@
          from the packed code row, or K3 from the vectors), then K1
          updates the beam;
        * legacy (``beam_search``), whenever the search asks for a filter
-         (``allowed``), ``n_expand > 1``, ``visited_mode="bitmap"`` or
-         ``HNSW_TPU_PALLAS_HOP=1``: a multi-op hop with bf16 or f32 merge
-         keys (``beam_keys``), and a separate top-k of allowed ids when
-         filtered;
+         (``allowed``), ``n_expand > 1``, ``visited_mode="bitmap"``,
+         ``HNSW_TPU_PALLAS_HOP=1`` or ``HNSW_TPU_BEAM_KERNEL=0``: a
+         multi-op hop with bf16 or f32 merge keys (``beam_keys``), and a
+         separate top-k of allowed ids when filtered;
   3. an exact rerank with K3 of the final [Q, ef] buffer (or, filtered,
      of the [Q, k] result buffer), duplicate collapse, top-k, and the true
      squared L2 restored.
@@ -59,6 +59,13 @@ def _use_pallas_hop() -> bool:
     """The reference's switch, read from the same variable: every distance
     of the search before the rerank goes through K5."""
     return os.environ.get("HNSW_TPU_PALLAS_HOP", "") == "1"
+
+
+def _beam_kernel_off() -> bool:
+    """The reference's kill-switch ``HNSW_TPU_BEAM_KERNEL=0``: the legacy
+    beam on every device. Any other value keeps the fused beam (the
+    reference's choice on its own chip)."""
+    return os.environ.get("HNSW_TPU_BEAM_KERNEL", "") == "0"
 
 
 def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
@@ -243,7 +250,7 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     qn = queries.shape[0]
     pallas_hop = _use_pallas_hop()
     fused = (n_expand == 1 and allowed is None and visited_mode == "buffer"
-             and not pallas_hop)
+             and not pallas_hop and not _beam_kernel_off())
     distance_to = _make_distance_fn(vectors, queries, metric, pallas_hop,
                                     dequant, pq)
 
