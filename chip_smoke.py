@@ -206,6 +206,17 @@ Phases (any failure raises, and the exit code is not 0):
      bar); ``CpuHnsw``'s build seconds and single-core qps printed with
      the host CPU's model and the card's name and power limit.
 
+ 11. phase o, a search as one device program (every search above is
+     replayed from a CUDA graph captured on its key's first call): on the
+     1M index after b2 (o1: packed bytes ef 32 / 64 / 128, unpacked
+     ef=64), after c (o2: words ef=64) and on phase f's sq8 index (o3:
+     unpacked and PQ-coded rows, ef=64), each search with every capture
+     dropped, timed eagerly (``graphs.eager()``) and replayed, 5 synced
+     walls after a warm-up each (median and range), the capture's ms, the
+     host reads of one call of each; the replay must return the eager
+     call's ids, hops and ndis with bit-equal distances. ``--profile``
+     adds the replayed packed ef=64's device-busy share.
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -874,7 +885,9 @@ def k3_calls(module, rec: dict, key):
         before = _cuda.launch_counts()["gathered_vec_dist"]
         out = orig(table, ids, qs, dequant, metric=metric)
         launched = _cuda.launch_counts()["gathered_vec_dist"] - before
-        if launched != int(on_card and ids.numel() > 0):
+        # a launch into a search's graph capture is recorded, not counted
+        capturing = on_card and torch.cuda.is_current_stream_capturing()
+        if launched != int(on_card and ids.numel() > 0 and not capturing):
             raise AssertionError(f"{module.__name__}: a K3 call at ids "
                                  f"{tuple(ids.shape)} on {ids.device} "
                                  f"launched K3 {launched} times")
@@ -966,8 +979,82 @@ def measure_build_k3(k3_build: dict) -> dict:
     return out
 
 
+REPLAY_REPS = 5                  # phase o: synced walls of each form
+
+
+def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
+    """Phase o for one search ``fn()`` (device tensors (D, I, stats)):
+    with every capture dropped, the eager loop (``graphs.eager()``, the
+    plain version of a replay) and the replayed capture, each timed over
+    ``REPLAY_REPS`` synced walls after a warm-up, the capture's ms, the
+    host reads of one call of each, and the replay held to the eager call:
+    ids, hops and ndis equal, distances bit-equal (the same kernels in the
+    same order). With ``profile``, the replay's device-busy share
+    (``profile_window``)."""
+    from hnsw_tpu_torch import graphs
+
+    def walls(call):
+        call()
+        out = []
+        for _ in range(REPLAY_REPS):
+            torch.cuda.synchronize()
+            t = time.time()
+            call()
+            torch.cuda.synchronize()
+            out.append((time.time() - t) * 1e3)
+        return out
+
+    def reads_of(call):
+        torch.cuda.synchronize()
+        r0 = graphs.HOST_READS
+        res = call()
+        torch.cuda.synchronize()
+        return res, graphs.HOST_READS - r0
+
+    graphs.clear()
+    with graphs.eager():
+        want, eager_reads = reads_of(fn)
+        eager_w = walls(fn)
+    torch.cuda.synchronize()
+    t = time.time()
+    fn()                           # eager warm-up, capture, first replay
+    torch.cuda.synchronize()
+    first_ms = (time.time() - t) * 1e3
+    got, replay_reads = reads_of(fn)
+    replay_w = walls(fn)
+    (d, i, st), (wd, wi, wst) = got, want
+    same_ids = torch.equal(i, wi)
+    ok = i >= 0
+    delta = float((d[ok] - wd[ok]).abs().max()) if bool(ok.any()) else 0.0
+    bit_equal = torch.equal(d, wd)
+    same_stats = st.hops == wst.hops and torch.equal(st.ndis, wst.ndis)
+
+    def fmt(w):
+        return (f"median {np.median(w):.2f} ms (range {min(w):.2f}-"
+                f"{max(w):.2f})")
+
+    log(f"o {tag}: eager {fmt(eager_w)}, {eager_reads} host reads; "
+        f"capture {graphs.LAST_CAPTURE_MS:.1f} ms (first call {first_ms:.1f}"
+        f" ms with its eager warm-up); replay {fmt(replay_w)}, "
+        f"{replay_reads} host reads (the stats' hops one of them); ids equal "
+        f"{same_ids}, max |delta d| {delta:.3g}, distances bit-equal "
+        f"{bit_equal}, hops {st.hops} / {wst.hops} and ndis equal "
+        f"{same_stats}; {torch.cuda.get_device_name(0)}")
+    if not (same_ids and bit_equal and same_stats):
+        raise AssertionError(f"o {tag}: the replay differs from the eager "
+                             f"call")
+    if profile:
+        profile_window(f"{tag} (replayed)", fn)
+    return {"eager_ms": eager_w, "replay_ms": replay_w,
+            "capture_ms": graphs.LAST_CAPTURE_MS, "eager_reads": eager_reads,
+            "replay_reads": replay_reads}
+
+
 def timed(fn, runs=2):
-    """(result, best synced wall seconds of ``runs`` runs)."""
+    """(result, best synced wall seconds of ``runs`` runs), after one
+    untimed call: a search's first call of a key runs it eagerly and
+    captures it, so no capture lands in a timed run."""
+    fn()
     best = None
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1115,6 +1202,22 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                                                   "gathered_vec_dist"),
           totals, kill_switch_phase)
 
+    def search_fn(ef, packed):
+        return lambda: idx.search(queries, 10, ef_search=ef, with_stats=True,
+                                  use_packed=packed, device_out=True)
+
+    def replay_bytes():
+        out = {f"packed bytes ef={ef}": eager_vs_replay(
+            f"packed bytes ef={ef}", search_fn(ef, True),
+            profile and ef == 64) for ef in (32, 64, 128)}
+        out["unpacked ef=64"] = eager_vs_replay("unpacked ef=64",
+                                                search_fn(64, False))
+        return out
+
+    replays = phase("o1 eager vs replay, bytes rows", (
+        "beam_update", "packed_row_dist", "gathered_vec_dist"), totals,
+        replay_bytes)
+
     def words_phase():
         # the bytes table waits on the host, so two 8.45 GB tables never
         # sit on the card at once
@@ -1148,6 +1251,11 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
 
     words = phase("words search", ("beam_update", "packed_row_dist_words",
                                    "gathered_vec_dist"), totals, words_phase)
+    replays["packed words ef=64"] = phase(
+        "o2 eager vs replay, words rows", ("beam_update",
+                                           "packed_row_dist_words",
+                                           "gathered_vec_dist"), totals,
+        lambda: eager_vs_replay("packed words ef=64", search_fn(64, True)))
 
     def pallas_phase():
         os.environ["HNSW_TPU_PALLAS_HOP"] = "1"
@@ -1158,7 +1266,9 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                                    "unpacked HNSW_TPU_PALLAS_HOP=1")
             log(f"  K5 calls by K (candidates a query): {by_k}")
             if profile:
-                with k5_calls({}, span=True):
+                from hnsw_tpu_torch import graphs
+                # eager: a replay calls no Python, so no range would open
+                with k5_calls({}, span=True), graphs.eager():
                     profile_window(
                         "unpacked HNSW_TPU_PALLAS_HOP=1 ef=64",
                         lambda: idx.search(queries, 10, ef_search=64,
@@ -1223,7 +1333,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                     lambda: compact_phase(wl, queries, dev))
     return {"build_s": build_s, "recall": recalls, "unpacked": unpacked,
             "words": words, "pallas": pallas, "legacy": legacy,
-            "mutable": mutable, "compact": compact}
+            "mutable": mutable, "compact": compact, "replays": replays}
 
 
 def live_oracle(queries, vectors, alive, n: int, k: int = 10):
@@ -1447,6 +1557,10 @@ def mutable_phase(idx, wl, queries, gt, recall64: float, dev) -> dict:
                                  f"rows differ from HnswIndex.search")
     sizes = np.random.default_rng(5).integers(1, 129, size=64)
     starts = np.concatenate([[0], np.cumsum(sizes)])
+    # the same requests once untimed: the flush's first search of its size
+    # bucket runs eagerly and captures it
+    for h in [s.submit(pool[a:a + m]) for a, m in zip(starts, sizes)]:
+        s.result(h)
     before = dict(s.stats)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1699,6 +1813,17 @@ def codec_path(dev, totals: dict, profile: bool = False) -> dict:
                                                "gathered_vec_dist"),
                                totals, sq8_pq_rows,
                                need_tags=(("gathered_vec_dist", "uint8"),))
+
+    def replay_sq8():
+        return {f"sq8 {tag} ef=64": eager_vs_replay(
+            f"sq8 {tag} ef=64", lambda packed=packed: idx.search(
+                queries, 10, ef_search=64, with_stats=True,
+                use_packed=packed, device_out=True))
+            for tag, packed in (("unpacked", False), ("PQ-coded rows", True))}
+
+    out["replays"] = phase("o3 eager vs replay, sq8", (
+        "beam_update", "gathered_vec_dist"), totals, replay_sq8,
+        need_tags=(("gathered_vec_dist", "uint8"),))
     log(f"sq8 tables: vectors {idx.vectors.numel()} bytes, adjacency "
         f"{idx.graph.neighbors0.numel() * 4} bytes, PQ routing rows "
         f"{idx._packed.nbytes} bytes; peak device memory "
@@ -2228,7 +2353,7 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
         r = recall_at_k(i, gt, 10)
         log(f"  sharded {tag} ef={ef}: recall@10 {r:.4f} (unsharded, phase "
             f"b-c: {unsharded_recall:.4f}), {N_QUERIES / secs:.0f} qps "
-            f"(best of 2, {secs * 1e3:.1f} ms)")
+            f"replayed (best of 2, {secs * 1e3:.1f} ms)")
         out[f"{tag} ef={ef}"] = {"recall": r, "ms": secs * 1e3}
         return d, i, r
 

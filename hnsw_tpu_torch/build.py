@@ -30,6 +30,7 @@ import torch
 
 from .config import IP, L2, HnswConfig
 from .graph import GraphArrays
+from .graphs import EagerLoop
 from .ops import beam as beam_ops
 from .ops.distances import decode_rows
 from .ops.packed import quantize_codes
@@ -108,8 +109,10 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     ep_d = distance_to(ep[:, None], torch.ones_like(ep[:, None],
                                                     dtype=torch.bool))[:, 0]
     to_level = levels.clamp(0, max(max_level, 0))
+    # one read of the level counter a step: an insert batch's descent
+    # takes a few steps, and a chunk would mostly run masked ones
     e, e_d = greedy_descend(graph, distance_to, ep, ep_d, to_level,
-                            cfg.max_level_cap)
+                            cfg.max_level_cap, loop=EagerLoop(1))
 
     # insert beams stop at a hop cap: 0 = auto (~efc / (2 n_expand) + 12
     # hops), > 0 = explicit, < 0 = enough hops to converge

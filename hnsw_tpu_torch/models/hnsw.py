@@ -92,6 +92,9 @@ class HnswIndex:
         # tombstones: bool [capacity] (None: no removals); routing passes
         # through dead ids and results are filtered until vacuum()
         self._alive = None
+        # tombstoned ids, kept on the host by every call that changes
+        # _alive, so a search reads nothing from the card for it
+        self._n_deleted = 0
         self._routing_clean = True
         # rows patched by the last vacuum(): {"level0": n, "upper": n}
         self._last_vacuum = None
@@ -111,9 +114,8 @@ class HnswIndex:
 
     @property
     def n_deleted(self) -> int:
-        if self._alive is None:
-            return 0
-        return self.ntotal - int(self._alive[:self.ntotal].sum())
+        """Tombstoned ids (``remove_ids``), a host count."""
+        return self._n_deleted
 
     @property
     def d(self) -> int:  # faiss naming
@@ -503,6 +505,21 @@ class HnswIndex:
             n = len(x)
             return (np.full((n, k), np.inf, np.float32),
                     np.full((n, k), -1, np.int64))
+        g, v, q, kw = self._search_call(
+            x, k, ef_search=ef_search, with_stats=with_stats,
+            allowed=allowed, max_hops=max_hops, packed=packed,
+            beam_keys=beam_keys, entry_mode=entry_mode)
+        out = hnsw_search(g, v, q, **kw)
+        if device_out:
+            return out
+        d, i = out[0].cpu().numpy(), out[1].cpu().numpy().astype(np.int64)
+        return (d, i, out[2]) if with_stats else (d, i)
+
+    def _search_call(self, x, k: int, *, ef_search=None, with_stats=False,
+                     allowed=None, max_hops=0, packed=None, beam_keys=None,
+                     entry_mode=None):
+        """(graph, vectors, queries, {keywords}) of the ``hnsw_search`` call
+        that ``search`` makes (``search.search_key`` takes the same)."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         x = x.to(self.device, torch.float32)
@@ -511,19 +528,14 @@ class HnswIndex:
         if self._alive is not None and not self._routing_clean:
             allowed = self._alive if allowed is None \
                 else allowed & self._alive
-        out = hnsw_search(
-            self._graph, self._vectors, x, k=k,
-            ef_search=int(ef_search or self.ef_search),
+        return self._graph, self._vectors, x, dict(
+            k=k, ef_search=int(ef_search or self.ef_search),
             metric=self.config.metric,
             max_level_cap=self.config.max_level_cap, max_hops=max_hops,
             n_expand=self.n_expand, with_stats=with_stats, allowed=allowed,
             packed=packed, dequant=self._sq, pq=self._pq,
             beam_keys=beam_keys or self.beam_keys,
             entry_mode=entry_mode or self.entry_mode)
-        if device_out:
-            return out
-        d, i = out[0].cpu().numpy(), out[1].cpu().numpy().astype(np.int64)
-        return (d, i, out[2]) if with_stats else (d, i)
 
     def _oracle_ids(self, x: torch.Tensor, k: int) -> np.ndarray:
         """Exact top-k ids of ``x`` over the stored vectors (x̂ for a
@@ -719,11 +731,12 @@ class HnswIndex:
         if self._alive is None:
             self._alive = torch.ones(self.config.capacity, dtype=torch.bool,
                                      device=self.device)
-        before = self.n_deleted
-        self._alive[torch.from_numpy(ids.astype(np.int64)).to(
-            self.device)] = False
+        t = torch.from_numpy(np.unique(ids).astype(np.int64)).to(self.device)
+        newly = int(self._alive[t].sum())
+        self._alive[t] = False
+        self._n_deleted += newly
         self._routing_clean = False
-        return self.n_deleted - before
+        return newly
 
     def vacuum(self) -> int:
         """Remove tombstoned nodes from routing (``ops/vacuum.py``): links
@@ -843,8 +856,9 @@ class HnswIndex:
         if "pq_codebooks" in xarr:
             idx._set_pq(xarr["pq_codebooks"])
         if "alive" in xarr:
-            idx._alive = torch.from_numpy(
-                np.asarray(xarr["alive"], bool)).to(idx.device)
+            alive = np.asarray(xarr["alive"], bool)
+            idx._alive = torch.from_numpy(alive).to(idx.device)
+            idx._n_deleted = idx.ntotal - int(alive[:idx.ntotal].sum())
             idx._routing_clean = bool(extra.get("routing_clean", False))
         if "builder_rng_state" in extra:
             from ..build import DeviceBuilder

@@ -11,7 +11,10 @@ tests import every module.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``CudaKernel.launch`` raises if that is not 0 and
 otherwise counts the launch. The counts show that a run went through the
-kernels (``launch_counts``).
+kernels (``launch_counts``). A launch into a CUDA graph capture executes
+nothing: between ``start_recording`` and ``stop_recording`` launches are
+recorded, not counted, and ``add_recorded`` adds a graph's record on each
+replay (``graphs.py``).
 """
 
 from __future__ import annotations
@@ -149,11 +152,19 @@ class CudaKernel:
             msg = lib.hnsw_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: CUDA error "
                                f"{err} ({msg})")
-        self.launches += 1
+        if _recording:
+            rec = _recording[-1]
+            rec[(self.name, None)] = rec.get((self.name, None), 0) + 1
+        else:
+            self.launches += 1
 
     def count_tag(self, tag: str) -> None:
         """Count the launch just made under ``tag``."""
-        self.by_tag[tag] = self.by_tag.get(tag, 0) + 1
+        if _recording:
+            rec = _recording[-1]
+            rec[(self.name, tag)] = rec.get((self.name, tag), 0) + 1
+        else:
+            self.by_tag[tag] = self.by_tag.get(tag, 0) + 1
 
 
 KERNELS: dict[str, CudaKernel] = {}
@@ -173,6 +184,30 @@ def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.by_tag.clear()
+
+
+# records of the graph captures in progress: {(kernel, tag or None): n}
+_recording: list[dict] = []
+
+
+def start_recording() -> None:
+    """Launches from here to ``stop_recording`` go into a capture: record
+    them instead of counting them."""
+    _recording.append({})
+
+
+def stop_recording() -> dict:
+    return _recording.pop()
+
+
+def add_recorded(rec: dict) -> None:
+    """Count a captured graph's launches once (one replay)."""
+    for (name, tag), n in rec.items():
+        k = KERNELS[name]
+        if tag is None:
+            k.launches += n
+        else:
+            k.by_tag[tag] = k.by_tag.get(tag, 0) + n
 
 
 def default_device() -> torch.device:

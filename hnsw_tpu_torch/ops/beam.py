@@ -15,12 +15,20 @@ Two loops:
     the build's insert beams run a fixed number of hops with no host read
     (a query whose buffer is fully expanded no longer changes, so the extra
     hops leave every result as the reference's run-to-convergence loop
-    would); the search (``early_exit``) reads once per hop whether any
-    query has an unexpanded entry, so ``hops`` equals the reference's.
+    would); the search (``early_exit``) runs the reference's
+    ``lax.while_loop`` with its condition ``any(~buf_exp) & hops <
+    min(max_hops, hop_limit)`` on the device;
   * ``beam_search_fused`` — one expansion per hop, with all bookkeeping in
     the K1 kernel (``ops/beam_kernel.py``). Serving uses it when no
-    legacy option is asked for. It reads ``(cur >= 0).any()`` once per
-    hop, so ``hops`` equals the reference's.
+    legacy option is asked for. Its condition is the reference's ``any(cur
+    >= 0) & hops < min(max_hops, hop_limit)``, on the device.
+
+A search loop is run by a ``loop`` runner (``graphs.py``): in chunks of
+steps with one host read of the condition after each, or captured into a
+CUDA graph. A step taken once the condition is false leaves the state as
+it was, so ``hops`` counts the iterations where the condition held, as the
+reference's loop does. ``ef_live`` and ``hop_limit`` may be host ints or
+0-d device tensors (a captured search reads them at replay).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from ..graphs import EagerLoop
 from .beam_kernel import beam_update
 
 INF = float("inf")
@@ -40,7 +49,8 @@ class BeamState:
     buf_ids: torch.Tensor   # int32 [Q, ef] ascending by buf_dist; -1 empty
     buf_dist: torch.Tensor  # f32 or bf16 [Q, ef] (+inf for empty slots)
     buf_exp: torch.Tensor   # bool  [Q, ef] (True == expanded OR empty)
-    hops: int               # loop iterations run for the batch
+    hops: int | torch.Tensor  # loop iterations run for the batch (int32
+    #                           0-d tensor from a search loop)
     ndis: torch.Tensor      # int32 [Q] distances computed per query
     visited: torch.Tensor | None = None   # int32 [Q, W] ("bitmap" mode)
     # filtered search: allowed candidates also compete for this result
@@ -121,6 +131,98 @@ def attach_result_buffer(state: BeamState, k: int,
     return dataclasses.replace(state, res_ids=res_ids, res_dist=res_dist)
 
 
+def _limit(max_hops: int, hop_limit):
+    """min(max_hops, hop_limit) for a host int or 0-d tensor hop_limit."""
+    if hop_limit is None:
+        return max_hops
+    if isinstance(hop_limit, torch.Tensor):
+        return torch.clamp(hop_limit, max=max_hops)
+    return min(max_hops, hop_limit)
+
+
+def _legacy_hop(s: dict, gather_neighbors, distance_to, *, n_expand: int,
+                visited_mode: str, allowed, ef_live, expand, live) -> dict:
+    """One hop of the legacy beam on state ``s`` (the BeamState fields).
+    ``live``: None (the build: every query steps, ``torch.topk`` picks the
+    n_expand entries) or the search's 0-d bool condition (a stable sort
+    picks them); a hop with ``live`` false expands nothing, and then every
+    merge below keeps the sorted buffers as they are (a stable sort of a
+    sorted buffer ++ +inf candidates), so the state comes back
+    unchanged."""
+    buf_ids, buf_dist, buf_exp = s["buf_ids"], s["buf_dist"], s["buf_exp"]
+    visited, res_ids, res_dist = s["visited"], s["res_ids"], s["res_dist"]
+    q, ef = buf_ids.shape
+    key = torch.where(buf_exp, INF, buf_dist)
+    if n_expand == 1:
+        j = torch.argmin(key, dim=1, keepdim=True)               # first on ties
+        sel = torch.gather(key, 1, j)
+    elif live is not None:
+        sel, j = torch.sort(key, dim=1, stable=True)
+        sel, j = sel[:, :n_expand], j[:, :n_expand]
+    else:
+        sel, j = torch.topk(key, n_expand, dim=1, largest=False)
+    step_ok = sel < INF                                          # [Q, T]
+    if live is not None:
+        step_ok = step_ok & live
+    cur = torch.where(step_ok, torch.gather(buf_ids, 1, j), 0)
+    buf_exp = buf_exp.scatter(1, j, torch.gather(buf_exp, 1, j) | step_ok)
+
+    if expand is not None:
+        nbrs, pre_dist = expand(cur, step_ok)                    # [Q, T, K]
+    else:
+        nbrs, pre_dist = gather_neighbors(cur), None
+    k = nbrs.shape[2]
+    nbrs = nbrs.reshape(q, -1)
+    valid = (nbrs >= 0) & step_ok[:, :, None].expand(-1, -1, k).reshape(q, -1)
+    if visited_mode == "bitmap":
+        fresh = valid & ~test_visited(visited, nbrs, valid)
+        if n_expand > 1:     # the same id under two parents in one hop
+            fresh &= _first_occurrence_mask(torch.where(fresh, nbrs, -1))
+        mark_visited(visited, nbrs, fresh)
+    else:
+        member = (nbrs[:, :, None] == buf_ids[:, None, :]).any(2)
+        fresh = valid & ~member
+    dist = torch.where(
+        fresh, pre_dist if pre_dist is not None
+        else distance_to(nbrs, fresh), INF)
+    ndis = s["ndis"] + fresh.sum(1, dtype=torch.int32)
+
+    all_d = torch.cat([buf_dist, dist.to(buf_dist.dtype)], 1)
+    payload = torch.cat(
+        [(buf_ids << 1) | buf_exp.to(torch.int32),
+         (torch.where(fresh, nbrs, -1) << 1) | (~fresh).to(torch.int32)],
+        1)
+    sd, order = torch.sort(all_d, dim=1, stable=True)
+    sp = torch.gather(payload, 1, order[:, :ef])
+    buf_dist = sd[:, :ef]
+    buf_ids = sp >> 1
+    buf_exp = (sp & 1) == 1
+    if ef_live is not None:
+        dead = torch.arange(ef, device=buf_ids.device)[None, :] >= ef_live
+        buf_dist = torch.where(dead, INF, buf_dist)
+        buf_ids = torch.where(dead, -1, buf_ids)
+        buf_exp = buf_exp | dead
+
+    if allowed is not None:
+        # dedup against the result buffer BEFORE the merge: a node
+        # displaced from the beam can be re-encountered, and its copy
+        # would evict a genuine rank-k entry
+        res_ok = fresh & allowed[torch.where(fresh, nbrs, 0).long()]
+        res_ok &= ~(nbrs[:, :, None] == res_ids[:, None, :]).any(2)
+        if n_expand > 1:
+            res_ok &= _first_occurrence_mask(
+                torch.where(res_ok, nbrs, -1))
+        rd = torch.cat([res_dist, torch.where(res_ok, dist, INF)], 1)
+        ri = torch.cat([res_ids, torch.where(res_ok, nbrs, -1)], 1)
+        rd, o = torch.sort(rd, dim=1, stable=True)
+        kk = res_ids.shape[1]
+        res_dist, res_ids = rd[:, :kk], torch.gather(ri, 1, o[:, :kk])
+    hops = s["hops"] + (1 if live is None else live.to(torch.int32))
+    return {"buf_ids": buf_ids, "buf_dist": buf_dist, "buf_exp": buf_exp,
+            "hops": hops, "ndis": ndis, "visited": visited,
+            "res_ids": res_ids, "res_dist": res_dist}
+
+
 def beam_search(state: BeamState,
                 gather_neighbors: Callable[[torch.Tensor], torch.Tensor],
                 distance_to: Callable[[torch.Tensor, torch.Tensor],
@@ -128,13 +230,16 @@ def beam_search(state: BeamState,
                 max_hops: int, n_expand: int = 1, *,
                 visited_mode: str = "buffer",
                 allowed: torch.Tensor | None = None,
-                ef_live: int | None = None, hop_limit: int | None = None,
+                ef_live=None, hop_limit=None,
                 expand: Callable | None = None,
-                early_exit: bool = False) -> BeamState:
+                early_exit: bool = False, bound: int | None = None,
+                loop=None) -> BeamState:
     """Best-first hops until ``min(max_hops, hop_limit)``. With
     ``early_exit`` (the search) the loop also stops once every buffer is
-    fully expanded, reading that once per hop; without it (the build) it
-    runs every hop with no host read.
+    fully expanded: the condition is evaluated on the device and read by
+    ``loop`` (``graphs.EagerLoop`` by default: once a chunk of hops), and
+    ``bound`` is a static hop count that surely covers the loop (None:
+    unknown). Without it (the build) every hop runs, with no host read.
 
     gather_neighbors: ids [Q, T] -> neighbor ids [Q, T, K] int32, -1-padded,
         duplicate-free per source node.
@@ -149,102 +254,59 @@ def beam_search(state: BeamState,
     allowed: bool [capacity]; fresh allowed candidates also merge into
         ``state.res_ids`` / ``res_dist`` (``attach_result_buffer``), each id
         once.
-    ef_live: after each merge, slots >= ef_live are killed.
+    ef_live: after each merge, slots >= ef_live are killed (None: none).
     expand: (cur [Q, T], step_ok [Q, T]) -> (nbrs [Q, T, K], dist [Q, T*K])
         replaces gather_neighbors + distance_to (packed rows: every
         candidate's distance comes from the expanded node's code row).
     The buffer keeps ``state.buf_dist``'s dtype (f32 or bf16 merge keys,
         a stable sort of buffer ++ candidates); the result buffer is f32.
     """
-    s = state
-    buf_ids, buf_dist, buf_exp, ndis = s.buf_ids, s.buf_dist, s.buf_exp, s.ndis
-    visited, res_ids, res_dist = s.visited, s.res_ids, s.res_dist
-    q, ef = buf_ids.shape
-    pos = torch.arange(ef, device=buf_ids.device)[None, :]
-    limit = max_hops if hop_limit is None else min(max_hops, hop_limit)
-    hops = s.hops
-    while hops < limit:
-        if early_exit and not bool((~buf_exp).any()):
-            break
-        key = torch.where(buf_exp, INF, buf_dist)
-        if n_expand == 1:
-            j = torch.argmin(key, dim=1, keepdim=True)           # first on ties
-            sel = torch.gather(key, 1, j)
-        elif early_exit:
-            sel, j = torch.sort(key, dim=1, stable=True)
-            sel, j = sel[:, :n_expand], j[:, :n_expand]
-        else:
-            sel, j = torch.topk(key, n_expand, dim=1, largest=False)
-        step_ok = sel < INF                                      # [Q, T]
-        cur = torch.where(step_ok, torch.gather(buf_ids, 1, j), 0)
-        buf_exp = buf_exp.scatter(1, j, torch.gather(buf_exp, 1, j) | step_ok)
+    s = dict(vars(state))
+    limit = _limit(max_hops, hop_limit)
+    kw = dict(n_expand=n_expand, visited_mode=visited_mode, allowed=allowed,
+              ef_live=ef_live, expand=expand)
+    if not early_exit:
+        for _ in range(limit - s["hops"]):
+            s = _legacy_hop(s, gather_neighbors, distance_to, live=None,
+                            **kw)
+    else:
+        if not isinstance(s["hops"], torch.Tensor):
+            # a fill, not a host-to-device copy (a capture has no copies)
+            s["hops"] = torch.full((), s["hops"], dtype=torch.int32,
+                                   device=state.buf_ids.device)
 
-        if expand is not None:
-            nbrs, pre_dist = expand(cur, step_ok)                # [Q, T, K]
-        else:
-            nbrs, pre_dist = gather_neighbors(cur), None
-        k = nbrs.shape[2]
-        nbrs = nbrs.reshape(q, -1)
-        valid = (nbrs >= 0) & step_ok.repeat_interleave(k, dim=1)
-        if visited_mode == "bitmap":
-            fresh = valid & ~test_visited(visited, nbrs, valid)
-            if n_expand > 1:     # the same id under two parents in one hop
-                fresh &= _first_occurrence_mask(torch.where(fresh, nbrs, -1))
-            mark_visited(visited, nbrs, fresh)
-        else:
-            member = (nbrs[:, :, None] == buf_ids[:, None, :]).any(2)
-            fresh = valid & ~member
-        dist = torch.where(
-            fresh, pre_dist if pre_dist is not None
-            else distance_to(nbrs, fresh), INF)
-        ndis = ndis + fresh.sum(1, dtype=torch.int32)
+        def cond(s):
+            return (~s["buf_exp"]).any() & (s["hops"] < limit)
 
-        all_d = torch.cat([buf_dist, dist.to(buf_dist.dtype)], 1)
-        payload = torch.cat(
-            [(buf_ids << 1) | buf_exp.to(torch.int32),
-             (torch.where(fresh, nbrs, -1) << 1) | (~fresh).to(torch.int32)],
-            1)
-        sd, order = torch.sort(all_d, dim=1, stable=True)
-        sp = torch.gather(payload, 1, order[:, :ef])
-        buf_dist = sd[:, :ef]
-        buf_ids = sp >> 1
-        buf_exp = (sp & 1) == 1
-        if ef_live is not None and ef_live < ef:
-            dead = pos >= ef_live
-            buf_dist = torch.where(dead, INF, buf_dist)
-            buf_ids = torch.where(dead, -1, buf_ids)
-            buf_exp = buf_exp | dead
+        def step(s):
+            return _legacy_hop(s, gather_neighbors, distance_to,
+                               live=cond(s), **kw)
 
-        if allowed is not None:
-            # dedup against the result buffer BEFORE the merge: a node
-            # displaced from the beam can be re-encountered, and its copy
-            # would evict a genuine rank-k entry
-            res_ok = fresh & allowed[torch.where(fresh, nbrs, 0).long()]
-            res_ok &= ~(nbrs[:, :, None] == res_ids[:, None, :]).any(2)
-            if n_expand > 1:
-                res_ok &= _first_occurrence_mask(
-                    torch.where(res_ok, nbrs, -1))
-            rd = torch.cat([res_dist, torch.where(res_ok, dist, INF)], 1)
-            ri = torch.cat([res_ids, torch.where(res_ok, nbrs, -1)], 1)
-            rd, o = torch.sort(rd, dim=1, stable=True)
-            kk = res_ids.shape[1]
-            res_dist, res_ids = rd[:, :kk], torch.gather(ri, 1, o[:, :kk])
-        hops += 1
-    return BeamState(buf_ids, buf_dist, buf_exp, hops, ndis, visited,
-                     res_ids, res_dist)
+        s = (loop or EagerLoop()).run(cond, step, s, bound)
+    return BeamState(**s)
 
 
 def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
                       expand: Callable, *, ef: int, max_hops: int,
-                      ef_live: int, hop_limit: int) -> BeamState:
-    """Level-0 search with one K1 launch per hop.
+                      ef_live=None, hop_limit=None, bound: int | None = None,
+                      loop=None) -> BeamState:
+    """Level-0 search with one K1 launch per hop, the reference's
+    ``lax.while_loop`` run by ``loop`` (see ``beam_search``).
 
     expand(cur [Q, 1], step_ok [Q, 1]) -> (nbrs int32 [Q, 1, K], dist f32
     [Q, K]), the contract of ``beam_search``'s expand with T = 1.
     Entries are [Q] or [Q, E] (E < ef), each row distance-sorted with -1 /
     inf for invalid seeds. Column 0 starts expanded with ``cur`` pointing at
     it; the other seeds wait unexpanded in the buffer. Seeds at columns >=
-    ``ef_live`` are dropped, as the first hop's ef_live mask would."""
+    ``ef_live`` are dropped, as the first hop's ef_live mask would.
+
+    ``ef_live`` (None: the whole buffer is live) is applied around K1,
+    which runs with the full width: its merge does not depend on ef_live,
+    so killing slots >= ef_live after it and dropping a ``cur`` that sat
+    in a killed slot (ids are unique in a buffer) is the kernel's own
+    result at ef_live, for a host int or a device tensor alike. A hop past
+    the condition keeps every value as it was (``torch.where``): K1 would
+    otherwise still pick and mark the next slot."""
     if entry_ids.dim() == 1:
         entry_ids, entry_dists = entry_ids[:, None], entry_dists[:, None]
     q, e = entry_ids.shape
@@ -252,25 +314,49 @@ def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
         raise ValueError(f"{e} entry seeds do not fit an ef={ef} buffer")
     dev = entry_ids.device
     col = torch.arange(e, device=dev)[None, :]
-    active = (entry_ids >= 0) & (col < ef_live)
+    active = entry_ids >= 0
+    if ef_live is not None:
+        active = active & (col < ef_live)
     buf_d = torch.full((q, ef), INF, dtype=torch.float32, device=dev)
     buf_d[:, :e] = torch.where(active, entry_dists.float(), INF)
     buf_p = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
     buf_p[:, :e] = torch.where(active, (entry_ids << 1) | (col == 0).int(), -1)
-    cur = torch.where(active[:, 0], entry_ids[:, 0], -1).to(torch.int32)
-    ndis = torch.zeros(q, dtype=torch.int32, device=dev)
-    hops = 0
-    while hops < min(max_hops, hop_limit) and bool((cur >= 0).any()):
+    s = {"buf_d": buf_d, "buf_p": buf_p,
+         "cur": torch.where(active[:, 0], entry_ids[:, 0], -1).to(
+             torch.int32),
+         "ndis": torch.zeros(q, dtype=torch.int32, device=dev),
+         "hops": torch.zeros((), dtype=torch.int32, device=dev)}
+    limit = _limit(max_hops, hop_limit)
+    slot = torch.arange(ef, device=dev)[None, :]
+
+    def cond(s):
+        return (s["cur"] >= 0).any() & (s["hops"] < limit)
+
+    def step(s):
+        live = cond(s)
+        cur = s["cur"]
         step_ok = cur >= 0
         nbrs, dist = expand(torch.where(step_ok, cur, 0)[:, None],
                             step_ok[:, None])
         nbrs = nbrs.reshape(q, -1)
         nbrs = torch.where((nbrs >= 0) & step_ok[:, None], nbrs, -1)
-        buf_d, buf_p, cur, nd = beam_update(buf_d, buf_p, nbrs,
-                                            dist.contiguous(), ef_live)
-        ndis += nd
-        hops += 1
-    return BeamState(buf_p >> 1, buf_d, (buf_p & 1) == 1, hops, ndis)
+        d, p, c, nd = beam_update(s["buf_d"], s["buf_p"], nbrs,
+                                  dist.contiguous(), ef)
+        if ef_live is not None:
+            dead = slot >= ef_live
+            d = torch.where(dead, INF, d)
+            p = torch.where(dead, -1, p)
+            c = torch.where(((p >> 1) == c[:, None]).any(1), c, -1)
+        return {"buf_d": torch.where(live, d, s["buf_d"]),
+                "buf_p": torch.where(live, p, s["buf_p"]),
+                "cur": torch.where(live, c, cur),
+                "ndis": s["ndis"] + torch.where(live, nd, 0),
+                "hops": s["hops"] + live.to(torch.int32)}
+
+    s = (loop or EagerLoop()).run(cond, step, s, bound)
+    buf_p = s["buf_p"]
+    return BeamState(buf_p >> 1, s["buf_d"], (buf_p & 1) == 1, s["hops"],
+                     s["ndis"])
 
 
 def dedup_sorted_buffer(buf_ids: torch.Tensor, buf_dist: torch.Tensor):

@@ -38,8 +38,10 @@ from typing import NamedTuple
 
 import torch
 
+from . import graphs
 from .config import IP, L2
 from .graph import GraphArrays
+from .graphs import EagerLoop
 from .ops import beam as beam_ops
 from .ops.dist_kernel import gathered_vec_dist_ids
 from .ops.distances import decode_rows
@@ -113,49 +115,76 @@ def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
 
 def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
                    entry_dist: torch.Tensor, to_level: torch.Tensor,
-                   max_level_cap: int):
+                   max_level_cap: int, *, max_level=None,
+                   active: torch.Tensor | None = None, loop=None):
     """Batched faiss ``greedy_update_nearest``: an ef=1 walk per level from
     the graph's max level down to (exclusive) each query's ``to_level``.
-    The whole batch steps down a level once no query improves at it (one
-    host read per step). Returns (node [Q], dist [Q])."""
-    lvl = min(max(graph.max_level, 0), max_level_cap)
-    cur, curd = entry, entry_dist
-    moved = torch.ones_like(entry, dtype=torch.bool)
-    while lvl > 0:
-        act = (lvl > to_level) & moved
-        slot = graph.upper_slot[cur].clamp(min=0)
-        nbrs = graph.upper_neighbors[slot, lvl - 1]               # [Q, m]
+    The reference's one ``lax.while_loop`` over a scalar level counter
+    ``l``: the whole batch steps down a level once no query improves at
+    it, and the loop ends at ``l == 0``. ``l`` and ``moved`` live on the
+    device and ``loop`` (``graphs.EagerLoop`` by default) reads the
+    condition once a chunk of steps; a step at ``l == 0`` changes nothing.
+    ``max_level``: the graph's max level as a 0-d tensor (a captured
+    search reads it at replay), else ``graph.max_level``. ``active``
+    (bool [Q]): queries that walk (padded rows do not). Returns (node [Q],
+    dist [Q])."""
+    dev = entry.device
+    if max_level is None:
+        if min(graph.max_level, max_level_cap) <= 0:
+            return entry, entry_dist        # no upper level to walk
+        max_level = torch.tensor(graph.max_level, dtype=torch.int64,
+                                 device=dev)
+    if active is None:
+        active = torch.ones_like(entry, dtype=torch.bool)
+    s = {"l": torch.clamp(max_level.to(torch.int64), 0, max_level_cap),
+         "cur": entry, "curd": entry_dist, "moved": active}
+
+    def cond(s):
+        return s["l"] > 0
+
+    def step(s):
+        lvl, cur, curd, moved = s["l"], s["cur"], s["curd"], s["moved"]
+        run = lvl > 0
+        act = (lvl > to_level) & moved & run
+        slot = graph.upper_slot[cur.long()].clamp(min=0).long()
+        nbrs = graph.upper_neighbors[
+            slot, (lvl - 1).clamp(min=0).expand_as(slot)]         # [Q, m]
         valid = (nbrs >= 0) & act[:, None]
         dn = torch.where(valid, distance_to(nbrs, valid), INF)
         mini = torch.argmin(dn, dim=1, keepdim=True)
         mind = torch.gather(dn, 1, mini)[:, 0]
         better = mind < curd
-        cur = torch.where(better, torch.gather(nbrs, 1, mini)[:, 0], cur)
-        curd = torch.where(better, mind, curd)
-        if bool(better.any()):
-            moved = better
-        else:
-            lvl -= 1
-            moved = torch.ones_like(moved)
-    return cur, curd
+        any_better = better.any()
+        return {"l": torch.where(any_better | ~run, lvl, lvl - 1),
+                "cur": torch.where(better, torch.gather(nbrs, 1, mini)[:, 0],
+                                   cur),
+                "curd": torch.where(better, mind, curd),
+                "moved": torch.where(run, torch.where(any_better, better,
+                                                      active), moved)}
+
+    s = (loop or EagerLoop()).run(cond, step, s)
+    return s["cur"], s["curd"]
 
 
 def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
                   queries: torch.Tensor, metric: str, dequant=None, *,
-                  n_sample: int, n_seeds: int,
+                  n_sample: int, n_seeds: int, ntotal=None,
                   tile_q: int = 2048) -> torch.Tensor:
     """Entry seeds from one dense scan over an evenly strided sample of
     ``n_sample`` ids in [0, ntotal): the sample is cut into ``n_seeds``
     equal contiguous strata and each stratum's argmin is returned, int32
     [Q, n_seeds] (-1 where a stratum had no live candidate). Sampled ids
     must be inserted and non-isolated. sq8 rows are dequantized with
-    ``dequant``. The [tile_q, n_sample] distance block bounds the memory;
-    the caller rescores the seeds exactly."""
+    ``dequant``. ``ntotal``: a 0-d tensor (a captured search reads it at
+    replay), else ``graph.ntotal``. The [tile_q, n_sample] distance block
+    bounds the memory; the caller rescores the seeds exactly."""
     dev = vectors.device
-    nt = max(graph.ntotal, 1)
+    if ntotal is None:
+        ntotal = torch.tensor(graph.ntotal, dtype=torch.int64, device=dev)
+    nt = ntotal.to(torch.int64).clamp(min=1)
     a = torch.arange(n_sample, dtype=torch.int64, device=dev)
     step, rem = nt // n_sample, nt % n_sample
-    ids = torch.clamp(a * step + (a * rem) // n_sample, max=nt - 1)
+    ids = torch.minimum(a * step + (a * rem) // n_sample, nt - 1)
     ok = (graph.levels[ids] >= 0) & (graph.neighbors0[ids, 0] >= 0)
     sv = decode_rows(vectors[ids], dequant)                      # [S, d]
     svsq = (sv * sv).sum(1)
@@ -192,6 +221,29 @@ def compute_sqnorms(vectors: torch.Tensor, dequant=None) -> torch.Tensor:
     return (v * v).sum(-1)
 
 
+class _Statics(NamedTuple):
+    """What a search's program is made from, besides the index tensors:
+    the reference's ``_SEARCH_STATICS`` and the shapes a capture fixes."""
+    k: int
+    ef_buf: int
+    metric: str
+    max_level_cap: int
+    n_expand: int
+    with_stats: bool
+    visited_mode: str
+    pallas_hop: bool
+    key_dtype: str          # the legacy beam's merge keys
+    fused: bool             # the beam engine (HNSW_TPU_BEAM_KERNEL)
+    entry_mode: str
+    n_sample: int
+    n_seeds: int
+    q_rows: int             # padded query rows
+    filtered: bool          # ``allowed`` given
+    bounded: bool           # default hop cap: the loop fits ef_buf + 8 hops
+    ef_full: bool           # ef == ef_buf: no slot past ef_live
+    chunk: int              # graphs.LOOP_CHUNK
+
+
 def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
                 queries: torch.Tensor, *, k: int, ef_search: int,
                 metric: str = L2, max_level_cap: int = 6, max_hops: int = 0,
@@ -225,7 +277,51 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     ``visited_mode``: "buffer" or "bitmap" (the exact visited set; legacy
     beam). ``beam_keys``: the legacy beam's merge keys, "auto" (bf16 when
     routing is already quantized, i.e. packed; f32 otherwise), "bf16" or
-    "f32"; the fused beam always merges in f32."""
+    "f32"; the fused beam always merges in f32.
+
+    The search is one device program (``graphs.py``): its loops evaluate
+    their conditions on the device and the host reads them once a chunk
+    of ``graphs.LOOP_CHUNK`` steps. On a CUDA device the queries are
+    padded to a multiple of 512 rows and the program is replayed from a
+    CUDA graph captured on the key's first search (``search_key``)."""
+    st, key, refs, inputs = _plan(
+        graph, vectors, queries, k=k, ef_search=ef_search, metric=metric,
+        max_level_cap=max_level_cap, max_hops=max_hops, n_expand=n_expand,
+        with_stats=with_stats, visited_mode=visited_mode, allowed=allowed,
+        packed=packed, dequant=dequant, pq=pq, beam_keys=beam_keys,
+        entry_mode=entry_mode)
+
+    def body(inputs, loop):
+        return _search_body(inputs, loop, st, graph, vectors, packed,
+                            dequant, pq)
+
+    if graphs.capturing_enabled(vectors.device):
+        out = graphs.replay_or_capture(key, refs, inputs, body)
+    else:
+        out = body(inputs, EagerLoop(st.chunk))
+    qn = queries.shape[0]
+    out_d, out_i = out["d"][:qn], out["i"][:qn]
+    if with_stats:
+        return out_d, out_i, SearchStats(int(graphs.host_read(out["hops"])),
+                                         out["ndis"][:qn])
+    return out_d, out_i
+
+
+def search_key(graph: GraphArrays, vectors: torch.Tensor,
+               queries: torch.Tensor, **kw) -> tuple:
+    """The capture key of ``hnsw_search(graph, vectors, queries, **kw)``:
+    its statics and the identity (pointer, shape, dtype, strides) of every
+    index tensor the search reads. Runtime values are not in it: the
+    queries (beyond their padded shape), ef within its bucket, hop_limit,
+    the graph's scalars and the filter's contents."""
+    return _plan(graph, vectors, queries, **kw)[1]
+
+
+def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
+          max_level_cap=6, max_hops=0, n_expand=1, with_stats=False,
+          visited_mode="buffer", allowed=None, packed=None, dequant=None,
+          pq=None, beam_keys="auto", entry_mode="auto"):
+    """(statics, key, index tensors, runtime inputs) of one search."""
     if beam_keys not in ("auto", "bf16", "f32"):
         raise ValueError(f"beam_keys must be auto|bf16|f32, got {beam_keys!r}")
     if visited_mode not in ("buffer", "bitmap"):
@@ -246,22 +342,82 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     else:
         hop_limit = 1 << 30
     ef_buf = ef_bucket(ef)
-    queries = queries.float().contiguous()
-    qn = queries.shape[0]
     pallas_hop = _use_pallas_hop()
     fused = (n_expand == 1 and allowed is None and visited_mode == "buffer"
              and not pallas_hop and not _beam_kernel_off())
-    distance_to = _make_distance_fn(vectors, queries, metric, pallas_hop,
-                                    dequant, pq)
-
-    ep = torch.full((qn,), graph.entry_point, dtype=torch.int32,
-                    device=queries.device)
+    if beam_keys == "auto":
+        # bf16 keys where routing is quantized already (packed rows, PQ's
+        # ADC)
+        key_dtype = "bfloat16" if (packed is not None or pq is not None) \
+            else "float32"
+    else:
+        key_dtype = "bfloat16" if beam_keys == "bf16" else "float32"
+    n_sample = n_seeds = 0
     if entry_mode in ("sample", "seed"):
         n_sample = entry_sample_size(vectors.shape[0])
         n_seeds = (min(16, ef_buf // 2) if entry_mode == "seed"
                    else max(1, n_sample // 4096))
+    dev = vectors.device
+    qn, d = queries.shape
+    q_rows = graphs.padded_rows(qn, dev)
+    st = _Statics(
+        k=k, ef_buf=ef_buf, metric=metric, max_level_cap=max_level_cap,
+        n_expand=n_expand, with_stats=with_stats, visited_mode=visited_mode,
+        pallas_hop=pallas_hop, key_dtype=key_dtype, fused=fused,
+        entry_mode=entry_mode, n_sample=n_sample, n_seeds=n_seeds,
+        q_rows=q_rows, filtered=allowed is not None,
+        bounded=max_hops == 0 and allowed is None, ef_full=ef == ef_buf,
+        chunk=graphs.LOOP_CHUNK)
+
+    refs = [graph.neighbors0, graph.levels, graph.upper_slot,
+            graph.upper_node, graph.upper_neighbors, vectors]
+    if isinstance(packed, PackedPQ):
+        refs += [packed.nbr_codes, packed.cb]
+    elif packed is not None:
+        refs += [packed.nbr_codes, packed.nbr_sq, packed.scale,
+                 packed.offset]
+    if dequant is not None:
+        refs += list(dequant)
+    if pq is not None:
+        refs.append(pq)
+    key = (st, type(packed).__name__,
+           None if not isinstance(packed, PackedPQ) else packed.pq_bits, d,
+           tuple(graphs.tensor_identity(t) for t in refs))
+
+    q = queries.to(dev, torch.float32)
+    if q_rows > qn:
+        q = torch.cat([q, q.new_zeros(q_rows - qn, d)])
+    inputs = {"queries": q.contiguous(), "scalars": torch.tensor(
+        [ef, hop_limit, graph.entry_point, graph.max_level, graph.ntotal, qn],
+        dtype=torch.int64).to(dev)}
+    if allowed is not None:
+        inputs["allowed"] = allowed.to(dev, torch.bool)
+    return st, key, refs, inputs
+
+
+def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
+                 vectors: torch.Tensor, packed, dequant, pq) -> dict:
+    """The search as one program over ``inputs`` (padded queries; the
+    runtime scalars ef_live, hop_limit, entry point, max level, ntotal and
+    the real query count; the filter), with its loops run by ``loop``.
+    Returns {"d", "i"} [q_rows, k], "hops" (0-d) and "ndis" [q_rows]."""
+    queries = inputs["queries"]
+    allowed = inputs.get("allowed")
+    sc = inputs["scalars"]
+    ef_live, hop_limit, entry_point = sc[0], sc[1], sc[2]
+    max_level, ntotal, n_queries = sc[3], sc[4], sc[5]
+    metric, ef_buf = st.metric, st.ef_buf
+    qn = queries.shape[0]
+    dev = queries.device
+    active = torch.arange(qn, device=dev) < n_queries    # padded rows: False
+    distance_to = _make_distance_fn(vectors, queries, metric, st.pallas_hop,
+                                    dequant, pq)
+
+    ep = entry_point.to(torch.int32).expand(qn).contiguous()
+    if st.entry_mode in ("sample", "seed"):
         seeds = _sample_seeds(graph, vectors, queries, metric, dequant,
-                              n_sample=n_sample, n_seeds=n_seeds)
+                              n_sample=st.n_sample, n_seeds=st.n_seeds,
+                              ntotal=ntotal)
         # seeds + the global entry point (the fallback when every sampled
         # id is masked), rescored exactly; no seed may repeat the entry
         seeds = torch.where(seeds == ep[:, None], -1, seeds)
@@ -278,14 +434,19 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
             ep0_dist, o = torch.sort(torch.where(dup, INF, ep0_dist), dim=1,
                                      stable=True)
             ep0 = torch.gather(ep0, 1, o)
-        if entry_mode == "sample":
+        if st.entry_mode == "sample":
             ep0, ep0_dist = ep0[:, :1], ep0_dist[:, :1]
     else:
         ep_dist = distance_to(ep[:, None], torch.ones_like(ep[:, None],
                                                            dtype=torch.bool))
         e, e_d = greedy_descend(graph, distance_to, ep, ep_dist[:, 0],
-                                torch.zeros_like(ep), max_level_cap)
+                                torch.zeros_like(ep), st.max_level_cap,
+                                max_level=max_level, active=active,
+                                loop=loop)
         ep0, ep0_dist = e[:, None], e_d[:, None]
+    # padded rows enter with -1 and never expand
+    ep0 = torch.where(active[:, None], ep0, -1)
+    ep0_dist = torch.where(active[:, None], ep0_dist, INF)
 
     neighbors0 = graph.neighbors0
     expand = None
@@ -296,7 +457,9 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
             else make_packed_expand
         expand, shift = make(packed, neighbors0, queries, metric)
         ep0_dist = ep0_dist + shift[:, None]
-    if fused:
+    live_width = None if st.ef_full else ef_live
+    bound = ef_buf + 8 if st.bounded else None
+    if st.fused:
         if expand is None:
             def expand(cur, step_ok):
                 nbrs = neighbors0[cur]                           # [Q, T, m0]
@@ -306,30 +469,22 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
 
         state = beam_ops.beam_search_fused(
             ep0, ep0_dist, expand, ef=ef_buf, max_hops=4 * ef_buf + 16,
-            ef_live=ef, hop_limit=hop_limit)
+            ef_live=live_width, hop_limit=hop_limit, bound=bound, loop=loop)
     else:
-        if beam_keys == "auto":
-            # bf16 keys where routing is quantized already (packed rows,
-            # PQ's ADC)
-            key_dtype = torch.bfloat16 if (packed is not None
-                                           or pq is not None) \
-                else torch.float32
-        else:
-            key_dtype = torch.bfloat16 if beam_keys == "bf16" \
-                else torch.float32
         # the legacy beam starts from the single best entry ("seed" is a
         # fused-beam feature)
         state = beam_ops.init_beam(ep0[:, 0], ep0_dist[:, 0], ef_buf,
-                                   vectors.shape[0],
-                                   visited_mode=visited_mode,
-                                   key_dtype=key_dtype)
+                                   vectors.shape[0], ep0[:, 0] >= 0,
+                                   visited_mode=st.visited_mode,
+                                   key_dtype=getattr(torch, st.key_dtype))
         if allowed is not None:
-            state = beam_ops.attach_result_buffer(state, k, allowed)
+            state = beam_ops.attach_result_buffer(state, st.k, allowed)
         state = beam_ops.beam_search(
             state, lambda ids: neighbors0[ids], distance_to,
-            max_hops=4 * ef_buf + 16, n_expand=n_expand,
-            visited_mode=visited_mode, allowed=allowed, ef_live=ef,
-            hop_limit=hop_limit, expand=expand, early_exit=True)
+            max_hops=4 * ef_buf + 16, n_expand=st.n_expand,
+            visited_mode=st.visited_mode, allowed=allowed,
+            ef_live=live_width, hop_limit=hop_limit, expand=expand,
+            early_exit=True, bound=bound, loop=loop)
 
     # rerank of the final buffer (filtered: of the result buffer) with
     # storage-grade distances, exact f32 / sq8 x̂ (K3 with the affine) /
@@ -345,10 +500,8 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
                                    dequant, metric=metric)
     ids, dist = beam_ops.dedup_sorted_buffer(
         src, torch.where(src >= 0, ex, INF))
-    out_d, out_i = dist[:, :k], ids[:, :k]
+    out_d, out_i = dist[:, :st.k], ids[:, :st.k]
     if metric == L2:
         out_d = out_d + (queries * queries).sum(1, keepdim=True)
     out_d = torch.where(out_i >= 0, out_d, INF)
-    if with_stats:
-        return out_d, out_i, SearchStats(state.hops, state.ndis)
-    return out_d, out_i
+    return {"d": out_d, "i": out_i, "hops": state.hops, "ndis": state.ndis}

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and searches replayed from captured CUDA graphs against the eager loop.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The file
 imports neither jax nor the reference package, so it runs on a machine
@@ -814,3 +815,160 @@ def test_sharded_nan_shard_probe_on_card(card, tmp_path):
     d1, i1 = idx.search(wl.queries, 10, ef_search=64)
     np.testing.assert_array_equal(i1, i0)
     np.testing.assert_array_equal(d1, d0)
+
+
+# ---------------------------------------------------------------- captures
+def _replay_index(card, dtype="float32", n=6000, d=32):
+    """An index built on the card, and its queries."""
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    wl = synthetic_workload(n + 1000, d, n_queries=300, seed=9)
+    kw = {"pq_m": 8} if dtype == "pq" else {}
+    idx = HnswIndex(d, 8, capacity=n + 512, ef_construction=60, dtype=dtype,
+                    device=card, **kw)
+    idx.train(wl.base)
+    idx.add(wl.base[:n])
+    return idx, wl
+
+
+def _eager_and_replay(idx, q, **kw):
+    """(eager result, replayed result) of one search form, device tensors
+    with stats; the second non-eager call is a replay."""
+    from hnsw_tpu_torch import graphs
+    kw = dict(k=10, ef_search=48, with_stats=True, device_out=True, **kw)
+    with graphs.eager():
+        want = idx.search(q, **kw)
+    idx.search(q, **kw)               # warm-up, capture, first replay
+    return want, idx.search(q, **kw)
+
+
+def _assert_same(got, want):
+    (d, i, st), (wd, wi, wst) = got, want
+    assert torch.equal(i, wi)
+    assert torch.equal(d, wd)          # bit-equal: same kernels, same order
+    assert st.hops == wst.hops
+    assert torch.equal(st.ndis, wst.ndis)
+
+
+REPLAY_FORMS = {
+    "bytes": ("float32", dict(packed="bytes")),
+    "words": ("float32", dict(packed="words")),
+    "unpacked": ("float32", {}),
+    "descend": ("float32", dict(entry_mode="descend")),
+    "sq8": ("sq8", {}),
+    "pq_rows": ("sq8", dict(packed="pq")),
+    "pq_storage": ("pq", {}),
+    "legacy_filtered": ("float32", dict(allowed="even")),
+    "legacy_n_expand": ("float32", dict(n_expand=2)),
+    "converge": ("float32", dict(max_hops=-1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(REPLAY_FORMS))
+def test_replay_equals_eager_on_card(card, form):
+    """Every search form replayed from its capture returns the eager
+    loop's ids, hops and ndis, its distances bit for bit."""
+    dtype, kw = REPLAY_FORMS[form]
+    idx, wl = _replay_index(card, dtype)
+    kw = dict(kw)
+    packed = kw.pop("packed", None)
+    if packed in ("bytes", "words"):
+        idx.enable_packed(bits=8, layout=packed)
+    elif packed == "pq":
+        idx.enable_packed(mode="pq", pq_m=8)
+    if kw.get("allowed") == "even":
+        kw["allowed"] = np.arange(0, idx.ntotal, 2)
+    idx.n_expand = kw.pop("n_expand", 1)
+    want, got = _eager_and_replay(idx, wl.queries, **kw)
+    _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_replay_follows_the_mutable_index_on_card(card):
+    """A capture made before add(), remove_ids() + vacuum() and grow()
+    replays the index as it is after each (the graph's scalars are inputs;
+    grow drops the capture), equal to an eager search of the mutated
+    index."""
+    from hnsw_tpu_torch import graphs
+    idx, wl = _replay_index(card)
+    idx.enable_packed(bits=8, reserve=512)    # room for the add in place
+    q = wl.queries
+    kw = dict(k=10, ef_search=48, with_stats=True, device_out=True)
+    idx.search(q, **kw)
+    idx.search(q, **kw)
+    keys = len(graphs._CACHE)
+    idx.add(wl.base[6000:6400])
+    assert idx._last_refresh["branch"] == "incremental"
+    _assert_same(idx.search(q, **kw), _eager(idx, q, kw))
+    assert len(graphs._CACHE) == keys       # replayed, not captured
+    idx.remove_ids(np.arange(0, 6400, 7))
+    idx.vacuum()
+    idx.enable_packed(bits=8)
+    got = idx.search(q, **kw)
+    _assert_same(got, _eager(idx, q, kw))
+    assert not np.isin(got[1].cpu().numpy(), np.arange(0, 6400, 7)).any()
+    idx.grow(8192)
+    _assert_same(idx.search(q, **kw), _eager(idx, q, kw))
+
+
+def _eager(idx, q, kw):
+    from hnsw_tpu_torch import graphs
+    with graphs.eager():
+        return idx.search(q, **kw)
+
+
+@pytest.mark.cuda
+def test_replay_outputs_are_the_callers_on_card(card):
+    """device_out results are copies: the next search of the same key (a
+    replay writing the same graph buffers) leaves them as they were."""
+    idx, wl = _replay_index(card)
+    kw = dict(k=10, ef_search=48, device_out=True)
+    d1, i1 = idx.search(wl.queries[:100], **kw)
+    keep = d1.clone(), i1.clone()
+    idx.search(wl.queries[100:200], **kw)
+    assert torch.equal(d1, keep[0]) and torch.equal(i1, keep[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_hops", [0, -1])
+def test_replay_counts_its_launches_on_card(card, monkeypatch, max_hops):
+    """Each replay adds its graphs' recorded launches: the counts of one
+    replayed search equal the eager loop's when both run the same steps
+    (a bounded loop in one chunk eagerly; a convergence loop in the same
+    chunks), and a capture counts nothing."""
+    from hnsw_tpu_torch import graphs
+    idx, wl = _replay_index(card)
+    idx.enable_packed(bits=8)
+    kw = dict(k=10, ef_search=48, device_out=True, max_hops=max_hops)
+    idx.search(wl.queries, **kw)
+    _cuda.reset_launch_counts()
+    idx.search(wl.queries, **kw)
+    replayed = _cuda.launch_counts()
+    if max_hops == 0:
+        monkeypatch.setattr(graphs, "LOOP_CHUNK", 1 << 20)
+    _cuda.reset_launch_counts()
+    _eager(idx, wl.queries, kw)
+    assert _cuda.launch_counts() == replayed
+    assert replayed["beam_update"] > 0 and replayed["packed_row_dist"] > 0
+    assert replayed["gathered_vec_dist"] == 2       # entry and rerank
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(card, monkeypatch):
+    """A search whose program reads the card mid-capture raises; nothing
+    falls back to the eager loop."""
+    import hnsw_tpu_torch.search as search
+    idx, wl = _replay_index(card)
+    orig = search.gathered_vec_dist_ids
+
+    def reads(*a, **kw):
+        out = orig(*a, **kw)
+        float(out.sum())             # a host read: illegal in a capture
+        return out
+
+    monkeypatch.setattr(search, "gathered_vec_dist_ids", reads)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        idx.search(wl.queries, 10, ef_search=40)
+    monkeypatch.undo()
+    d, i = idx.search(wl.queries, 10, ef_search=40)
+    assert (i[:, 0] >= 0).all()
