@@ -25,10 +25,17 @@ Phases (any failure raises, and the exit code is not 0):
      seed=1234)`` (SIFT1M-shaped, n = 1,000,000 by default), in phases on
      ONE index, each with the launch counts set to 0 just before it and
      read just after (every kernel a phase needs must have launched):
-       a. build with M=32 / efConstruction=100 and ``check()`` (K3); K3's
-          launches counted by K, and on the last insert batch's own ids at
-          each K (the build's shapes) K3 held against its plain version
-          and timed against its bound;
+       a. build with M=32 / efConstruction=100 and ``check()`` (K3), its
+          insert batches replayed from captured CUDA graphs (batches,
+          profiles, replays, captures and their ms, host reads and peak
+          memory printed; ``--profile`` adds ten late replayed batches
+          under the profiler: device busy share and top ops); K3's
+          launches counted by K, a captured call's once each replay, and
+          on the last eager insert batch's own ids at each K (the build's
+          shapes) K3 held against its plain version and timed against its
+          bound; then again at the level-0 hop's K on ids of the built
+          graph (four random nodes' rows for each of 2,048 points, a late
+          batch's first hop: the kernels line's build row);
        b. ``enable_packed(bits=8)`` (bytes rows), exact ground truth from
           ``brute_force_topk`` on the card, k=10 searches at ef in {32, 64,
           128} packed and ef=64 unpacked (K1, K2, K3). Requires packed
@@ -159,7 +166,9 @@ Phases (any failure raises, and the exit code is not 0):
      capacity_per_shard=250_000, ef_construction=100)``, four shards on
      the one card, driven one after another; each sub-phase with the
      launch counts set to 0 before it and read after:
-       l1. the build (K3), timed, ``check()`` clean on every shard; then
+       l1. the build (K3; each shard's insert batches replayed from its
+           own captures: batches, replays, captures, host reads and peak
+           memory printed), timed, ``check()`` clean on every shard; then
            K3 at each K the shards' insert batches gave it (Q=1,024 a
            batch), on the last widest call's own ids, held against its
            plain version and timed against its bound;
@@ -217,6 +226,19 @@ Phases (any failure raises, and the exit code is not 0):
      call's ids, hops and ndis with bit-equal distances. ``--profile``
      adds the replayed packed ef=64's device-busy share.
 
+ 12. phase p, the build as one device program, after phase j (the 1M
+     index freed): a 100,000-point cut of the north-star workload (M=32,
+     efC=100) built 3 times eagerly (``graphs.eager()``, the plain version
+     of a replay) and 3 times with its batches replayed, each synced; each
+     build held to the first eager one array for array (``neighbors0``,
+     ``upper_neighbors``, ``levels``, ``upper_slot``, ``upper_node``, the
+     vectors and the scalars), every id written, K3's launches and the
+     host reads equal. Prints the walls (median and range), host reads,
+     batches, profiles (capture keys), captures and their ms, K3 launches
+     and peak memory of each form; ``--profile`` adds five late batches of
+     each form under the profiler (the eager one with the device time of
+     each stage: descent, beams, select-neighbors, back-link repair).
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -230,8 +252,10 @@ as main-path launches.
 The next-to-last lines are one JSON object with each kernel's launches
 (summed over every phase of 4 and 6-10, phase m's ranks' included; K3 and
 K5 by row dtype, one row each, K3 at the refine's shape with the refine's
-own launches, and K3 at the shape that took the sharded build's most
-kernel time, with all of the build's K3 launches), error, times and
+own launches, K3 at phase a's level-0 hop on ids of the built graph with
+that hop's launches, replays included, and K3 at the shape that
+took the sharded build's most kernel time, with all of the build's K3
+launches), error, times and
 bound, and the ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -786,7 +810,6 @@ def profile_window(tag: str, fn, top: int = 8, span: str | None = None
     / median unprofiled wall. Prints the ``top`` ops by device time and,
     with ``span``, the device time of the profiler ranges of that name
     (``k5_calls``: one kernel each)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -804,31 +827,57 @@ def profile_window(tag: str, fn, top: int = 8, span: str | None = None
         fn()
         torch.cuda.synchronize()
     prof_wall = (time.time() - t) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy = max(busy / 1e3, 1e-9)
+    busy = busy_ms(prof)
     wall = float(np.median(walls))
     log(f"profile {tag}: unprofiled wall median {wall:.1f} ms (range "
         f"{min(walls):.1f}-{max(walls):.1f}), profiled wall {prof_wall:.1f} "
         f"ms, device busy {busy:.2f} ms, busy share {busy / wall:.3f} / "
         f"{busy / prof_wall:.3f} (of the profiled wall)")
+    log_top_ops(prof, busy, top, span)
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
 
+def busy_ms(prof) -> float:
+    """The union of a profiled window's CUDA events, in ms (the device-side
+    annotations of profiler ranges, which span their gaps, left out)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return max(busy / 1e3, 1e-9)
+
+
+def dev_us(e) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def log_top_ops(prof, busy: float, top: int, span: str | None = None,
+                stages=()):
+    """The ``top`` ops of a profiled window by device time; with ``span``
+    the device time of the profiler ranges of that name; and for each name
+    in ``stages`` the device time of the kernels launched inside its host
+    ranges (idle gaps not counted)."""
     ops = sorted(prof.key_averages(), key=dev_us, reverse=True)[:top]
     for e in ops:
         us = dev_us(e)
         log(f"  {e.key[:60]}: {us / 1e3:.3f} ms device ({us / 1e3 / busy:.1%}"
             f" of busy), {e.count} calls")
+    from torch.autograd import DeviceType
+    for name in stages:
+        # the host range's kernels and its children's (the range's own
+        # annotation on the device would count the gaps between them)
+        hits = [e for e in prof.events()
+                if e.name == name and e.device_type == DeviceType.CPU]
+        us = sum(e.device_time_total for e in hits)
+        log(f"  {name}: {us / 1e3:.3f} ms device in its kernels "
+            f"({us / 1e3 / busy:.1%} of busy), {len(hits)} calls")
     if span is not None:
         # the range appears twice: on the host (no device time) and as its
         # annotation on the device's timeline, which spans its kernels
@@ -872,20 +921,26 @@ def k3_calls(module, rec: dict, key):
     """``module``'s K3 entry point (``gathered_vec_dist_ids``) wrapped for
     the block: each call's launches read from K3's own counter, just before
     and just after it (where CUDA is available, a call with work that did
-    not launch K3 exactly once raises; a rehearsal on the CPU expects none),
-    added to ``rec[key(ids)]["launches"]``, and each key's last
-    call at its widest Q kept as ``"args"`` (table, ids, qs, dequant,
-    metric), which ``measure_build_k3`` / ``measure_refine_k3`` hold and
-    time. As a decorator it wraps one function's run."""
+    not launch K3 exactly once raises, or once captured into a CUDA graph;
+    a rehearsal on the CPU expects none), added to
+    ``rec[key(ids)]["launches"]``, a captured call's once each replay of
+    its graph; and each key's last eager call at its widest Q kept as
+    ``"args"`` (table, ids, qs, dequant, metric), which
+    ``measure_build_k3`` / ``measure_refine_k3`` hold and time. As a
+    decorator it wraps one function's run."""
     from hnsw_tpu_torch.ops import _cuda
     orig = module.gathered_vec_dist_ids
+    orig_add = _cuda.add_recorded
     on_card = torch.cuda.is_available()
+    # a capture's launch record (the dict a replay adds, kept alive here)
+    # -> the keys of the K3 calls captured into it
+    captured: dict = {}
 
     def recording(table, ids, qs, dequant=None, *, metric):
         before = _cuda.launch_counts()["gathered_vec_dist"]
         out = orig(table, ids, qs, dequant, metric=metric)
         launched = _cuda.launch_counts()["gathered_vec_dist"] - before
-        # a launch into a search's graph capture is recorded, not counted
+        # a launch into a graph capture is recorded, not counted
         capturing = on_card and torch.cuda.is_current_stream_capturing()
         if launched != int(on_card and ids.numel() > 0 and not capturing):
             raise AssertionError(f"{module.__name__}: a K3 call at ids "
@@ -893,15 +948,26 @@ def k3_calls(module, rec: dict, key):
                                  f"launched K3 {launched} times")
         r = rec.setdefault(key(ids), {"launches": 0, "args": None})
         r["launches"] += launched
-        if r["args"] is None or ids.shape[0] >= r["args"][1].shape[0]:
+        if capturing:      # its launches come with each replay; its
+            record = _cuda._recording[-1]      # tensors are the pool's
+            captured.setdefault(id(record), (record, []))[1].append(
+                key(ids))
+        elif r["args"] is None or ids.shape[0] >= r["args"][1].shape[0]:
             r["args"] = (table, ids, qs, dequant, metric)
         return out
 
+    def add_recorded(record):
+        for k in captured.get(id(record), (None, ()))[1]:
+            rec[k]["launches"] += 1
+        orig_add(record)
+
     module.gathered_vec_dist_ids = recording
+    _cuda.add_recorded = add_recorded
     try:
         yield
     finally:
         module.gathered_vec_dist_ids = orig
+        _cuda.add_recorded = orig_add
 
 
 def build_k3_calls(k3_build: dict):
@@ -979,6 +1045,42 @@ def measure_build_k3(k3_build: dict) -> dict:
     return out
 
 
+def late_hop_k3(idx, launches: int, expand: int = 4) -> dict:
+    """K3 at the build's level-0 hop (2,048 queries, K = ``expand``
+    expanded nodes x m0 neighbours) on the built graph: the inputs of a
+    late insert batch's first hop, which a replay keeps out of Python's
+    reach. 2,048 random points of the index as queries, each expanding
+    four random nodes' level-0 rows; empty slots read row 0, as a hop
+    masks them. Held against its plain version, timed and bounded;
+    ``launches``: the build's K3 launches at that K, replays included."""
+    from hnsw_tpu_torch.ops import dist_kernel as dk
+    g, vec = idx._graph, idx._vectors
+    q, n, dev = 2048, idx.ntotal, vec.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cur = torch.randint(0, n, (q, expand), generator=gen, device=dev)
+    ids = g.neighbors0[cur].reshape(q, -1)
+    ids = torch.where(ids >= 0, ids, 0).to(torch.int32).contiguous()
+    qs = vec[torch.randint(0, n, (q,), generator=gen, device=dev)].float()
+    k = ids.shape[1]
+    err = compare(f"gathered_vec_dist at a late build hop Q={q} K={k}",
+                  dk.gathered_vec_dist_ids(vec, ids, qs, metric="l2"),
+                  dk.gathered_vec_dist_plain(vec, ids, qs, metric="l2"),
+                  rtol=1e-5, atol=1e-3)
+    b = gather_bound(ids, vec.shape[1], ip=False)
+    ms = time_ms(lambda: dk.gathered_vec_dist_ids(vec, ids, qs,
+                                                  metric="l2"))
+    plain = time_ms(lambda: dk.gathered_vec_dist_plain(vec, ids, qs,
+                                                       metric="l2"))
+    log(f"K3 at a late build hop (Q={q} K={k} on the {n}-point graph, "
+        f"row-0 share {float((ids == 0).float().mean()):.3f}): {launches} "
+        f"launches at K={k} in the build, replays included; kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']}, share of bound {b['bound_ms'] / ms:.2f}")
+    return dict(b, max_abs_err=err, ms=ms, plain_ms=plain, launches=launches,
+                shape=f"Q={q} K={k} d={vec.shape[1]}")
+
+
 REPLAY_REPS = 5                  # phase o: synced walls of each form
 
 
@@ -1050,6 +1152,207 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
             "replay_reads": replay_reads}
 
 
+def build_stats(tag: str, builder, reads: int) -> dict:
+    """Log what the last ``add()`` of ``builder`` ran (its
+    ``StagedBuild.stats()``: batches, profiles, replayed / eager /
+    captured, capture ms) and its host reads; returns the stats."""
+    st = dict(builder.last_stats, host_reads=reads)
+    cms = st.get("capture_ms", [])
+    log(f"{tag} insert batches: {st['batches']} ({st['profiles']} profiles)"
+        f": {st.get('replayed', 0)} replayed, {st.get('eager', 0)} eager, "
+        f"{st.get('captured', 0)} eager then captured "
+        f"(capture ms {', '.join(f'{c:.0f}' for c in cms) or 'none'}); "
+        f"{reads} host reads ({reads / max(st['batches'], 1):.2f} a batch)")
+    return st
+
+
+@contextlib.contextmanager
+def profile_batches(tag: str, first: int, count: int, top: int = 10,
+                    stages=()):
+    """Profile ``count`` insert batches of the next build, from its batch
+    ``first`` on (replays, at a late and steady shape): the wall is synced
+    at the window's two ends; device busy = the union of the window's CUDA
+    events; busy share = busy / wall. Prints the top ops, and for each
+    name in ``stages`` the device time of its ranges' kernels (eager
+    batches only, under ``build_spans``: a replay runs no Python)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_tpu_torch import build as build_mod
+    orig = build_mod.StagedBuild.step
+    st = {"i": 0}
+
+    def step(self):
+        i = st["i"]
+        st["i"] += 1
+        if i == first:
+            torch.cuda.synchronize()
+            st["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            st["prof"].start()
+            st["t0"] = time.time()
+        orig(self)
+        if i == first + count - 1:
+            torch.cuda.synchronize()
+            st["wall"] = (time.time() - st["t0"]) * 1e3
+            st["prof"].stop()
+
+    build_mod.StagedBuild.step = step
+    try:
+        yield
+    finally:
+        build_mod.StagedBuild.step = orig
+    if "wall" not in st:
+        raise AssertionError(f"profile {tag}: the build ran {st['i']} "
+                             f"batches, fewer than {first + count}")
+    busy = busy_ms(st["prof"])
+    log(f"profile {tag}: batches {first}-{first + count - 1}, wall "
+        f"{st['wall']:.1f} ms ({st['wall'] / count:.2f} ms a batch), device "
+        f"busy {busy:.2f} ms, busy share {busy / st['wall']:.3f}; "
+        f"{torch.cuda.get_device_name(0)}")
+    log_top_ops(st["prof"], busy, top, stages=stages)
+    k3 = [e for e in st["prof"].key_averages() if "vec_dist" in e.key]
+    us, calls = sum(dev_us(e) for e in k3), sum(e.count for e in k3)
+    log(f"  K3 in the window: {us / 1e3:.3f} ms device over {calls} "
+        f"launches ({us / 1e3 / max(calls, 1):.4f} ms a launch, every K)")
+
+
+# an eager insert batch's stages: (module, function) run inside profiler
+# ranges of the name for the block of ``build_spans``
+BUILD_STAGES = {"build: descent": ("build", "greedy_descend"),
+                "build: beams": ("beam", "beam_search"),
+                "build: select": ("build", "select_neighbors"),
+                "build: back-links": ("build", "apply_backlinks")}
+
+
+@contextlib.contextmanager
+def build_spans():
+    """Each of ``BUILD_STAGES`` run inside a profiler range of its name for
+    the block (the back-links' own prune and the beams' hops inside
+    theirs)."""
+    from hnsw_tpu_torch import build as build_mod
+    from hnsw_tpu_torch.ops import beam as beam_mod
+    mods = {"build": build_mod, "beam": beam_mod}
+    saved = []
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    for name, (mod, attr) in BUILD_STAGES.items():
+        saved.append((mods[mod], attr, getattr(mods[mod], attr)))
+        setattr(mods[mod], attr, wrap(name, saved[-1][2]))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+BUILD_CUT_N = 100_000            # phase p: the eager and captured builds
+BUILD_REPS = 3                   # phase p: builds of each form
+
+
+def build_capture_phase(dev, totals: dict, profile: bool = False) -> dict:
+    """Phase p (module docstring): the build as one device program, on a
+    100,000-point cut of the north-star workload: ``BUILD_REPS`` eager
+    builds (``graphs.eager()``, the plain version of a replay) and
+    captured builds in one process, each synced, each captured build held
+    to the first eager one array for array, with K3's launches and the
+    host reads equal. With ``profile``, five late batches of one more
+    build of each form under the profiler (the eager one with the device
+    time of each stage, ``BUILD_STAGES``)."""
+    from hnsw_tpu_torch import HnswIndex, graphs, synthetic_workload
+    from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
+    from hnsw_tpu_torch.ops import _cuda
+    n = BUILD_CUT_N
+    wl = synthetic_workload(n, 128, n_queries=1, seed=1234)
+
+    def one(eager: bool):
+        idx = HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
+                        device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = _cuda.launch_counts()["gathered_vec_dist"]
+        r0 = graphs.HOST_READS
+        t = time.time()
+        with graphs.eager() if eager else contextlib.nullcontext():
+            idx.add(wl.base)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        out = {"wall_s": wall, "reads": graphs.HOST_READS - r0,
+               "k3": _cuda.launch_counts()["gathered_vec_dist"] - k0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        form = "eager" if eager else "captured"
+        out["stats"] = build_stats(f"p {form} build {wall:.2f} s",
+                                   idx._builder, out["reads"])
+        return idx, out
+
+    def same(a, b) -> bool:
+        ga, gb = a._graph, b._graph
+        return (all(torch.equal(getattr(ga, f), getattr(gb, f))
+                    for f in TENSOR_FIELDS)
+                and all(getattr(ga, f) == getattr(gb, f)
+                        for f in SCALAR_FIELDS)
+                and torch.equal(a._vectors, b._vectors))
+
+    def run():
+        want, runs = None, {"eager": [], "captured": []}
+        for eager in [True] * BUILD_REPS + [False] * BUILD_REPS:
+            idx, r = one(eager)
+            form = "eager" if eager else "captured"
+            if want is None:
+                want = idx
+                st = idx.check()
+                if st["errors"]:
+                    raise AssertionError(f"p: {st['errors']}")
+            elif not same(idx, want):
+                raise AssertionError(f"p: a {form} build differs from the "
+                                     f"first eager build")
+            lv = idx._graph.levels
+            if idx.ntotal != n or not bool((lv >= 0).all()):
+                raise AssertionError(f"p: {form} build wrote "
+                                     f"{int((lv >= 0).sum())} of {n} ids")
+            runs[form].append(r)
+            del idx
+        e, c = runs["eager"], runs["captured"]
+        if {r["k3"] for r in e + c} != {e[0]["k3"]} or \
+                {r["reads"] for r in e + c} != {e[0]["reads"]}:
+            raise AssertionError("p: K3 launches or host reads differ "
+                                 "between the builds")
+
+        def fmt(rs):
+            w = [r["wall_s"] for r in rs]
+            return (f"median {np.median(w):.2f} s (range {min(w):.2f}-"
+                    f"{max(w):.2f}), peak {max(r['peak_gb'] for r in rs):.2f}"
+                    f" GB")
+
+        cst = c[-1]["stats"]
+        if profile:
+            late = n // 2048 - 8
+            with profile_batches("p eager build", late, 5, 16,
+                                 tuple(BUILD_STAGES)), build_spans(), \
+                    graphs.eager():
+                HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
+                          device=dev).add(wl.base)
+            with profile_batches("p captured build", late, 5, 16):
+                HnswIndex(128, 32, "l2", capacity=n, ef_construction=100,
+                          device=dev).add(wl.base)
+        log(f"p build of {n} x 128 (M=32, efC=100), eager {fmt(e)}; "
+            f"captured {fmt(c)}; every captured build equal to the eager "
+            f"one array for array (neighbors0, upper_neighbors, levels, "
+            f"upper_slot, upper_node, vectors, scalars), every id written; "
+            f"{cst['batches']} batches, {cst['profiles']} profiles, "
+            f"{cst.get('captured', 0)} captured; host reads {e[0]['reads']}"
+            f" an add() in both forms; K3 launches {e[0]['k3']} in both; "
+            f"{torch.cuda.get_device_name(0)}")
+        return runs
+
+    return phase("p build eager vs captured", ("gathered_vec_dist",),
+                 totals, run)
+
+
 def timed(fn, runs=2):
     """(result, best synced wall seconds of ``runs`` runs), after one
     untimed call: a search's first call of a key runs it eagerly and
@@ -1111,12 +1414,21 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     k3_build: dict = {}
 
     def build():
+        from hnsw_tpu_torch import graphs
+        r0 = graphs.HOST_READS
         t0 = time.time()
-        idx.add(wl.base)
+        # --profile: ten late insert batches (replays) under the profiler
+        late = n // 2048 - 20
+        with profile_batches("a build (replayed batches)", late, 10) \
+                if profile else contextlib.nullcontext():
+            idx.add(wl.base)
         torch.cuda.synchronize()
         build_s = time.time() - t0
         log(f"build: {build_s:.1f} s ({n / build_s:.0f} inserts/s), "
-            f"back-link window drops {idx._builder.last_backlink_dropped}")
+            f"back-link window drops {idx._builder.last_backlink_dropped}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB; {torch.cuda.get_device_name(0)}")
+        build_stats("a", idx._builder, graphs.HOST_READS - r0)
         t0 = time.time()
         stats = idx.check()
         log(f"check: {time.time() - t0:.1f} s, errors {stats['errors']}, "
@@ -1130,6 +1442,8 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                     build_k3_calls(k3_build)(build))
     queries = torch.from_numpy(wl.queries).to(dev)
     measure_build_k3(k3_build)
+    hop_k = max(k3_build)            # the level-0 hop's K
+    build_k3 = late_hop_k3(idx, k3_build[hop_k]["launches"])
     del k3_build
 
     def run(ef, packed, tag):
@@ -1333,7 +1647,8 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
                     lambda: compact_phase(wl, queries, dev))
     return {"build_s": build_s, "recall": recalls, "unpacked": unpacked,
             "words": words, "pallas": pallas, "legacy": legacy,
-            "mutable": mutable, "compact": compact, "replays": replays}
+            "mutable": mutable, "compact": compact, "replays": replays,
+            "build_k3": build_k3}
 
 
 def live_oracle(queries, vectors, alive, n: int, k: int = 10):
@@ -1696,16 +2011,22 @@ def recall_untied(i, hat: np.ndarray, hat_d, k: int = 10):
 
 def build_codec(idx, base: np.ndarray, train_x: np.ndarray, tag: str):
     """train + add + check() of a codec index; prints seconds and stats."""
+    from hnsw_tpu_torch import graphs
     t0 = time.time()
     idx.train(train_x)
     torch.cuda.synchronize()
     t1 = time.time()
+    r0 = graphs.HOST_READS
     idx.add(base)
     torch.cuda.synchronize()
     build_s = time.time() - t1
+    build_stats(tag, getattr(idx, "index", idx)._builder,
+                graphs.HOST_READS - r0)
     stats = idx.check()
     log(f"{tag} build: train {t1 - t0:.1f} s, add {build_s:.1f} s "
-        f"({len(base) / build_s:.0f} inserts/s), errors {stats['errors']}, "
+        f"({len(base) / build_s:.0f} inserts/s), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, errors "
+        f"{stats['errors']}, "
         f"deg0_mean {stats['deg0_mean']:.2f}, reciprocity0 "
         f"{stats['reciprocity0']:.4f}")
     if stats["errors"]:
@@ -2313,10 +2634,24 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
                                      f"dead ids")
 
     def build():
+        from hnsw_tpu_torch import graphs
+        r0 = graphs.HOST_READS
         t0 = time.time()
         idx.add(wl.base)
         torch.cuda.synchronize()
         secs = time.time() - t0
+        reads = graphs.HOST_READS - r0
+        st = [x for x in idx.last_build_stats if x is not None]
+
+        def total(key):
+            return sum(x.get(key, 0) for x in st)
+
+        log(f"l1 insert batches over the shards: {total('batches')} "
+            f"({total('profiles')} profiles): {total('replayed')} replayed, "
+            f"{total('eager')} eager, {total('captured')} eager then "
+            f"captured (capture ms {sum(sum(x['capture_ms']) for x in st):.0f}"
+            f" in all); {reads} host reads; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         t1 = time.time()
         stats = idx.check()
         for s, st in enumerate(stats):
@@ -2842,6 +3177,8 @@ def main() -> None:
     totals: dict = {}
     unsharded = main_path(args.n, dev, totals, args.profile)
     torch.cuda.empty_cache()       # the f32 index and its tables are gone
+    build_capture_phase(dev, totals, args.profile)
+    torch.cuda.empty_cache()
     log("K3 at the storage codecs' rows, and ADC, on the card:")
     codec_k3 = check_vec_dist_codecs(dev, gen)
     for tag, m in codec_k3.items():
@@ -2891,6 +3228,10 @@ def main() -> None:
     refine_k3 = wrapped["refine_k3"]
     rows.append(row(k3, refine_k3, refine_k3["launches"],
                     f"{k3} (refine rerank, f32 rows, {refine_k3['shape']})"))
+    a_k3 = unsharded["build_k3"]
+    rows.append(row(k3, a_k3, a_k3["launches"],
+                    f"{k3} (build level-0 hop, f32 rows, {a_k3['shape']}, "
+                    f"replayed)"))
     shard_k3 = sharded["build_k3"]
     rows.append(row(k3, shard_k3, shard_k3["launches"],
                     f"{k3} (sharded build, f32 rows, {shard_k3['shape']})"))

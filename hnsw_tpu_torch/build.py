@@ -14,20 +14,38 @@ batch of B points is inserted at once:
      cannot find each other in the pre-batch graph.
 
 The host draws the levels from ``np.random.default_rng(cfg.seed)`` (the
-same draw as the reference), plans batch sizes that grow with the graph,
-and keeps the graph's scalars (entry point, max level, counts). Which batch
-rows take part at each upper level is known on the host from the drawn
-levels, so no device value is read to decide it. The graph tensors are
-updated in place.
+same draw as the reference), plans the whole schedule of an ``add()``
+(batch sizes that grow with the graph, each batch sorted by level) and
+stages it on the device once, as the reference's ``_insert_batch_staged``
+does: the vectors, ids, levels and upper slots in batch order, padded past
+the end (pad id = capacity, level -1, slot -1), and per batch its offset,
+its live row count and the graph's entry point and max level before it.
+So every batch has a static shape: ``size`` rows, of which those past the
+live count are masked pads, and the upper levels run on the first
+``upper_batch_cap(size, m)`` rows, masked per level. A batch finds its row
+of the schedule through a cursor on the device that it advances.
+
+An insert batch is one device program (``graphs.py``). On a CUDA device
+each batch profile (``_Profile``: size, upper levels run, level>=1 points
+or not, descent or not) is captured as a CUDA graph and replayed for the
+later batches of the profile: the counterpart of the reference's
+``_get_step`` / ``_get_scan`` executables. A profile's first batch runs
+eagerly and is the real insert; the capture after it only records. Inside
+a batch the one host read is the greedy descent's condition, once every
+``DESCENT_CHUNK`` steps; the back-link drop counter is read once an
+``add()``. The graph tensors are updated in place.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from . import graphs
 from .config import IP, L2, HnswConfig
 from .graph import GraphArrays
 from .graphs import EagerLoop
@@ -40,6 +58,11 @@ from .ops.repair import apply_backlinks
 from .search import _make_distance_fn, greedy_descend
 
 logger = logging.getLogger("hnsw_tpu_torch.build")
+
+# greedy-descent steps between two reads of its condition: an insert
+# batch's descent takes a handful of steps a level, and each read waits for
+# the device to drain
+DESCENT_CHUNK = 8
 
 
 def upper_batch_cap(batch_size: int, m: int) -> int:
@@ -57,36 +80,56 @@ def order_batch_by_level(lv: np.ndarray, n0: int):
     return perm, ids
 
 
+class _Profile(NamedTuple):
+    """What an insert batch's program is made from besides its tensors:
+    the padded size, the upper levels it runs (its top level, capped by
+    the graph's max level before it), whether it holds level>=1 points,
+    and whether it descends (the graph has an upper level)."""
+    size: int
+    n_levels: int
+    has_up: bool
+    descend: bool
+
+
 def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
                   xb: torch.Tensor, ids: torch.Tensor, levels: torch.Tensor,
-                  slots: torch.Tensor, lv_host: np.ndarray, *,
+                  slots: torch.Tensor, entry_point: torch.Tensor,
+                  max_level: torch.Tensor, prof: _Profile, *,
                   cfg: HnswConfig, ef_construction: int, intra_k: int,
                   r_window: int, n_expand: int = 4, hop_cap: int = 0,
-                  sq_params=None, pq_cb=None) -> torch.Tensor:
-    """Insert one batch into ``graph``/``vectors`` in place.
+                  sq_params=None, pq_cb=None, loop=None) -> torch.Tensor:
+    """Insert one padded batch into ``graph``/``vectors`` in place.
 
-    xb f32 [B, d]; ids, levels, slots int32 [B] (slot >= 0 for level>=1
-    points); lv_host: the levels on the host, sorted descending. The graph's
-    scalars are the pre-batch ones; the caller updates them afterwards.
-    Storage codecs: with ``sq_params`` = (offset, scale) (sq8) or ``pq_cb``
-    = codebooks (PQ), xb holds x̂ (``HnswIndex`` encodes at the API
-    boundary), the write encodes it back to the same codes, and every read
-    of a stored row decodes it, so each build distance is exact over x̂.
-    Returns the back-link window drops (int64 0-d tensor)."""
+    xb f32 [B, d]; ids, levels, slots int32 [B], level-sorted, with pad
+    rows (id = capacity, level -1, slot -1) anywhere after row 0, which is
+    live. entry_point, max_level: the graph's scalars before the batch, 0-d
+    tensors; ``prof`` must agree with them and the levels. A pad row writes
+    what row 0 writes, so every written row has one value. Storage codecs:
+    with ``sq_params`` = (offset, scale) (sq8) or ``pq_cb`` = codebooks
+    (PQ), xb holds x̂ (``HnswIndex`` encodes at the API boundary), the
+    write encodes it back to the same codes, and every read of a stored
+    row decodes it, so each build distance is exact over x̂. ``loop`` runs
+    the descent (``graphs.EagerLoop`` or a capture). Returns the back-link
+    window drops (int64 0-d tensor)."""
     b = xb.shape[0]
+    dev = xb.device
     metric = cfg.metric
     efc = ef_construction
     xf = xb.float()
-    ids_l = ids.long()
+    valid = levels >= 0
+    pos = torch.arange(b, device=dev)
+    src = torch.where(valid, pos, 0)          # the row a row's writes take
+    w_ids = ids[src].long()
 
     # ---- 1. storage writes (adjacency untouched: the beams below see the
     # pre-batch graph)
-    vectors[ids_l] = _encode_rows(xf, vectors.dtype, sq_params, pq_cb)
-    graph.levels[ids_l] = levels
-    graph.upper_slot[ids_l] = slots
-    n_up = int((lv_host >= 1).sum())
-    if n_up:
-        graph.upper_node[slots[:n_up].long()] = ids[:n_up]
+    vectors[w_ids] = _encode_rows(xf, vectors.dtype, sq_params, pq_cb)[src]
+    graph.levels[w_ids] = levels[src]
+    graph.upper_slot[w_ids] = slots[src]
+    b_up = upper_batch_cap(b, cfg.m)
+    if prof.has_up:      # row 0 has the batch's top level, so a slot
+        up = torch.where(slots[:b_up] >= 0, pos[:b_up], 0)
+        graph.upper_node[slots[up].long()] = ids[up]
 
     def read_rows(node_ids):  # stored rows -> f32 vectors (x̂ for codecs)
         return decode_rows(vectors[node_ids.clamp(min=0).long()], sq_params,
@@ -102,17 +145,18 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     def to_true(d):
         return d + qsq[:d.shape[0]] if metric == L2 else d
 
-    # ---- 2. greedy descent to each point's level
-    max_level = graph.max_level
-    ep = torch.full((b,), graph.entry_point, dtype=torch.int32,
-                    device=xf.device)
+    # ---- 2. greedy descent to each point's level (pad rows stay put)
+    ep = entry_point.to(torch.int32).expand(b).contiguous()
     ep_d = distance_to(ep[:, None], torch.ones_like(ep[:, None],
                                                     dtype=torch.bool))[:, 0]
-    to_level = levels.clamp(0, max(max_level, 0))
-    # one read of the level counter a step: an insert batch's descent
-    # takes a few steps, and a chunk would mostly run masked ones
-    e, e_d = greedy_descend(graph, distance_to, ep, ep_d, to_level,
-                            cfg.max_level_cap, loop=EagerLoop(1))
+    e, e_d = ep, ep_d
+    if prof.descend:
+        top = max_level.clamp(min=0).to(torch.int32)
+        to_level = torch.where(valid, torch.minimum(levels.clamp(min=0), top),
+                               cfg.max_level_cap)
+        e, e_d = greedy_descend(graph, distance_to, ep, ep_d, to_level,
+                                cfg.max_level_cap, max_level=max_level,
+                                loop=loop or EagerLoop(DESCENT_CHUNK))
 
     # insert beams stop at a hop cap: 0 = auto (~efc / (2 n_expand) + 12
     # hops), > 0 = explicit, < 0 = enough hops to converge
@@ -122,45 +166,52 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
         max_hops = hop_cap
     else:
         max_hops = 4 * efc + 16
-    drops = torch.zeros((), dtype=torch.int64, device=xf.device)
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # ---- 3. upper levels, top down; the rows taking part at `level` are
-    # the prefix of points with level >= it
-    for level in range(min(cfg.max_level_cap, max_level), 0, -1):
-        n_l = int((lv_host >= level).sum())
-        if n_l == 0:
-            continue
-        adj_l = graph.upper_neighbors[:, level - 1]              # view [U, m]
+    # ---- 3. upper levels, top down, on the first b_up rows; the rows
+    # taking part at `level` are those with level >= it
+    if prof.n_levels:
+        lv_up, slots_up, ids_up = levels[:b_up], slots[:b_up], ids[:b_up]
+        e_up, ed_up = e[:b_up], e_d[:b_up]
+        dist_up = distance_fn(xf[:b_up])
+        for level in range(prof.n_levels, 0, -1):
+            active = lv_up >= level        # row 0 always (its top level)
+            adj_l = graph.upper_neighbors[:, level - 1]          # view [U, m]
 
-        def gather_upper(node_ids, adj_l=adj_l):
-            return adj_l[graph.upper_slot[node_ids].clamp(min=0)]
+            def gather_upper(node_ids, adj_l=adj_l):
+                return adj_l[graph.upper_slot[node_ids].clamp(min=0)]
 
-        state = beam_ops.init_beam(e[:n_l], e_d[:n_l], efc)
-        state = beam_ops.beam_search(
-            state, gather_upper, distance_fn(xf[:n_l]),
-            max_hops=max_hops, n_expand=n_expand)
-        cand_ids, cand_d = beam_ops.dedup_sorted_buffer(state.buf_ids,
-                                                        state.buf_dist)
-        kept, _ = select_neighbors(
-            cand_ids, to_true(cand_d), read_rows(cand_ids),
-            m=cfg.m, metric=metric)
-        adj_l[slots[:n_l].long()] = kept                        # forward links
-        dst = kept.reshape(-1)
-        src = ids[:n_l, None].expand_as(kept).reshape(-1)
-        dst_rows = torch.where(dst >= 0, graph.upper_slot[dst.clamp(min=0)],
-                               -1)
-        _, nd = apply_backlinks(adj_l, dst_rows.clamp(min=0), dst, src,
-                                (dst >= 0) & (dst_rows >= 0), vectors,
-                                sq_params, pq_cb, r_window=r_window,
-                                metric=metric)
-        drops += nd
-        # the next level starts from the nearest node found at this one
-        e[:n_l] = cand_ids[:, 0]
-        e_d[:n_l] = cand_d[:, 0]
+            state = beam_ops.init_beam(e_up, ed_up, efc, active=active)
+            state = beam_ops.beam_search(state, gather_upper, dist_up,
+                                         max_hops=max_hops,
+                                         n_expand=n_expand)
+            buf_ids, buf_d = beam_ops.dedup_sorted_buffer(state.buf_ids,
+                                                          state.buf_dist)
+            cand_ids = torch.where(active[:, None], buf_ids, -1)
+            kept, _ = select_neighbors(
+                cand_ids, to_true(buf_d), read_rows(cand_ids),
+                m=cfg.m, metric=metric)
+            act = torch.where(active, pos[:b_up], 0)             # forward
+            adj_l[slots_up[act].long()] = kept[act]              # links
+            dst = kept.reshape(-1)
+            src_ids = ids_up[:, None].expand_as(kept).reshape(-1)
+            pair_ok = (dst >= 0) & active[:, None].expand_as(kept).reshape(-1)
+            dst_rows = torch.where(pair_ok,
+                                   graph.upper_slot[dst.clamp(min=0)], -1)
+            _, nd = apply_backlinks(adj_l, dst_rows.clamp(min=0), dst,
+                                    src_ids, pair_ok & (dst_rows >= 0),
+                                    vectors, sq_params, pq_cb,
+                                    r_window=r_window, metric=metric)
+            drops = drops + nd
+            # the next level starts from the nearest node found at this one
+            e_up = torch.where(active, buf_ids[:, 0], e_up)
+            ed_up = torch.where(active, buf_d[:, 0], ed_up)
+        e = torch.cat([e_up, e[b_up:]])
+        e_d = torch.cat([ed_up, e_d[b_up:]])
 
     # ---- 4. level 0
     neighbors0 = graph.neighbors0
-    state = beam_ops.init_beam(e, e_d, efc)
+    state = beam_ops.init_beam(e, e_d, efc, active=valid)
     state = beam_ops.beam_search(state, lambda node_ids: neighbors0[node_ids],
                                  distance_to, max_hops=max_hops,
                                  n_expand=n_expand)
@@ -169,25 +220,28 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     t = min(intra_k, b)
     dots = xf @ xf.T
     intra = -dots if metric == IP else (xf * xf).sum(1)[None, :] - 2.0 * dots
-    intra.fill_diagonal_(float("inf"))
-    intra_d, pos = torch.topk(intra, t, dim=1, largest=False, sorted=True)
-    intra_ids = torch.where(torch.isinf(intra_d), -1, ids[pos])
+    ok = valid[None, :] & valid[:, None] & (pos[None, :] != pos[:, None])
+    intra = torch.where(ok, intra, float("inf"))
+    intra_d, near = torch.topk(intra, t, dim=1, largest=False, sorted=True)
+    intra_ids = torch.where(torch.isinf(intra_d), -1, ids[near])
 
     buf_ids, buf_d = beam_ops.dedup_sorted_buffer(state.buf_ids,
                                                   state.buf_dist)
-    cand_ids = torch.cat([buf_ids, intra_ids], 1)
+    cand_ids = torch.cat([torch.where(valid[:, None], buf_ids, -1),
+                          intra_ids], 1)
     cand_true = torch.cat([to_true(buf_d), to_true(intra_d)], 1)
     # faiss parity: M forward links at level 0 (m0 = 2M is back-link room)
     kept0, _ = select_neighbors(cand_ids, cand_true, read_rows(cand_ids),
                                 m=cfg.m, metric=metric)
-    row = torch.full((b, cfg.m0), -1, dtype=torch.int32, device=xf.device)
+    row = torch.full((b, cfg.m0), -1, dtype=torch.int32, device=dev)
     row[:, :cfg.m] = kept0
-    neighbors0[ids_l] = row
+    neighbors0[w_ids] = row[src]
     dst = kept0.reshape(-1)
-    src = ids[:, None].expand_as(kept0).reshape(-1)
-    _, nd = apply_backlinks(neighbors0, dst.clamp(min=0), dst, src, dst >= 0,
-                            vectors, sq_params, pq_cb, r_window=r_window,
-                            metric=metric)
+    src_ids = ids[:, None].expand_as(kept0).reshape(-1)
+    pair_ok = (dst >= 0) & valid[:, None].expand_as(kept0).reshape(-1)
+    _, nd = apply_backlinks(neighbors0, dst.clamp(min=0), dst, src_ids,
+                            pair_ok, vectors, sq_params, pq_cb,
+                            r_window=r_window, metric=metric)
     return drops + nd
 
 
@@ -201,11 +255,164 @@ def _encode_rows(x: torch.Tensor, dtype: torch.dtype, sq_params, pq_cb):
     return x.to(dtype)
 
 
+class Plan(NamedTuple):
+    """An add()'s insert schedule on the host: the arrays in batch order
+    (level-sorted within each batch), padded past the last batch by its
+    size (pad id = capacity, level -1, slot -1), and per batch (offset,
+    take, size)."""
+    xs: np.ndarray      # f32 [n_staged, d]
+    ids: np.ndarray     # int32 [n_staged]
+    lv: np.ndarray      # int32 [n_staged]
+    sl: np.ndarray      # int32 [n_staged]
+    batches: list
+
+
+def stage_plan(parts: list, d: int, capacity: int) -> Plan:
+    """Concatenate per-batch parts (x, ids, levels, slots, size), each in
+    batch order, into a ``Plan``."""
+    n = sum(len(p[1]) for p in parts)
+    n_staged = n + max((p[4] for p in parts), default=0)
+    xs = np.zeros((n_staged, d), np.float32)
+    ids = np.full((n_staged,), capacity, np.int32)
+    lv = np.full((n_staged,), -1, np.int32)
+    sl = np.full((n_staged,), -1, np.int32)
+    batches, off = [], 0
+    for x, pid, lev, slot, size in parts:
+        take = len(pid)
+        xs[off:off + take], ids[off:off + take] = x, pid
+        lv[off:off + take], sl[off:off + take] = lev, slot
+        batches.append((off, take, size))
+        off += take
+    return Plan(xs, ids, lv, sl, batches)
+
+
+def _schedule(plan: Plan, entry_point: int, max_level: int):
+    """The graph's scalars before each batch of ``plan``, as the device
+    would compute them (the batch's first row has its top level), and each
+    batch's profile. Returns (sched int64 [n_batches, 4] of (offset, take,
+    entry point, max level), profiles, entry point after, max level
+    after)."""
+    rows, profiles = [], []
+    for off, take, size in plan.batches:
+        top = int(plan.lv[off])
+        profiles.append(_Profile(size, min(top, max_level), top >= 1,
+                                 max_level >= 1))
+        rows.append((off, take, entry_point, max_level))
+        if top > max_level:
+            entry_point, max_level = int(plan.ids[off]), top
+    return (np.asarray(rows, np.int64).reshape(-1, 4), profiles,
+            entry_point, max_level)
+
+
+class StagedBuild:
+    """One add()'s insert batches into one graph: the ``Plan`` and its
+    schedule staged on the device once, ``step()`` to insert the next
+    batch (replayed from its profile's capture on a CUDA device) and
+    ``finish()`` once every batch ran."""
+
+    def __init__(self, graph: GraphArrays, vectors: torch.Tensor,
+                 plan: Plan, *, cfg: HnswConfig, ef_construction: int,
+                 intra_k: int, r_window: int, n_expand: int, hop_cap: int,
+                 sq_params=None, pq_cb=None):
+        dev = vectors.device
+        sched, profiles, *self.after = _schedule(plan, graph.entry_point,
+                                                  graph.max_level)
+        self.graph, self.vectors, self.profiles = graph, vectors, profiles
+        self.left = collections.Counter(profiles)
+        self.next = 0
+        # what ran ("replayed", "eager", "captured") and the captures' ms
+        self.ran = collections.Counter()
+        self.capture_ms: list = []
+
+        def put(a):                        # one host-to-device copy each
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.xs, self.ids, self.lv, self.sl = (put(a) for a in plan[:4])
+        self.sched = put(sched)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self.drops = torch.zeros((), dtype=torch.int64, device=dev)
+        self.kw = dict(cfg=cfg, ef_construction=ef_construction,
+                       intra_k=intra_k, r_window=r_window, n_expand=n_expand,
+                       hop_cap=hop_cap, sq_params=sq_params, pq_cb=pq_cb)
+        self.refs = [graph.neighbors0, graph.levels, graph.upper_slot,
+                     graph.upper_node, graph.upper_neighbors, vectors,
+                     self.xs, self.ids, self.lv, self.sl, self.sched,
+                     self.cursor, self.drops]
+        self.refs += list(sq_params or ()) + ([] if pq_cb is None else [pq_cb])
+        self.key = (cfg, ef_construction, intra_k, r_window, n_expand,
+                    hop_cap, sq_params is not None, pq_cb is not None,
+                    DESCENT_CHUNK,
+                    tuple(graphs.tensor_identity(t) for t in self.refs))
+
+    def _body(self, prof: _Profile, loop) -> None:
+        """The batch at the cursor: the counterpart of the reference's
+        ``_insert_batch_staged`` (its scalars come from the schedule)."""
+        row = self.sched.index_select(0, self.cursor.view(1))[0]
+        pos = torch.arange(prof.size, device=row.device)
+        idx = row[0] + pos
+        live = pos < row[1]
+        capacity = self.graph.levels.shape[0]
+        ids = torch.where(live, self.ids.index_select(0, idx), capacity)
+        levels = torch.where(live, self.lv.index_select(0, idx), -1)
+        slots = torch.where(live, self.sl.index_select(0, idx), -1)
+        nd = _insert_batch(self.graph, self.vectors,
+                           self.xs.index_select(0, idx), ids, levels, slots,
+                           row[2], row[3], prof, loop=loop, **self.kw)
+        self.drops.add_(nd)
+        self.cursor.add_(1)
+
+    def step(self) -> None:
+        """Insert the next batch of the plan."""
+        prof = self.profiles[self.next]
+        self.next += 1
+        self.left[prof] -= 1
+        if not graphs.capturing_enabled(self.vectors.device):
+            self._body(prof, EagerLoop(DESCENT_CHUNK))
+            self.ran["eager"] += 1
+            return
+        ran = graphs.insert_or_replay(
+            (prof, self.key), self.refs,
+            lambda _inputs, loop: self._body(prof, loop),
+            chunk=DESCENT_CHUNK, keep=self.left[prof] > 0)
+        self.ran[ran] += 1
+        if ran == "captured":
+            self.capture_ms.append(graphs.LAST_CAPTURE_MS)
+
+    def sync(self) -> None:
+        """Wait for the batches issued so far (bounds the host's run-ahead
+        on a CUDA device)."""
+        if self.vectors.device.type == "cuda":
+            torch.cuda.current_stream(self.vectors.device).synchronize()
+
+    def finish(self) -> int:
+        """After the last batch: moves the graph's entry point and max
+        level on, and returns the back-link pairs the batches dropped,
+        with the batches counted on the device (one read). Raises unless
+        every batch ran once."""
+        done, drops = graphs.host_read(torch.stack([self.cursor,
+                                                    self.drops]))
+        if done != len(self.profiles) or self.next != done:
+            raise RuntimeError(f"staged build: {done} of "
+                               f"{len(self.profiles)} batches ran")
+        self.graph.entry_point, self.graph.max_level = self.after
+        return int(drops)
+
+    def stats(self) -> dict:
+        """Batches, what ran them, the profiles (capture keys) and the
+        capture ms of this run."""
+        return {"batches": self.next, "profiles": len(self.left),
+                **dict(self.ran), "capture_ms": list(self.capture_ms)}
+
+
 class DeviceBuilder:
     """Host orchestration of the batched build: the seeded level draw and
     the batch schedule. Deterministic given the seed."""
 
     BATCH_SIZES = (32, 128, 512, 1024)
+    # full-size batches issued back to back between two syncs (the
+    # reference's lax.scan chunk); other batches sync every STEP_SYNC
+    SCAN_CHUNK = 32
+    STEP_SYNC = 16
 
     def __init__(self, cfg: HnswConfig, *, max_batch: int = 2048,
                  intra_k: int = 32, r_window: int = 16, n_expand: int = 4,
@@ -225,6 +432,7 @@ class DeviceBuilder:
         # back-link pairs beyond the repair window, lost per add() / total
         self.last_backlink_dropped = 0
         self.backlink_dropped_total = 0
+        self.last_stats: dict = {}    # the last add()'s StagedBuild.stats()
 
     @property
     def _sizes(self) -> tuple:
@@ -264,17 +472,12 @@ class DeviceBuilder:
         graph.entry_point, graph.max_level, graph.ntotal = 0, level, 1
 
     def _plan(self, n0: int, n_upper: int, x: np.ndarray,
-              all_levels: np.ndarray):
-        """The whole insert schedule on the host: arrays in batch order
-        (level-sorted within each batch) and the (offset, take) of each
-        batch. A batch never exceeds the current graph's size class."""
+              all_levels: np.ndarray) -> Plan:
+        """The whole insert schedule on the host. A batch never exceeds
+        the current graph's size class."""
         cfg = self.cfg
         n = len(x)
-        x_sched = np.empty_like(x)
-        ids_sched = np.empty((n,), np.int32)
-        lv_sched = np.empty((n,), np.int32)
-        sl_sched = np.full((n,), -1, np.int32)
-        batches = []
+        parts = []
         i = 0
         while i < n:
             sizes = self._sizes
@@ -288,20 +491,29 @@ class DeviceBuilder:
                 take = int(np.searchsorted(n_ups, cap_up, side="right"))
                 lv = lv[:take]
             perm, pids = order_batch_by_level(lv, n0)
-            x_sched[i:i + take] = x[i:i + take][perm]
-            ids_sched[i:i + take] = pids
-            lv_sched[i:i + take] = lv[perm]
-            ups = np.flatnonzero(lv_sched[i:i + take] >= 1)
+            lv_b = lv[perm]
+            ups = np.flatnonzero(lv_b >= 1)
             if n_upper + len(ups) > cfg.upper_capacity:
                 raise ValueError("upper_capacity exceeded; raise it in "
                                  "HnswConfig")
-            sl_sched[i + ups] = np.arange(n_upper, n_upper + len(ups),
-                                          dtype=np.int32)
+            sl_b = np.full((take,), -1, np.int32)
+            sl_b[ups] = np.arange(n_upper, n_upper + len(ups),
+                                  dtype=np.int32)
+            parts.append((x[i:i + take][perm], pids, lv_b, sl_b, size))
             n_upper += len(ups)
-            batches.append((i, take))
             n0 += take
             i += take
-        return x_sched, ids_sched, lv_sched, sl_sched, batches
+        return stage_plan(parts, x.shape[1], cfg.capacity)
+
+    def staged(self, graph: GraphArrays, vectors: torch.Tensor, plan: Plan,
+               ef_construction: int) -> StagedBuild:
+        """``plan`` staged on ``vectors``' device against ``graph``."""
+        sq_params, pq_cb = self._codecs(vectors.device)
+        return StagedBuild(
+            graph, vectors, plan, cfg=self.cfg,
+            ef_construction=ef_construction, intra_k=self.intra_k,
+            r_window=self.r_window, n_expand=self.n_expand,
+            hop_cap=self.hop_cap, sq_params=sq_params, pq_cb=pq_cb)
 
     def add(self, graph: GraphArrays, vectors: torch.Tensor, x: np.ndarray,
             *, ef_construction: int | None = None) -> None:
@@ -314,33 +526,32 @@ class DeviceBuilder:
         if graph.ntotal == 0 and len(x):
             self._seed_first(graph, vectors, x[0], int(all_levels[0]))
             i = 1
-        xs_np, ids_np, lv_np, sl_np, batches = self._plan(
-            graph.ntotal, graph.n_upper, x[i:], all_levels[i:])
-        if not batches:
+        plan = self._plan(graph.ntotal, graph.n_upper, x[i:],
+                          all_levels[i:])
+        if not plan.batches:
             return
-        dev = vectors.device
-        xs = torch.from_numpy(xs_np).to(dev)      # one host-to-device copy
-        ids_s = torch.from_numpy(ids_np).to(dev)
-        lv_s = torch.from_numpy(lv_np).to(dev)
-        sl_s = torch.from_numpy(sl_np).to(dev)
-        sq_params, pq_cb = self._codecs(dev)
-        drops = torch.zeros((), dtype=torch.int64, device=dev)
-        for off, take in batches:
-            part = slice(off, off + take)
-            lv = lv_np[part]
-            drops += _insert_batch(
-                graph, vectors, xs[part], ids_s[part], lv_s[part],
-                sl_s[part], lv, cfg=cfg, ef_construction=efc,
-                intra_k=self.intra_k, r_window=self.r_window,
-                n_expand=self.n_expand, hop_cap=self.hop_cap,
-                sq_params=sq_params, pq_cb=pq_cb)
-            # scalar bookkeeping: the batch's first point has its max level
-            if int(lv[0]) > graph.max_level:
-                graph.entry_point = int(ids_np[off])
-                graph.max_level = int(lv[0])
-            graph.ntotal += take
-            graph.n_upper += int((sl_np[part] >= 0).sum())
-        self.last_backlink_dropped = int(drops)
+        run = self.staged(graph, vectors, plan, efc)
+        batches = plan.batches
+        bi = 0
+        while bi < len(batches):
+            chunk = batches[bi:bi + self.SCAN_CHUNK]
+            if len(chunk) == self.SCAN_CHUNK and all(
+                    take == size == self.max_batch for _, take, size in chunk):
+                for _ in chunk:           # the reference's lax.scan chunk
+                    run.step()
+                bi += self.SCAN_CHUNK
+                run.sync()
+            else:
+                run.step()
+                bi += 1
+                if bi % self.STEP_SYNC == 0:
+                    run.sync()
+        self.last_backlink_dropped = run.finish()
+        graph.ntotal += sum(take for _, take, _ in batches)
+        graph.n_upper += int((plan.sl >= 0).sum())
+        self.last_stats = run.stats()
+        del run                 # frees the staged plan and its captures
+        graphs._purge()
         self.backlink_dropped_total += self.last_backlink_dropped
         if self.last_backlink_dropped:
             logger.info(

@@ -1,7 +1,9 @@
-"""A search as one device program: the counterpart of the reference's
-``_SEARCH_EXECS`` (``hnsw_tpu/search.py``), one jitted executable per set
-of static arguments, whose loops are ``lax.while_loop``s with their
-conditions evaluated on the device.
+"""A search, and an insert batch of the build, as one device program: the
+counterparts of the reference's ``_SEARCH_EXECS`` (``hnsw_tpu/search.py``)
+and of its staged insert step (``_get_step`` / ``_get_scan`` in
+``hnsw_tpu/build.py``), one jitted executable per set of static arguments,
+whose loops are ``lax.while_loop``s with their conditions evaluated on the
+device.
 
 Two layers:
 
@@ -24,19 +26,30 @@ Two layers:
     one chunk, replayed until its condition reads false. Runtime values
     (queries, ef_live, hop_limit, the graph's scalars, a filter) are
     copied into the capture's static inputs before each replay, and the
-    outputs are cloned after it: a later replay overwrites them.
+    outputs are cloned after it: a later replay overwrites them. An
+    insert batch (``insert_or_replay``) is captured the same way, but its
+    first run is the batch itself: it writes the index in place, so the
+    key's first batch runs eagerly and the capture only records (a
+    captured launch executes nothing); later batches of the key replay.
+    It reads its runtime values (which batch, the graph's scalars) from
+    a schedule staged on the device through a cursor the batch advances,
+    so a replay copies nothing in and leaves no output behind.
 
-Every capture allocates from one memory pool. That is sound because one
-search runs at a time and copies its outputs out before the next: a
-graph's temporaries are dead outside its own replay, and the state a
-chain passes from one graph to the next lives only within one search.
+Every capture, search or build, allocates from one memory pool. That is
+sound because one program runs at a time (searches and builds are issued
+from one host thread, on one stream) and none leaves state in the pool
+behind it: a search copies its outputs out before the next program, a
+build batch writes only the index and its staged schedule (allocated
+outside the pool), a graph's temporaries are dead outside its own
+replay, and the state a chain passes from one graph to the next lives
+only within one search or one batch.
 Once every capture is dropped the next one starts a new pool (PyTorch
 reuses a pool only while a graph holds it). The warm-up runs on the
 capture stream, as PyTorch's capture recipe has it, so what a library
 sets up for that stream (cuBLAS's workspace) is made outside the pool.
 A failed capture or replay raises; nothing falls back to the eager loop.
 The eager loop on the card is the plain version of a replay, for
-comparisons only (``eager()``).
+comparisons only (``eager()``, for searches and builds alike).
 
 Launch counts stay true (``ops/_cuda.py``): a capture records the launches
 of each graph instead of counting them, and each replay adds them.
@@ -69,11 +82,12 @@ LAST_CAPTURE_MS = 0.0   # host milliseconds of the last capture
 
 
 def host_read(t: torch.Tensor):
-    """The value of a one-element tensor on the host: the only place the
-    search loops wait on the device. Counted in ``HOST_READS``."""
+    """The value of a tensor on the host (a number for one element, else
+    a list): the only place the search loops and the build wait on the
+    device. Counted in ``HOST_READS``."""
     global HOST_READS
     HOST_READS += 1
-    return t.item()
+    return t.item() if t.numel() == 1 else t.tolist()
 
 
 def padded_rows(qn: int, device: torch.device) -> int:
@@ -113,9 +127,9 @@ _EAGER_ONLY = False
 
 @contextlib.contextmanager
 def eager():
-    """Searches on the card run the eager loop inside the block: the plain
-    version of a replay, which tests and ``chip_smoke.py`` hold replays
-    against. Not a serving mode."""
+    """Searches and insert batches on the card run eagerly inside the
+    block: the plain version of a replay, which tests and
+    ``chip_smoke.py`` hold replays against. Not a serving mode."""
     global _EAGER_ONLY
     before, _EAGER_ONLY = _EAGER_ONLY, True
     try:
@@ -261,9 +275,12 @@ def _on_capture_stream():
     torch.cuda.current_stream().wait_stream(s)
 
 
-def capture(body: Callable, inputs: dict, refs) -> _Entry:
-    """Capture ``body(inputs, loop)`` with its own copies of ``inputs``.
-    Raises RuntimeError if the capture fails."""
+def capture(body: Callable, inputs: dict, refs, *, chunk: int | None = None,
+            what: str = "search") -> _Entry:
+    """Capture ``body(inputs, loop)`` with its own copies of ``inputs``;
+    a loop without a bound becomes a graph of ``chunk`` steps
+    (``LOOP_CHUNK`` by default). Raises RuntimeError if the capture
+    fails."""
     global _POOL, LAST_CAPTURE_MS
     t0 = time.perf_counter()
     if _POOL is None:
@@ -273,7 +290,7 @@ def capture(body: Callable, inputs: dict, refs) -> _Entry:
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    cap = _Capture(_POOL, LOOP_CHUNK)
+    cap = _Capture(_POOL, LOOP_CHUNK if chunk is None else chunk)
     failed = None
     with _on_capture_stream():      # a capture ends on the stream it began
         try:
@@ -284,7 +301,7 @@ def capture(body: Callable, inputs: dict, refs) -> _Entry:
             cap.abort()
             failed = e
     if failed is not None:
-        raise RuntimeError(f"search capture failed: {failed}") from failed
+        raise RuntimeError(f"{what} capture failed: {failed}") from failed
     LAST_CAPTURE_MS = (time.perf_counter() - t0) * 1e3
     return _Entry(cap.parts, static, outputs, cap.held, refs)
 
@@ -305,3 +322,33 @@ def replay_or_capture(key, refs, inputs: dict, body: Callable) -> dict:
         return entry.replay(inputs)
     except Exception as e:
         raise RuntimeError(f"search replay failed: {e}") from e
+
+
+def insert_or_replay(key, refs, body: Callable, *, chunk: int,
+                     keep: bool) -> str:
+    """One insert batch, ``body(None, loop)``, which writes the index in
+    place and returns nothing: replayed from the capture of ``key``, else
+    run eagerly (the batch's own insert, on the capture stream, with its
+    loops read once every ``chunk`` steps) and, with ``keep`` (a later
+    batch has this key), captured after it. The capture records without
+    running, so the batch is inserted once. ``refs``: the tensors the key
+    names. Returns what ran: "replayed", "eager" or "captured" (an eager
+    run, then the capture)."""
+    def run(inputs, loop):
+        body(inputs, loop)
+        return {}
+
+    _purge()
+    entry = _CACHE.get(key)
+    if entry is None:
+        with _on_capture_stream():
+            run(None, EagerLoop(chunk))
+        if not keep:
+            return "eager"
+        _CACHE[key] = capture(run, {}, refs, chunk=chunk, what="build")
+        return "captured"
+    try:
+        entry.replay({})
+    except Exception as e:
+        raise RuntimeError(f"build replay failed: {e}") from e
+    return "replayed"

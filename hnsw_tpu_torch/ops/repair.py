@@ -12,9 +12,12 @@ For a whole insert batch of (destination t, source p) pairs at one level:
   4. write the new rows back — one writer per destination.
 
 Sources beyond the R-window of their group are dropped for this batch and
-counted (``n_dropped``). The work is done only for owner rows (and the
-prune only for rows that overflow), which gives the reference's result
-without computing rows it would throw away.
+counted (``n_dropped``). Every shape is fixed by the pair count P, as in
+the reference, so an insert batch can be captured as one CUDA graph: each
+sorted pair computes its window row, the prune runs over all P rows in a
+static number of chunks (rows that are not an overflowing owner prune an
+empty candidate list, whose gathers all read row 0), and each pair writes
+its group owner's row, so a row's writers all write the same values.
 """
 
 from __future__ import annotations
@@ -63,26 +66,28 @@ def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
     group_start = torch.cummax(torch.where(first, pos, -1), 0).values
     n_dropped = (svalid & (pos - group_start >= r)).sum()
 
-    own = torch.nonzero(first).squeeze(1)                    # [F] owners
-    row_idx = sdst_row[own]
-    raw = own[:, None] + torch.arange(r, device=dev)[None, :]  # [F, R]
+    # every pair's window over the sorted pairs; only an owner's is written
+    raw = pos[:, None] + torch.arange(r, device=dev)[None, :]    # [P, R]
     widx = raw.clamp(max=p - 1)  # mask before clipping: the tail group
     inc_src = ssrc[widx]         # would otherwise see its last source twice
-    inc_ok = (raw < p) & (sdst_row[widx] == row_idx[:, None]) & (inc_src >= 0)
-    rows = adj[row_idx]                                          # [F, W]
+    inc_ok = (raw < p) & (sdst_row[widx] == sdst_row[:, None]) & \
+        svalid[:, None] & (inc_src >= 0)
+    rows = adj[torch.where(svalid, sdst_row, 0)]                  # [P, W]
     dup = (inc_src[:, :, None] == rows[:, None, :]).any(2)
     inc_src = torch.where(inc_ok & ~dup, inc_src, -1)
-    cand = torch.cat([rows, inc_src], 1)                         # [F, W+R]
+    cand = torch.cat([rows, inc_src], 1)                         # [P, W+R]
     new_rows = compact_append(cand, w)
 
-    over = torch.nonzero((cand >= 0).sum(1) > w).squeeze(1)
+    # the heuristic prune of the owners that overflow, in static chunks
+    over = first & ((cand >= 0).sum(1) > w)
+    prune_ids = torch.where(over[:, None], cand, -1)
+    prune_dst = torch.where(over, sdst_id, 0).long()
     d_model = vectors.shape[1] if pq_cb is None else \
         pq_cb.shape[0] * pq_cb.shape[2]
     chunk = max(256, _PRUNE_BYTES // max(cand.shape[1] * d_model * 4, 1))
-    for c0 in range(0, over.shape[0], chunk):
-        sel = over[c0:c0 + chunk]
-        ids_c = cand[sel]
-        dvec = decode_rows(vectors[sdst_id[own[sel]].long()], dequant,
+    for c0 in range(0, p, chunk):
+        ids_c = prune_ids[c0:c0 + chunk]
+        dvec = decode_rows(vectors[prune_dst[c0:c0 + chunk]], dequant,
                            pq_cb)                                # [C, d]
         cvec = decode_rows(vectors[ids_c.clamp(min=0).long()], dequant,
                            pq_cb)                                # [C, W+R, d]
@@ -92,7 +97,14 @@ def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
                 - 2.0 * dots
         else:
             cd = -dots
-        new_rows[sel] = select_neighbors(ids_c, cd, cvec, m=w,
-                                         metric=metric)[0]
-    adj[row_idx] = new_rows
+        pruned = select_neighbors(ids_c, cd, cvec, m=w, metric=metric)[0]
+        new_rows[c0:c0 + chunk] = torch.where(
+            over[c0:c0 + chunk, None], pruned, new_rows[c0:c0 + chunk])
+
+    # each pair writes its group owner's row (invalid pairs, sorted last,
+    # the last group's); with no valid pair every one writes row 0 back
+    own = group_start.clamp(min=0)
+    any_valid = group_start >= 0
+    tgt = torch.where(any_valid, sdst_row[own], 0)
+    adj[tgt] = torch.where(any_valid[:, None], new_rows[own], adj[0])
     return adj, n_dropped

@@ -8,8 +8,8 @@ per shard, a fan-out search and a global top-k merge.
   * **build**: every shard takes the same batch schedule in lockstep (the
     reference's one ``shard_map`` step a batch): the batch size follows the
     smallest shard, each shard draws its levels from its own seeded
-    generator, and the per-shard insert is the single index's
-    ``build._insert_batch`` on the shard's real rows;
+    generator, and the per-shard insert is the single index's staged
+    batch (``build.StagedBuild``), replayed from its capture on a card;
   * **search**: each shard searches its own sub-index (``hnsw_search``,
     with the shard-local form of a user-id filter), maps local rows to
     user ids, and the per-shard [Q, k] results are merged on the first
@@ -60,7 +60,8 @@ import logging
 import numpy as np
 import torch
 
-from ..build import (DeviceBuilder, _insert_batch, order_batch_by_level,
+from .. import graphs
+from ..build import (DeviceBuilder, order_batch_by_level, stage_plan,
                      upper_batch_cap)
 from ..config import L2, HnswConfig
 from ..graph import (SCALAR_FIELDS, TENSOR_FIELDS, GraphArrays,
@@ -191,7 +192,8 @@ class ShardedHnswIndex:
         self._global_ids = [torch.full((cfg.capacity,), -1, dtype=torch.int32,
                                        device=self._dev[s])
                             if self._is_local(s) else None for s in range(S)]
-        self._builders = [DeviceBuilder(cfg.replace(seed=cfg.seed + s))
+        self._builders = [DeviceBuilder(cfg.replace(seed=cfg.seed + s),
+                                        intra_k=INTRA_K, r_window=R_WINDOW)
                           for s in range(S)]
         self._ntotal = 0
         # tombstones over USER ids (bool [S * capacity]; None: none). Results
@@ -205,6 +207,9 @@ class ShardedHnswIndex:
         self.is_trained = not cfg.is_sq
         # per-shard packed serving tables (enable_packed); None: unpacked
         self._packed: list | None = None
+        # per shard, the last add()'s StagedBuild.stats() (None: no batch
+        # or another rank's shard)
+        self.last_build_stats: list = []
 
     @property
     def ntotal(self) -> int:
@@ -307,31 +312,48 @@ class ShardedHnswIndex:
         offs = np.zeros(S, np.int64)
         efc = int(self.ef_construction)
         sizes = DeviceBuilder.BATCH_SIZES
+        parts = [[] for _ in range(S)]   # each shard's batches, in order
+        uids = [[] for _ in range(S)]    # and their user ids
         while any(offs[s] < len(per_shard[s]) for s in range(S)):
             allowed = max(sizes[0], max(1, int(self._counts.min())))
             size = max(s for s in sizes if s <= allowed)
             for s in range(S):
                 rows = per_shard[s][offs[s]:offs[s] + size]
                 if len(rows):
-                    offs[s] += self._insert_rows(s, x, rows, user_ids, size,
-                                                 efc)
+                    offs[s] += self._plan_rows(s, x, rows, user_ids, size,
+                                               parts[s], uids[s])
+        runs = [self._stage_shard(s, parts[s], uids[s], efc)
+                for s in range(S)]
+        # the lockstep steps: each one batch of every shard that has one
+        for k in range(max(len(p) for p in parts)):
+            for s, run in enumerate(runs):
+                if run is not None and k < len(parts[s]):
+                    run.step()
+        self.last_build_stats = [None if run is None else
+                                 dict(run.stats(), dropped=run.finish())
+                                 for run in runs]
+        del runs                # frees the staged plans and their captures
+        graphs._purge()
         self._ntotal += len(x)
 
-    def _insert_rows(self, s: int, x: np.ndarray, rows: np.ndarray,
-                     user_ids: np.ndarray, size: int, efc: int) -> int:
-        """One lockstep step on shard ``s``: ``rows`` (indices into ``x``,
-        at most ``size``). Returns how many rows it consumed. Another
-        rank's shard takes the same draws and scalars, and no insert."""
-        cfg, b = self.config, self._builders[s]
-        g, vec, gids, dev = (self._graphs[s], self._vectors[s],
-                             self._global_ids[s], self._dev[s])
+    def _plan_rows(self, s: int, x: np.ndarray, rows: np.ndarray,
+                   user_ids: np.ndarray, size: int, parts: list,
+                   uids: list) -> int:
+        """Plan one lockstep step of shard ``s`` on the host: ``rows``
+        (indices into ``x``, at most ``size``) drawn, spilled and sorted
+        into a batch appended to ``parts`` (``build.stage_plan``'s parts,
+        with no rows of ``x`` for another rank's shard; its user ids to
+        ``uids``); ``ntotal`` and ``n_upper`` move on. An
+        empty shard's first point is seeded here. Returns how many rows it
+        consumed. Another rank's shard takes the same draws."""
+        cfg, b, g = self.config, self._builders[s], self._graphs[s]
         local = self._is_local(s)
         seeded = 0
         if g.ntotal == 0:   # the first point of an empty shard
             lv0 = int(b._draw_levels(1)[0])
             if local:
-                b._seed_first(g, vec, x[rows[0]], lv0)
-                gids[0] = int(user_ids[rows[0]])
+                b._seed_first(g, self._vectors[s], x[rows[0]], lv0)
+                self._global_ids[s][0] = int(user_ids[rows[0]])
             else:
                 g.entry_point, g.max_level, g.ntotal = 0, lv0, 1
                 g.n_upper = int(lv0 >= 1)
@@ -349,27 +371,36 @@ class ShardedHnswIndex:
         ups = np.flatnonzero(lv_sorted >= 1)
         if g.n_upper + len(ups) > cfg.upper_capacity:
             raise ValueError("upper_capacity exceeded")
-        if local:
-            slots = np.full(len(rows), -1, np.int32)
-            slots[ups] = np.arange(g.n_upper, g.n_upper + len(ups),
-                                   dtype=np.int32)
-
-            def t(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-            ids_t = t(pids)
-            sq_params, _ = b._codecs(dev)
-            _insert_batch(g, vec, t(x[rows][perm]), ids_t, t(lv_sorted),
-                          t(slots), lv_sorted, cfg=cfg, ef_construction=efc,
-                          intra_k=INTRA_K, r_window=R_WINDOW,
-                          sq_params=sq_params)
-            gids[ids_t.long()] = t(user_ids[rows][perm].astype(np.int32))
-        # the scalars after the step: the batch's first point has its max
-        if int(lv_sorted[0]) > g.max_level:
-            g.entry_point, g.max_level = int(pids[0]), int(lv_sorted[0])
+        slots = np.full(len(rows), -1, np.int32)
+        slots[ups] = np.arange(g.n_upper, g.n_upper + len(ups),
+                               dtype=np.int32)
+        parts.append((x[rows][perm] if local else None, pids, lv_sorted,
+                      slots, size))
+        uids.append(user_ids[rows][perm])
         g.ntotal += len(rows)
         g.n_upper += len(ups)
         return len(rows) + seeded
+
+    def _stage_shard(self, s: int, parts: list, uids: list, efc: int):
+        """Shard ``s``'s planned batches staged on its device, with its
+        user ids written (``StagedBuild.finish`` moves the entry point and
+        max level on); None for another rank's shard, whose scalars move
+        on here, or a shard with no batch."""
+        g = self._graphs[s]
+        if not self._is_local(s):
+            # a batch's first row has its top level (``build._schedule``)
+            for _, pids, lv, _, _ in parts:
+                if int(lv[0]) > g.max_level:
+                    g.entry_point, g.max_level = int(pids[0]), int(lv[0])
+            return None
+        if not parts:
+            return None
+        plan = stage_plan(parts, self.config.dim, self.config.capacity)
+        dev = self._dev[s]
+        rows = np.concatenate([p[1] for p in parts]).astype(np.int64)
+        self._global_ids[s][torch.from_numpy(rows).to(dev)] = \
+            torch.from_numpy(np.concatenate(uids).astype(np.int32)).to(dev)
+        return self._builders[s].staged(g, self._vectors[s], plan, efc)
 
     # ------------------------------------------------- packed serving mode
     @property

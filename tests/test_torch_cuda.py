@@ -10,6 +10,7 @@ that has only PyTorch:
 (``chip_smoke.py`` makes the same comparisons at the main path's shapes.)
 """
 
+import contextlib
 import itertools
 
 import numpy as np
@@ -972,3 +973,122 @@ def test_failed_capture_raises_on_card(card, monkeypatch):
     monkeypatch.undo()
     d, i = idx.search(wl.queries, 10, ef_search=40)
     assert (i[:, 0] >= 0).all()
+
+
+# ----------------------------------------------------------- captured builds
+def _build_twins(card, dtype="float32", n=10_000, d=32, seed=21):
+    """(eager, captured): one index built with ``graphs.eager()`` and one
+    built as the card builds (insert batches replayed from captures), on
+    the same data and quantizer; and the workload."""
+    from hnsw_tpu_torch import HnswIndex, graphs, synthetic_workload
+    wl = synthetic_workload(n + 16_000, d, n_queries=64, seed=seed)
+    kw = {"pq_m": 8} if dtype == "pq" else {}
+    out = []
+    for eager in (True, False):
+        idx = HnswIndex(d, 8, capacity=4 * n, ef_construction=60,
+                        dtype=dtype, device=card, **kw)
+        if out and dtype == "pq":
+            idx._set_pq(out[0]._pq_np)      # the same codebooks
+        else:
+            idx.train(wl.base)
+        _cuda.reset_launch_counts()
+        if eager:
+            with graphs.eager():
+                idx.add(wl.base[:n])
+        else:
+            idx.add(wl.base[:n])
+        idx._launches = _cuda.launch_counts()
+        out.append(idx)
+    return out[0], out[1], wl
+
+
+def _assert_same_graph(a, b, n):
+    """Every graph array, scalar and stored row equal; ids 0..n-1 written
+    and no other row."""
+    from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(a._graph, f), getattr(b._graph, f)), f
+    for f in SCALAR_FIELDS:
+        assert getattr(a._graph, f) == getattr(b._graph, f), f
+    assert torch.equal(a._vectors, b._vectors)
+    lv = b._graph.levels.cpu()
+    assert b.ntotal == n and (lv[:n] >= 0).all() and (lv[n:] == -1).all()
+    assert (b._graph.neighbors0[:n, 0] >= 0).all()
+    assert b.check()["errors"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "sq8", "bfloat16", "pq"])
+def test_captured_build_equals_eager_on_card(card, dtype):
+    """A build whose batches replay captured graphs equals the eager build
+    of the same padded batches array for array (the same kernels in the
+    same order), launches K3 as often, and replayed more batches than it
+    captured."""
+    eager, captured, _ = _build_twins(card, dtype)
+    _assert_same_graph(eager, captured, 10_000)
+    st = captured._builder.last_stats
+    assert st["replayed"] > st.get("captured", 0) >= 1, st
+    assert eager._builder.last_stats["batches"] == st["batches"]
+    assert captured._launches == eager._launches
+    assert captured._builder.last_backlink_dropped == \
+        eager._builder.last_backlink_dropped
+
+
+@pytest.mark.cuda
+def test_captured_build_after_second_add_and_grow_on_card(card):
+    """A second add() on a built index, and an add() after grow() (new
+    graph tensors: the first add's captures are gone), replayed, equal
+    the eager build's; no build capture outlives its add()."""
+    from hnsw_tpu_torch import build, graphs
+    eager, captured, wl = _build_twins(card)
+    for lo, step in ((10_000, "add"), (18_000, "grow")):
+        for idx in (eager, captured):
+            if step == "grow":
+                idx.grow(49_152)
+            ctx = graphs.eager() if idx is eager else contextlib.nullcontext()
+            with ctx:
+                idx.add(wl.base[lo:lo + 8000])
+        _assert_same_graph(eager, captured, lo + 8000)
+        assert captured._builder.last_stats["replayed"] > 0
+    assert not [k for k in graphs._CACHE if isinstance(k[0], build._Profile)]
+
+
+@pytest.mark.cuda
+def test_captured_sharded_build_equals_eager_on_card(card):
+    """Four shards on the card: each shard's lockstep batches replayed from
+    its own captures equal the eager build's, shard for shard."""
+    from hnsw_tpu_torch import graphs, synthetic_workload
+    from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
+    wl = synthetic_workload(8000, 32, n_queries=64, seed=5)
+    with graphs.eager():
+        eager = _sharded([card] * 4, wl)
+    captured = _sharded([card] * 4, wl)
+    for s in range(4):
+        a, b = eager._graphs[s], captured._graphs[s]
+        for f in TENSOR_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (s, f)
+        for f in SCALAR_FIELDS:
+            assert getattr(a, f) == getattr(b, f), (s, f)
+        assert torch.equal(eager._vectors[s], captured._vectors[s])
+        assert torch.equal(eager._global_ids[s], captured._global_ids[s])
+    assert sum(st["replayed"] for st in captured.last_build_stats) > 0
+
+
+@pytest.mark.cuda
+def test_failed_build_capture_raises_on_card(card, monkeypatch):
+    """An insert batch that reads the card mid-capture raises after its
+    eager run; nothing falls back to the eager loop."""
+    import hnsw_tpu_torch.build as build
+    from hnsw_tpu_torch import HnswIndex, synthetic_workload
+    wl = synthetic_workload(3000, 32, n_queries=8, seed=3)
+    orig = build.select_neighbors
+
+    def reads(*a, **kw):
+        out = orig(*a, **kw)
+        float(out[0].sum())          # a host read: illegal in a capture
+        return out
+
+    monkeypatch.setattr(build, "select_neighbors", reads)
+    idx = HnswIndex(32, 8, capacity=4096, ef_construction=40, device=card)
+    with pytest.raises(RuntimeError, match="build capture failed"):
+        idx.add(wl.base)
