@@ -239,6 +239,23 @@ Phases (any failure raises, and the exit code is not 0):
      each form under the profiler (the eager one with the device time of
      each stage: descent, beams, select-neighbors, back-link repair).
 
+ 13. phase q, the entry points of ``__graft_entry__.py`` as ported
+     (``hnsw_tpu_torch.dryrun``) on their default device, the card,
+     after phase n: q1 ``entry()`` (384 x 16 from the host builder, 64
+     queries, k=10, ef=32): one eager call (``graphs.eager()``) and three
+     captured / replayed calls, equal bit for bit, and ids equal to
+     ``entry(device="cpu")`` on >= 99% of slots with those distances
+     within rtol 1e-5 + atol 1e-5 (K1, K3); then ``dryrun_multichip(n)``
+     for n in ``DRYRUN_DEVICES`` (8, as in MULTICHIP_r0*.json: 4 shards x
+     q 2; 3: 3 shards x q 1), the shards on the visible cards, a card
+     repeated: a 10,007 x 16 sharded build and the reference's checks (fan-out
+     recall@5 > 0.95, packed bytes == words, degrade / restore, vacuum;
+     K1, K2, K3, K4), then on the index it returns: a replayed search
+     equal to an eager one, and after ``mark_shard_failed(0)`` and
+     ``restore_shards`` a replayed search equal to an eager one and to
+     the search before the failure (no capture replays on freed shard
+     tensors). Each dry run's seconds, mesh and recalls are printed.
+
 ``--n N`` (N >= 300,000) cuts the f32 main path's base to N vectors (the
 cut is printed); with no arguments it runs the full 1,000,000. The codec
 phases always run at the sizes above. ``--profile`` adds one
@@ -250,20 +267,20 @@ device busy, busy share, the top ops by device time); its searches count
 as main-path launches.
 
 The next-to-last lines are one JSON object with each kernel's launches
-(summed over every phase of 4 and 6-10, phase m's ranks' included; K3 and
-K5 by row dtype, one row each, K3 at the refine's shape with the refine's
-own launches, K3 at phase a's level-0 hop on ids of the built graph with
-that hop's launches, replays included, and K3 at the shape that
-took the sharded build's most kernel time, with all of the build's K3
-launches), error, times and
-bound, and the ``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+(summed over every phase of 4, 6-10 and 13, phase m's ranks' included;
+K3 and K5 by row dtype, one row each, K3 at the refine's shape with the
+refine's own launches, K3 at phase a's level-0 hop on ids of the built
+graph with that hop's launches, replays included, and K3 at the shape
+that took the sharded build's most kernel time, with all of the build's
+K3 launches), error, times and bound, and the ``nvidia-smi`` name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import itertools
 import json
 import os
@@ -3112,6 +3129,107 @@ def cpu_baseline_phase(dev, totals: dict, card: str) -> dict:
             "host_cpu": host}
 
 
+# phase q: the dry run's device counts on one process; 8 is that of the
+# recorded TPU runs (MULTICHIP_r01-r05.json), 3 a one-query-column form.
+# 1, 2 and 4 put 10,007 points on shards of 4,096 rows too few to hold
+# them, and the reference's own dry run raises there as the port's does
+DRYRUN_DEVICES = (8, 3)
+
+
+def same_result(tag: str, got, want) -> None:
+    """Raise unless two searches' (D, I), tensors or numpy arrays, are
+    equal bit for bit."""
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+    for a, b in zip(got, want):
+        a, b = host(a), host(b)
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                a.tobytes() != b.tobytes():
+            raise AssertionError(f"q {tag}: ids or distances differ")
+
+
+def entry_points_phase(dev, totals: dict) -> dict:
+    """Phase q (module docstring): the entry points of
+    ``__graft_entry__.py`` as ported (``hnsw_tpu_torch.dryrun``) on the
+    card, every earlier index freed. On a card they take their default
+    device; a CPU ``dev`` (a rehearsal) is passed to them."""
+    from hnsw_tpu_torch import dryrun, graphs
+    card = dev.type == "cuda"
+
+    def q1():
+        fn, args = dryrun.entry() if card else dryrun.entry(device=dev)
+        if any(t.device.type != dev.type for t in (args[0].neighbors0,
+                                                   args[1], args[2])):
+            raise AssertionError(f"q1: entry() placed its index off {dev}")
+        with graphs.eager():
+            want = fn(*args)
+        got = [fn(*args) for _ in range(3)]   # capture, then replays
+        for j, res in enumerate(got):
+            same_result(f"q1 call {j}", res, want)
+        cfn, cargs = dryrun.entry(device="cpu")
+        cd, ci = cfn(*cargs)
+        d, i = (t.cpu() for t in want)
+        same = i == ci
+        frac = float(same.float().mean())
+        delta = float((d[same] - cd[same]).abs().max()) if frac else 0.0
+        log(f"q1 entry(): eager == 3 replayed calls bit for bit "
+            f"({len(graphs._CACHE)} capture); ids equal to "
+            f"entry(device='cpu') on {frac:.4f} of slots, max |delta d| of "
+            f"those {delta:.3g}")
+        if frac < 0.99 or not torch.allclose(d[same], cd[same], rtol=1e-5,
+                                             atol=1e-5):
+            raise AssertionError("q1: entry() on the card differs from "
+                                 "entry(device='cpu') beyond the search "
+                                 "parity bar")
+        return frac
+
+    def run_dryrun(n):
+        t0 = time.time()
+        out = dryrun.dryrun_multichip(n) if card else \
+            dryrun.dryrun_multichip(n, devices=[dev] * n)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        idx, queries = out["index"], out["queries"]
+        if any(t.device.type != dev.type for t in idx._vectors):
+            raise AssertionError(f"q dryrun_multichip({n}) ran off {dev}")
+        # a capture must not outlive the shard tensors it read: a failed
+        # shard restored from its checkpoint searches new tensors
+        before = idx.search(queries, k=5, ef_search=32)
+        with graphs.eager():
+            same_result(f"dryrun({n}) vacuumed", before,
+                        idx.search(queries, k=5, ef_search=32))
+        ckpt = io.BytesIO()
+        idx.save(ckpt)
+        idx.mark_shard_failed(0)
+        idx.search(queries, k=5, ef_search=32)
+        ckpt.seek(0)
+        idx.restore_shards(ckpt, [0])
+        after = idx.search(queries, k=5, ef_search=32)
+        with graphs.eager():
+            eager = idx.search(queries, k=5, ef_search=32)
+        same_result(f"dryrun({n}) restored, replay vs eager", after, eager)
+        same_result(f"dryrun({n}) restored vs before", after, before)
+        log(f"q dryrun_multichip({n}): {secs:.1f} s on "
+            f"{sorted({str(t.device) for t in idx._vectors})}, mesh "
+            f"{out['mesh']}, recalls {out['recalls']}; after restore_shards "
+            f"the replayed search equals the eager one and the one before "
+            f"the failure")
+        return {"secs": secs, "recalls": out["recalls"], "mesh": out["mesh"]}
+
+    graphs.clear()
+    frac = phase("q1 entry()", ("beam_update", "gathered_vec_dist"), totals,
+                 q1)
+    runs = {}
+    for n in DRYRUN_DEVICES:
+        graphs.clear()
+        runs[n] = phase(f"q dryrun_multichip({n})",
+                        ("beam_update", "gathered_vec_dist",
+                         "packed_row_dist", "packed_row_dist_words"),
+                        totals, lambda: run_dryrun(n))
+    graphs.clear()
+    return {"entry_same": frac, "dryrun": runs}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=NORTH_STAR_N,
@@ -3197,6 +3315,8 @@ def main() -> None:
         f"{sharded['merge_ms']:.4f} ms")
     torch.cuda.empty_cache()
     cpu_baseline_phase(dev, totals, card)
+    torch.cuda.empty_cache()
+    entry_points_phase(dev, totals)
     by_tag = totals.pop("by_tag")
     log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
         f"by row dtype {by_tag}")

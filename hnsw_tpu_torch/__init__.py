@@ -38,6 +38,7 @@ from .reference_impl import NumpyHnsw  # noqa: E402
 from .search import hnsw_search  # noqa: E402
 from .serving import Searcher  # noqa: E402
 from .utils.datasets import synthetic_workload  # noqa: E402
+from . import dryrun  # noqa: E402  (entry() and dryrun_multichip(n))
 
 __all__ = [
     "IP", "L2", "HnswConfig", "GraphArrays", "HnswIndex", "FlatIndex",
@@ -47,5 +48,5 @@ __all__ = [
     "brute_force_topk", "hnsw_search", "check_invariants",
     "PackedNeighbors", "pack_neighbors", "index_factory", "save_graph",
     "load_graph", "synthetic_workload", "Searcher", "ShardedHnswIndex",
-    "make_mesh",
+    "make_mesh", "dryrun",
 ]

@@ -10,24 +10,15 @@ read."""
 
 import numpy as np
 import pytest
-import torch
 
 import hnsw_tpu
 import hnsw_tpu_torch
 from hnsw_tpu.utils.recall import recall_at_k
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 K, EF = 10, 48
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from hnsw_tpu_torch.ops.prune import select_neighbors
 from hnsw_tpu_torch.ops.repair import apply_backlinks
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])

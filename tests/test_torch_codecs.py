@@ -26,6 +26,8 @@ from hnsw_tpu_torch.ops.packed import (make_packed_pq_expand, pack_neighbors,
                                        pack_pq_neighbors, quantization_params,
                                        quantize_codes)
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 # f32 sums of d terms taken in another order than the reference's
 RTOL, ATOL = 1e-5, 1e-4
 

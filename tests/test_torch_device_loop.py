@@ -32,16 +32,9 @@ from hnsw_tpu_torch import search as port_search
 from hnsw_tpu_torch.graph import graph_from_numpy
 from hnsw_tpu_torch.utils.datasets import synthetic_workload
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 K = 10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

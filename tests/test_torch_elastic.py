@@ -16,17 +16,9 @@ from hnsw_tpu_torch import synthetic_workload
 from hnsw_tpu_torch.parallel.sharded import ShardedHnswIndex, make_mesh
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cpu_mesh():

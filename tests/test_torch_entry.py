@@ -14,7 +14,6 @@ at ef=64. The four tests the reference marks ``slow`` are not twinned."""
 
 import numpy as np
 import pytest
-import torch
 
 import hnsw_tpu
 import hnsw_tpu_torch
@@ -23,16 +22,9 @@ from hnsw_tpu.utils.datasets import synthetic_workload
 from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch.search import entry_sample_size
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 N, D, M, EFC = 4000, 32, 16, 60
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_index(metric="l2"):

@@ -24,8 +24,8 @@ from hnsw_tpu_torch.config import HnswConfig
 from hnsw_tpu_torch.graph import check_invariants, graph_from_numpy
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 # one intra-op thread for the module
-from test_torch_mutable import one_torch_thread  # noqa: F401
 
 
 def port_host(d, m, metric="l2", **kw):

@@ -17,7 +17,8 @@ from conftest import exact_knn
 from test_torch_mutable import (assert_same_arrays, assert_same_search,
                                 copy_of, port_index, ref_of)
 # fixtures: the shared graph, and one intra-op thread for the module
-from test_torch_mutable import f32, one_torch_thread  # noqa: F401
+from test_torch_mutable import f32  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel, hop_kernel
 from hnsw_tpu_torch.ops.packed import word_width
 from test_torch_cuda import BEAM_EDGES, beam_case, beam_edge_case
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 # f32 sums taken in another order than the reference's
 RTOL, ATOL = 1e-5, 1e-4
@@ -470,14 +472,17 @@ def test_words_and_gather_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_imports_without_jax():
-    """The port never imports jax or hnsw_tpu: every module imports in a
-    process where both are unavailable."""
+    """The port never imports jax, hnsw_tpu or the reference's entry
+    points (``__graft_entry__``): every module imports in a process where
+    they are unavailable."""
     import hnsw_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(hnsw_tpu_torch.__path__,
                                                    "hnsw_tpu_torch.")]
+    assert "hnsw_tpu_torch.dryrun" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['hnsw_tpu'] = None\n"
+            "sys.modules['__graft_entry__'] = None\n"
             f"for name in {['hnsw_tpu_torch'] + names!r}:\n"
             "    importlib.import_module(name)\n"
             "assert not any(m == 'jax' or m.startswith('jax.') "

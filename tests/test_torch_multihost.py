@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 N, D, M, EFC, CAP, SEED = 800, 16, 8, 60, 512, 17
 K, EF = 10, 64
 SHARD_KEY = r"(spill_)?s\d+_"     # a shard's arrays in what a rank saw
@@ -134,15 +136,6 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

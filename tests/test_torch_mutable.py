@@ -23,18 +23,7 @@ from hnsw_tpu_torch.ops.packed import (_pack_nibbles, pack_neighbors,
                                        quantize_codes)
 
 from conftest import exact_knn
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module, then the setting it had: at
-    these small shapes more threads buy little, and beside other test
-    processes (pytest-xdist) they oversubscribe the cores; two workers on
-    eight cores took 228 s for what one thread each ran in 35 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def t(a):

@@ -13,7 +13,6 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
 
 import hnsw_tpu_torch
 from hnsw_tpu.native import cpu_baseline as ref_native
@@ -22,15 +21,7 @@ from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch.native import cpu_baseline
 
 from conftest import exact_knn
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,8 @@ import torch
 from hnsw_tpu.ops import packed as ref
 from hnsw_tpu_torch.ops import packed
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 CASES = [(128, 8), (128, 4), (100, 8), (24, 8), (17, 4)]
 
 

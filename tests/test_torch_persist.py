@@ -21,6 +21,7 @@ from hnsw_tpu_torch.utils import datasets as ds
 from hnsw_tpu_torch.utils.stats import HnswStats, Timer
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 WL = dict(n=400, d=16, n_queries=40, seed=3)
 IDX = dict(capacity=512, ef_construction=40, seed=11)

@@ -21,6 +21,7 @@ from hnsw_tpu_torch.ops.packed import pack_neighbors
 from hnsw_tpu_torch.search import ef_bucket, entry_sample_size, hnsw_search
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def _both(index, monkeypatch):

@@ -13,7 +13,7 @@ from hnsw_tpu.serving import size_bucket as ref_size_bucket
 from hnsw_tpu_torch.serving import Searcher, size_bucket
 
 from conftest import exact_knn
-from test_torch_mutable import one_torch_thread  # noqa: F401  (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(scope="module")

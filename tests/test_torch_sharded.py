@@ -31,18 +31,10 @@ from hnsw_tpu_torch.parallel.sharded import (Mesh, ShardedHnswIndex,
                                              make_mesh, merge_topk)
 
 from conftest import exact_knn
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 CPU = torch.device("cpu")
 SMALL = dict(capacity_per_shard=1024, ef_construction=60)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cpu_mesh(n_shards=4, q=2):

@@ -25,17 +25,10 @@ from hnsw_tpu_torch.config import HnswConfig
 from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS, empty_graph
 from hnsw_tpu_torch.ops.repair import apply_backlinks
 
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
+
 CPU = torch.device("cpu")
 D, M, EFC, CAP, MAX_BATCH, SEED = 16, 8, 40, 8192, 128, 9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _points(n, seed=3):
@@ -238,6 +231,19 @@ def _backlink_case(codec, mode, seed):
 def test_static_backlinks_match_reference(codec, mode):
     """The static pass returns the reference's rows and drop count, bit
     for bit."""
+    _backlinks_match_reference(codec, mode, "l2")
+
+
+@pytest.mark.parametrize("mode", ["all", "some", "none"])
+@pytest.mark.parametrize("codec", ["float32", "sq8", "pq"])
+def test_static_backlinks_match_reference_ip(codec, mode):
+    """The same under the inner-product metric, whose prune ranks the
+    candidates by -dot: the reference's rows and drop count, bit for
+    bit."""
+    _backlinks_match_reference(codec, mode, "ip")
+
+
+def _backlinks_match_reference(codec, mode, metric):
     drops = []
     for seed in range(3):
         adj, dst, src, valid, vectors, dequant, pq, r = _backlink_case(
@@ -250,13 +256,13 @@ def test_static_backlinks_match_reference(codec, mode):
             jnp.asarray(adj), jnp.asarray(dst), jnp.asarray(dst),
             jnp.asarray(src), jnp.asarray(valid), jnp.asarray(vectors),
             opt(dequant, lambda t: tuple(jnp.asarray(a) for a in t)),
-            opt(pq, jnp.asarray), r_window=r, metric="l2")
+            opt(pq, jnp.asarray), r_window=r, metric=metric)
         got, drop = apply_backlinks(
             torch.from_numpy(adj.copy()), torch.from_numpy(dst),
             torch.from_numpy(dst), torch.from_numpy(src),
             torch.from_numpy(valid), torch.from_numpy(vectors),
             opt(dequant, lambda t: tuple(torch.from_numpy(a) for a in t)),
-            opt(pq, torch.from_numpy), r_window=r, metric="l2")
+            opt(pq, torch.from_numpy), r_window=r, metric=metric)
         np.testing.assert_array_equal(got.numpy(), np.asarray(r_adj))
         assert int(drop) == int(r_drop)
         drops.append(int(drop))

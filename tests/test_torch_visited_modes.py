@@ -5,7 +5,6 @@ reference's on the same NumPy-built graph."""
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from hnsw_tpu.search import compute_sqnorms
@@ -13,14 +12,7 @@ from hnsw_tpu.search import hnsw_search as ref_search
 from hnsw_tpu_torch.graph import graph_from_numpy
 from hnsw_tpu_torch.search import hnsw_search
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (tests/test_torch_mutable.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def _modes(host_index, queries, k, ef):

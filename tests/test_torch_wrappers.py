@@ -38,8 +38,7 @@ from hnsw_tpu_torch import (FlatIndex, IdMapIndex, PreTransformIndex,
 from hnsw_tpu_torch.models.refine import rerank
 from hnsw_tpu_torch.ops import transforms as tf
 
-# one intra-op thread for the module
-from test_torch_mutable import one_torch_thread  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def factory(d, spec, metric="l2", **kw):
