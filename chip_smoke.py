@@ -328,6 +328,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def host_reads() -> int:
+    """The program's host reads so far (the ``trace`` counter
+    ``host_reads``)."""
+    from hnsw_tpu_torch import trace
+    return trace.totals().counters.get("host_reads", 0)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, by CUDA events around ``iters`` calls.
     A wrapper's host work (checks, output allocation, the ctypes call)
@@ -1110,7 +1117,7 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
     ids, hops and ndis equal, distances bit-equal (the same kernels in the
     same order). With ``profile``, the replay's device-busy share
     (``profile_window``)."""
-    from hnsw_tpu_torch import graphs
+    from hnsw_tpu_torch import graphs, trace
 
     def walls(call):
         call()
@@ -1125,10 +1132,10 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
 
     def reads_of(call):
         torch.cuda.synchronize()
-        r0 = graphs.HOST_READS
+        r0 = host_reads()
         res = call()
         torch.cuda.synchronize()
-        return res, graphs.HOST_READS - r0
+        return res, host_reads() - r0
 
     graphs.clear()
     with graphs.eager():
@@ -1136,9 +1143,11 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
         eager_w = walls(fn)
     torch.cuda.synchronize()
     t = time.time()
+    c0 = trace.totals().counters.get("capture_ms.search", 0.0)
     fn()                           # eager warm-up, capture, first replay
     torch.cuda.synchronize()
     first_ms = (time.time() - t) * 1e3
+    capture_ms = trace.totals().counters.get("capture_ms.search", 0.0) - c0
     got, replay_reads = reads_of(fn)
     replay_w = walls(fn)
     (d, i, st), (wd, wi, wst) = got, want
@@ -1153,7 +1162,7 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
                 f"{max(w):.2f})")
 
     log(f"o {tag}: eager {fmt(eager_w)}, {eager_reads} host reads; "
-        f"capture {graphs.LAST_CAPTURE_MS:.1f} ms (first call {first_ms:.1f}"
+        f"capture {capture_ms:.1f} ms (first call {first_ms:.1f}"
         f" ms with its eager warm-up); replay {fmt(replay_w)}, "
         f"{replay_reads} host reads (the stats' hops one of them); ids equal "
         f"{same_ids}, max |delta d| {delta:.3g}, distances bit-equal "
@@ -1165,7 +1174,7 @@ def eager_vs_replay(tag: str, fn, profile: bool = False) -> dict:
     if profile:
         profile_window(f"{tag} (replayed)", fn)
     return {"eager_ms": eager_w, "replay_ms": replay_w,
-            "capture_ms": graphs.LAST_CAPTURE_MS, "eager_reads": eager_reads,
+            "capture_ms": capture_ms, "eager_reads": eager_reads,
             "replay_reads": replay_reads}
 
 
@@ -1292,13 +1301,13 @@ def build_capture_phase(dev, totals: dict, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         k0 = _cuda.launch_counts()["gathered_vec_dist"]
-        r0 = graphs.HOST_READS
+        r0 = host_reads()
         t = time.time()
         with graphs.eager() if eager else contextlib.nullcontext():
             idx.add(wl.base)
         torch.cuda.synchronize()
         wall = time.time() - t
-        out = {"wall_s": wall, "reads": graphs.HOST_READS - r0,
+        out = {"wall_s": wall, "reads": host_reads() - r0,
                "k3": _cuda.launch_counts()["gathered_vec_dist"] - k0,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         form = "eager" if eager else "captured"
@@ -1431,8 +1440,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
     k3_build: dict = {}
 
     def build():
-        from hnsw_tpu_torch import graphs
-        r0 = graphs.HOST_READS
+        r0 = host_reads()
         t0 = time.time()
         # --profile: ten late insert batches (replays) under the profiler
         late = n // 2048 - 20
@@ -1445,7 +1453,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
             f"back-link window drops {idx._builder.last_backlink_dropped}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
             f" GB; {torch.cuda.get_device_name(0)}")
-        build_stats("a", idx._builder, graphs.HOST_READS - r0)
+        build_stats("a", idx._builder, host_reads() - r0)
         t0 = time.time()
         stats = idx.check()
         log(f"check: {time.time() - t0:.1f} s, errors {stats['errors']}, "
@@ -2028,17 +2036,16 @@ def recall_untied(i, hat: np.ndarray, hat_d, k: int = 10):
 
 def build_codec(idx, base: np.ndarray, train_x: np.ndarray, tag: str):
     """train + add + check() of a codec index; prints seconds and stats."""
-    from hnsw_tpu_torch import graphs
     t0 = time.time()
     idx.train(train_x)
     torch.cuda.synchronize()
     t1 = time.time()
-    r0 = graphs.HOST_READS
+    r0 = host_reads()
     idx.add(base)
     torch.cuda.synchronize()
     build_s = time.time() - t1
     build_stats(tag, getattr(idx, "index", idx)._builder,
-                graphs.HOST_READS - r0)
+                host_reads() - r0)
     stats = idx.check()
     log(f"{tag} build: train {t1 - t0:.1f} s, add {build_s:.1f} s "
         f"({len(base) / build_s:.0f} inserts/s), peak device memory "
@@ -2651,13 +2658,12 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
                                      f"dead ids")
 
     def build():
-        from hnsw_tpu_torch import graphs
-        r0 = graphs.HOST_READS
+        r0 = host_reads()
         t0 = time.time()
         idx.add(wl.base)
         torch.cuda.synchronize()
         secs = time.time() - t0
-        reads = graphs.HOST_READS - r0
+        reads = host_reads() - r0
         st = [x for x in idx.last_build_stats if x is not None]
 
         def total(key):

@@ -34,6 +34,14 @@ eagerly and is the real insert; the capture after it only records. Inside
 a batch the one host read is the greedy descent's condition, once every
 ``DESCENT_CHUNK`` steps; the back-link drop counter is read once an
 ``add()``. The graph tensors are updated in place.
+
+While tracing is on (``trace.py``) an ``add()`` records its spans
+(``hnsw.build.plan``, ``.step``, ``.sync``, ``.finish``) and a batch its
+stages (``write``, ``descent``, ``upper``, ``beams``, ``select``,
+``backlinks``; marked through its loop runner). A ``StagedBuild`` made
+while tracing is on captures each profile split at the stages (another
+capture key) and times the stages of its replayed batches with CUDA
+events, read once, at ``finish()``.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import graphs
+from . import graphs, trace
 from .config import IP, L2, HnswConfig
 from .graph import GraphArrays
 from .graphs import EagerLoop
@@ -109,8 +117,10 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     (PQ), xb holds x̂ (``HnswIndex`` encodes at the API boundary), the
     write encodes it back to the same codes, and every read of a stored
     row decodes it, so each build distance is exact over x̂. ``loop`` runs
-    the descent (``graphs.EagerLoop`` or a capture). Returns the back-link
-    window drops (int64 0-d tensor)."""
+    the descent and marks the stages (``graphs.EagerLoop`` or a capture).
+    Returns the back-link window drops (int64 0-d tensor)."""
+    loop = loop or EagerLoop(DESCENT_CHUNK)
+    loop.phase("write")
     b = xb.shape[0]
     dev = xb.device
     metric = cfg.metric
@@ -146,6 +156,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
         return d + qsq[:d.shape[0]] if metric == L2 else d
 
     # ---- 2. greedy descent to each point's level (pad rows stay put)
+    loop.phase("descent")
     ep = entry_point.to(torch.int32).expand(b).contiguous()
     ep_d = distance_to(ep[:, None], torch.ones_like(ep[:, None],
                                                     dtype=torch.bool))[:, 0]
@@ -156,7 +167,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
                                cfg.max_level_cap)
         e, e_d = greedy_descend(graph, distance_to, ep, ep_d, to_level,
                                 cfg.max_level_cap, max_level=max_level,
-                                loop=loop or EagerLoop(DESCENT_CHUNK))
+                                loop=loop)
 
     # insert beams stop at a hop cap: 0 = auto (~efc / (2 n_expand) + 12
     # hops), > 0 = explicit, < 0 = enough hops to converge
@@ -171,6 +182,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     # ---- 3. upper levels, top down, on the first b_up rows; the rows
     # taking part at `level` are those with level >= it
     if prof.n_levels:
+        loop.phase("upper")
         lv_up, slots_up, ids_up = levels[:b_up], slots[:b_up], ids[:b_up]
         e_up, ed_up = e[:b_up], e_d[:b_up]
         dist_up = distance_fn(xf[:b_up])
@@ -210,6 +222,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
         e_d = torch.cat([ed_up, e_d[b_up:]])
 
     # ---- 4. level 0
+    loop.phase("beams")
     neighbors0 = graph.neighbors0
     state = beam_ops.init_beam(e, e_d, efc, active=valid)
     state = beam_ops.beam_search(state, lambda node_ids: neighbors0[node_ids],
@@ -225,6 +238,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     intra_d, near = torch.topk(intra, t, dim=1, largest=False, sorted=True)
     intra_ids = torch.where(torch.isinf(intra_d), -1, ids[near])
 
+    loop.phase("select")
     buf_ids, buf_d = beam_ops.dedup_sorted_buffer(state.buf_ids,
                                                   state.buf_dist)
     cand_ids = torch.cat([torch.where(valid[:, None], buf_ids, -1),
@@ -236,6 +250,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     row = torch.full((b, cfg.m0), -1, dtype=torch.int32, device=dev)
     row[:, :cfg.m] = kept0
     neighbors0[w_ids] = row[src]
+    loop.phase("backlinks")
     dst = kept0.reshape(-1)
     src_ids = ids[:, None].expand_as(kept0).reshape(-1)
     pair_ok = (dst >= 0) & valid[:, None].expand_as(kept0).reshape(-1)
@@ -308,7 +323,9 @@ class StagedBuild:
     """One add()'s insert batches into one graph: the ``Plan`` and its
     schedule staged on the device once, ``step()`` to insert the next
     batch (replayed from its profile's capture on a CUDA device) and
-    ``finish()`` once every batch ran."""
+    ``finish()`` once every batch ran. Made while tracing is on
+    (``traced``), it splits its captures at the stages and times the
+    stages of its replayed batches."""
 
     def __init__(self, graph: GraphArrays, vectors: torch.Tensor,
                  plan: Plan, *, cfg: HnswConfig, ef_construction: int,
@@ -323,6 +340,8 @@ class StagedBuild:
         # what ran ("replayed", "eager", "captured") and the captures' ms
         self.ran = collections.Counter()
         self.capture_ms: list = []
+        self.traced = trace.enabled()
+        self.timed: list = []          # the replayed batches' trace.Phases
 
         def put(a):                        # one host-to-device copy each
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -341,7 +360,7 @@ class StagedBuild:
         self.refs += list(sq_params or ()) + ([] if pq_cb is None else [pq_cb])
         self.key = (cfg, ef_construction, intra_k, r_window, n_expand,
                     hop_cap, sq_params is not None, pq_cb is not None,
-                    DESCENT_CHUNK,
+                    DESCENT_CHUNK, self.traced,
                     tuple(graphs.tensor_identity(t) for t in self.refs))
 
     def _body(self, prof: _Profile, loop) -> None:
@@ -366,34 +385,46 @@ class StagedBuild:
         prof = self.profiles[self.next]
         self.next += 1
         self.left[prof] -= 1
-        if not graphs.capturing_enabled(self.vectors.device):
-            self._body(prof, EagerLoop(DESCENT_CHUNK))
-            self.ran["eager"] += 1
-            return
-        ran = graphs.insert_or_replay(
-            (prof, self.key), self.refs,
-            lambda _inputs, loop: self._body(prof, loop),
-            chunk=DESCENT_CHUNK, keep=self.left[prof] > 0)
+        dev = self.vectors.device
+        with trace.span("hnsw.build.step"), \
+                trace.Phases("hnsw.build", dev, self.traced) as ph:
+            if not graphs.capturing_enabled(dev):
+                with trace.span("hnsw.build.eager"):
+                    self._body(prof, EagerLoop(DESCENT_CHUNK, ph))
+                    ph.stop()
+                self.ran["eager"] += 1
+                return
+            ran, entry = graphs.insert_or_replay(
+                (prof, self.key), self.refs,
+                lambda _inputs, loop: self._body(prof, loop),
+                chunk=DESCENT_CHUNK, keep=self.left[prof] > 0,
+                split=self.traced, phases=ph)
         self.ran[ran] += 1
         if ran == "captured":
-            self.capture_ms.append(graphs.LAST_CAPTURE_MS)
+            self.capture_ms.append(entry.capture_ms)
+        elif ran == "replayed" and self.traced:
+            self.timed.append(ph)
 
     def sync(self) -> None:
         """Wait for the batches issued so far (bounds the host's run-ahead
         on a CUDA device)."""
         if self.vectors.device.type == "cuda":
-            torch.cuda.current_stream(self.vectors.device).synchronize()
+            with trace.span("hnsw.build.sync"):
+                torch.cuda.current_stream(self.vectors.device).synchronize()
 
     def finish(self) -> int:
         """After the last batch: moves the graph's entry point and max
         level on, and returns the back-link pairs the batches dropped,
-        with the batches counted on the device (one read). Raises unless
-        every batch ran once."""
+        with the batches counted on the device (one read, after which the
+        replayed batches' stage times are added to the trace). Raises
+        unless every batch ran once."""
         done, drops = graphs.host_read(torch.stack([self.cursor,
                                                     self.drops]))
         if done != len(self.profiles) or self.next != done:
             raise RuntimeError(f"staged build: {done} of "
                                f"{len(self.profiles)} batches ran")
+        for ph in self.timed:
+            trace.add_device("hnsw.build", ph.ms())
         self.graph.entry_point, self.graph.max_level = self.after
         return int(drops)
 
@@ -429,9 +460,8 @@ class DeviceBuilder:
         self.sq_params = None if sq_params is None else tuple(
             np.asarray(a, np.float32) for a in sq_params)
         self.pq_cb = None if pq_cb is None else np.asarray(pq_cb, np.float32)
-        # back-link pairs beyond the repair window, lost per add() / total
+        # back-link pairs beyond the repair window, lost by the last add()
         self.last_backlink_dropped = 0
-        self.backlink_dropped_total = 0
         self.last_stats: dict = {}    # the last add()'s StagedBuild.stats()
 
     @property
@@ -521,16 +551,17 @@ class DeviceBuilder:
         cfg = self.cfg
         efc = int(ef_construction or cfg.ef_construction)
         x = np.ascontiguousarray(np.asarray(x, np.float32))
-        all_levels = self._draw_levels(len(x))
-        i = 0
-        if graph.ntotal == 0 and len(x):
-            self._seed_first(graph, vectors, x[0], int(all_levels[0]))
-            i = 1
-        plan = self._plan(graph.ntotal, graph.n_upper, x[i:],
-                          all_levels[i:])
-        if not plan.batches:
-            return
-        run = self.staged(graph, vectors, plan, efc)
+        with trace.span("hnsw.build.plan"):
+            all_levels = self._draw_levels(len(x))
+            i = 0
+            if graph.ntotal == 0 and len(x):
+                self._seed_first(graph, vectors, x[0], int(all_levels[0]))
+                i = 1
+            plan = self._plan(graph.ntotal, graph.n_upper, x[i:],
+                              all_levels[i:])
+            if not plan.batches:
+                return
+            run = self.staged(graph, vectors, plan, efc)
         batches = plan.batches
         bi = 0
         while bi < len(batches):
@@ -546,13 +577,13 @@ class DeviceBuilder:
                 bi += 1
                 if bi % self.STEP_SYNC == 0:
                     run.sync()
-        self.last_backlink_dropped = run.finish()
-        graph.ntotal += sum(take for _, take, _ in batches)
-        graph.n_upper += int((plan.sl >= 0).sum())
-        self.last_stats = run.stats()
-        del run                 # frees the staged plan and its captures
-        graphs._purge()
-        self.backlink_dropped_total += self.last_backlink_dropped
+        with trace.span("hnsw.build.finish"):
+            self.last_backlink_dropped = run.finish()
+            graph.ntotal += sum(take for _, take, _ in batches)
+            graph.n_upper += int((plan.sl >= 0).sum())
+            self.last_stats = run.stats()
+            del run             # frees the staged plan and its captures
+            graphs._purge()
         if self.last_backlink_dropped:
             logger.info(
                 "back-link repair: %d pairs beyond the r_window=%d cap were "

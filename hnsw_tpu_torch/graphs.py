@@ -53,6 +53,14 @@ comparisons only (``eager()``, for searches and builds alike).
 
 Launch counts stay true (``ops/_cuda.py``): a capture records the launches
 of each graph instead of counting them, and each replay adds them.
+
+Phases (``trace.py``): a body marks its phases through its loop runner
+(``loop.phase(label)``). ``EagerLoop`` passes each mark to its
+``trace.Phases`` (a span, and on a card a timing event). A capture asked
+to ``split`` (a search with ``with_stats``, a build traced) ends the
+current graph at each mark and labels the parts; its replay then marks
+its ``trace.Phases`` between the launches of two phases. Other captures
+ignore the marks: one chain of graphs, as many launches as without them.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from typing import Callable
 
 import torch
 
+from . import trace
 from .ops import _cuda
 
 # steps a loop runs between two reads of its condition (>= 16 keeps a
@@ -77,16 +86,12 @@ CUDA_Q_ALIGN = 512
 # the padded rows)
 CPU_Q_ALIGN = 1
 
-HOST_READS = 0          # host_read calls since the process started
-LAST_CAPTURE_MS = 0.0   # host milliseconds of the last capture
-
 
 def host_read(t: torch.Tensor):
     """The value of a tensor on the host (a number for one element, else
     a list): the only place the search loops and the build wait on the
-    device. Counted in ``HOST_READS``."""
-    global HOST_READS
-    HOST_READS += 1
+    device. Counted in the counter ``host_reads`` (``trace.py``)."""
+    trace.count("host_reads")
     return t.item() if t.numel() == 1 else t.tolist()
 
 
@@ -99,12 +104,18 @@ def padded_rows(qn: int, device: torch.device) -> int:
 
 class EagerLoop:
     """Runs each loop on the host: ``chunk`` steps, then one read of the
-    condition (none once ``bound`` steps have run)."""
+    condition (none once ``bound`` steps have run). Phase marks go to
+    ``phases`` (a ``trace.Phases``; none: ignored)."""
 
-    def __init__(self, chunk: int | None = None):
+    def __init__(self, chunk: int | None = None, phases=None):
         self.chunk = LOOP_CHUNK if chunk is None else int(chunk)
         if self.chunk < 1:
             raise ValueError(f"loop chunk must be >= 1, got {self.chunk}")
+        self.phases = phases
+
+    def phase(self, label: str) -> None:
+        if self.phases is not None:
+            self.phases.mark(label)
 
     def run(self, cond: Callable[[dict], torch.Tensor],
             step: Callable[[dict], dict], state: dict,
@@ -152,12 +163,16 @@ def tensor_identity(t: torch.Tensor | None) -> tuple | None:
 
 class _Capture:
     """Records one run of a search body as a chain of CUDA graphs (see the
-    module docstring). ``parts``: [(graph, launches, flag)], flag the
-    condition tensor of a loop graph (None for straight code)."""
+    module docstring). ``parts``: [(graph, launches, flag, phase)], flag
+    the condition tensor of a loop graph (None for straight code), phase
+    the label of the phase the graph belongs to (None unless ``split``)."""
 
-    def __init__(self, pool, chunk: int):
+    def __init__(self, pool, chunk: int, split: bool = False):
         self.pool = pool
         self.chunk = chunk
+        self.split = split
+        self.label = None
+        self._after_loop = False
         self.parts: list = []
         self.held: list = []
         self._graph = None
@@ -173,7 +188,21 @@ class _Capture:
             g.capture_end()
         finally:
             counts = _cuda.stop_recording()
-        self.parts.append((g, counts, flag))
+        self.parts.append((g, counts, flag, self.label))
+
+    def phase(self, label: str) -> None:
+        """With ``split``: the graph so far ends and the next ones belong
+        to ``label``. The graph the body began in, and one begun after a
+        loop graph, take the label instead of ending (what they recorded
+        before the mark is little or nothing, and an empty graph would be
+        a launch that does no work)."""
+        if not self.split or label == self.label:
+            return
+        if self.label is not None and not self._after_loop:
+            self.end()
+            self.begin()
+        self.label = label
+        self._after_loop = False
 
     def abort(self) -> None:
         if self._graph is not None:
@@ -206,35 +235,51 @@ class _Capture:
         self.end(flag)
         self.held.append((state, flag))
         self.begin()
+        self._after_loop = True
         return state
 
 
 class _Entry:
     """One key's capture: its graphs, static inputs and outputs, the loop
-    graphs' state and flags (kept alive with them) and weak references to
-    the index tensors it reads."""
+    graphs' state and flags (kept alive with them), weak references to
+    the index tensors it reads, and the capture's host ms."""
 
-    def __init__(self, parts, inputs: dict, outputs: dict, held, refs):
+    def __init__(self, parts, inputs: dict, outputs: dict, held, refs,
+                 capture_ms: float):
         self.parts = parts
         self.inputs = inputs
         self.outputs = outputs
         self.held = held
         self.refs = [weakref.ref(t) for t in refs]
+        self.capture_ms = capture_ms
 
     def alive(self) -> bool:
         return all(r() is not None for r in self.refs)
 
-    def replay(self, inputs: dict) -> dict:
-        for k, v in inputs.items():
-            self.inputs[k].copy_(v)
-        for g, counts, flag in self.parts:
-            g.replay()
-            _cuda.add_recorded(counts)
+    def replay(self, inputs: dict, phases=None) -> dict:
+        """Launch the chain; a split capture marks ``phases`` (a
+        ``trace.Phases``) at the first graph of each phase and stops it
+        after the last."""
+        if inputs:
+            with trace.span("hnsw.graph.inputs"):
+                for k, v in inputs.items():
+                    self.inputs[k].copy_(v)
+        for g, counts, flag, label in self.parts:
+            if label is not None and phases is not None:
+                phases.mark(label)
+            _launch(g, counts)
             if flag is not None:
                 while host_read(flag):
-                    g.replay()
-                    _cuda.add_recorded(counts)
+                    _launch(g, counts)
+        if phases is not None:
+            phases.stop()
         return {k: v.clone() for k, v in self.outputs.items()}
+
+
+def _launch(g, counts) -> None:
+    with trace.span("hnsw.graph.launch"):
+        g.replay()
+    _cuda.add_recorded(counts)
 
 
 _CACHE: dict = {}
@@ -276,12 +321,14 @@ def _on_capture_stream():
 
 
 def capture(body: Callable, inputs: dict, refs, *, chunk: int | None = None,
-            what: str = "search") -> _Entry:
+            what: str = "search", split: bool = False) -> _Entry:
     """Capture ``body(inputs, loop)`` with its own copies of ``inputs``;
     a loop without a bound becomes a graph of ``chunk`` steps
-    (``LOOP_CHUNK`` by default). Raises RuntimeError if the capture
-    fails."""
-    global _POOL, LAST_CAPTURE_MS
+    (``LOOP_CHUNK`` by default); with ``split`` each phase mark ends a
+    graph. The entry carries the capture's host ms, also counted in
+    ``captures.<what>`` and ``capture_ms.<what>`` (``trace.py``). Raises
+    RuntimeError if the capture fails."""
+    global _POOL
     t0 = time.perf_counter()
     if _POOL is None:
         _POOL = torch.cuda.graph_pool_handle()
@@ -290,7 +337,7 @@ def capture(body: Callable, inputs: dict, refs, *, chunk: int | None = None,
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    cap = _Capture(_POOL, LOOP_CHUNK if chunk is None else chunk)
+    cap = _Capture(_POOL, LOOP_CHUNK if chunk is None else chunk, split)
     failed = None
     with _on_capture_stream():      # a capture ends on the stream it began
         try:
@@ -302,38 +349,45 @@ def capture(body: Callable, inputs: dict, refs, *, chunk: int | None = None,
             failed = e
     if failed is not None:
         raise RuntimeError(f"{what} capture failed: {failed}") from failed
-    LAST_CAPTURE_MS = (time.perf_counter() - t0) * 1e3
-    return _Entry(cap.parts, static, outputs, cap.held, refs)
+    ms = (time.perf_counter() - t0) * 1e3
+    trace.count(f"captures.{what}")
+    trace.count(f"capture_ms.{what}", ms)
+    return _Entry(cap.parts, static, outputs, cap.held, refs, ms)
 
 
-def replay_or_capture(key, refs, inputs: dict, body: Callable) -> dict:
+def replay_or_capture(key, refs, inputs: dict, body: Callable, *,
+                      split: bool = False, phases=None) -> dict:
     """The search ``body`` for ``key``: replayed from its capture, captured
-    first (after one eager run) on the key's first search. ``refs``: the
+    first (after one eager run) on the key's first search, split at its
+    phase marks with ``split`` (which the key must hold). ``refs``: the
     index tensors the key names (a capture is dropped once one is freed).
-    Returns fresh copies of the outputs."""
+    ``phases``: the replay's ``trace.Phases``. Returns fresh copies of the
+    outputs."""
     _purge()
     entry = _CACHE.get(key)
     if entry is None:
         with _on_capture_stream():
             body(inputs, EagerLoop())   # the warm-up a capture needs
-        entry = capture(body, inputs, refs)
+        entry = capture(body, inputs, refs, split=split)
         _CACHE[key] = entry
     try:
-        return entry.replay(inputs)
+        return entry.replay(inputs, phases)
     except Exception as e:
         raise RuntimeError(f"search replay failed: {e}") from e
 
 
-def insert_or_replay(key, refs, body: Callable, *, chunk: int,
-                     keep: bool) -> str:
+def insert_or_replay(key, refs, body: Callable, *, chunk: int, keep: bool,
+                     split: bool = False, phases=None):
     """One insert batch, ``body(None, loop)``, which writes the index in
     place and returns nothing: replayed from the capture of ``key``, else
     run eagerly (the batch's own insert, on the capture stream, with its
     loops read once every ``chunk`` steps) and, with ``keep`` (a later
-    batch has this key), captured after it. The capture records without
+    batch has this key), captured after it, split at its stage marks with
+    ``split`` (which the key must hold). The capture records without
     running, so the batch is inserted once. ``refs``: the tensors the key
-    names. Returns what ran: "replayed", "eager" or "captured" (an eager
-    run, then the capture)."""
+    names; ``phases``: the batch's ``trace.Phases``. Returns (what ran:
+    "replayed", "eager" or "captured", an eager run then the capture; the
+    key's ``_Entry``, None after "eager")."""
     def run(inputs, loop):
         body(inputs, loop)
         return {}
@@ -341,14 +395,18 @@ def insert_or_replay(key, refs, body: Callable, *, chunk: int,
     _purge()
     entry = _CACHE.get(key)
     if entry is None:
-        with _on_capture_stream():
-            run(None, EagerLoop(chunk))
+        with _on_capture_stream(), trace.span("hnsw.build.eager"):
+            run(None, EagerLoop(chunk, phases))
+            if phases is not None:
+                phases.stop()
         if not keep:
-            return "eager"
-        _CACHE[key] = capture(run, {}, refs, chunk=chunk, what="build")
-        return "captured"
+            return "eager", None
+        with trace.span("hnsw.build.capture"):
+            entry = _CACHE[key] = capture(run, {}, refs, chunk=chunk,
+                                          what="build", split=split)
+        return "captured", entry
     try:
-        entry.replay({})
+        entry.replay({}, phases)
     except Exception as e:
         raise RuntimeError(f"build replay failed: {e}") from e
-    return "replayed"
+    return "replayed", entry

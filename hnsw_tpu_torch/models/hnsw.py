@@ -36,6 +36,7 @@ import logging
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import L2, HnswConfig
 from ..graph import (GraphArrays, check_invariants, empty_graph,
                      graph_from_numpy, load_graph, save_graph, vectors_tensor)
@@ -491,38 +492,48 @@ class HnswIndex:
 
         Tombstoned ids (``remove_ids``) are filtered out, with a user
         filter too (``allowed & alive``), until ``vacuum()``; when every id
-        is dead the result is empty (inf, -1)."""
-        if use_packed is None:
-            packed = self._packed
-        elif use_packed:
-            if self._packed is None:
-                raise ValueError("use_packed=True but enable_packed() was "
-                                 "not called")
-            packed = self._packed
-        else:
-            packed = None
-        if self.ntotal == 0 or self.n_deleted >= self.ntotal:
-            n = len(x)
-            return (np.full((n, k), np.inf, np.float32),
-                    np.full((n, k), -1, np.int64))
-        g, v, q, kw = self._search_call(
-            x, k, ef_search=ef_search, with_stats=with_stats,
-            allowed=allowed, max_hops=max_hops, packed=packed,
-            beam_keys=beam_keys, entry_mode=entry_mode)
-        out = hnsw_search(g, v, q, **kw)
-        if device_out:
-            return out
-        d, i = out[0].cpu().numpy(), out[1].cpu().numpy().astype(np.int64)
-        return (d, i, out[2]) if with_stats else (d, i)
+        is dead the result is empty (inf, -1).
+
+        While tracing is on (``trace.py``) the call is span
+        ``hnsw.search``, with ``hnsw.search.upload``, the search's own
+        spans, ``hnsw.search.wait`` and ``hnsw.search.download``."""
+        with trace.span("hnsw.search"):
+            if use_packed is None:
+                packed = self._packed
+            elif use_packed:
+                if self._packed is None:
+                    raise ValueError("use_packed=True but enable_packed() was "
+                                     "not called")
+                packed = self._packed
+            else:
+                packed = None
+            if self.ntotal == 0 or self.n_deleted >= self.ntotal:
+                n = len(x)
+                return (np.full((n, k), np.inf, np.float32),
+                        np.full((n, k), -1, np.int64))
+            g, v, q, kw = self._search_call(
+                x, k, ef_search=ef_search, with_stats=with_stats,
+                allowed=allowed, max_hops=max_hops, packed=packed,
+                beam_keys=beam_keys, entry_mode=entry_mode)
+            out = hnsw_search(g, v, q, **kw)
+            if device_out:
+                return out
+            if not with_stats:          # with_stats: hnsw_search waited
+                trace.wait(out[0])
+            with trace.span("hnsw.search.download"):
+                d = out[0].cpu().numpy()
+                i = out[1].cpu().numpy().astype(np.int64)
+            return (d, i, out[2]) if with_stats else (d, i)
 
     def _search_call(self, x, k: int, *, ef_search=None, with_stats=False,
                      allowed=None, max_hops=0, packed=None, beam_keys=None,
                      entry_mode=None):
         """(graph, vectors, queries, {keywords}) of the ``hnsw_search`` call
         that ``search`` makes (``search.search_key`` takes the same)."""
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        x = x.to(self.device, torch.float32)
+        with trace.span("hnsw.search.upload"):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            x = x.to(self.device, torch.float32)
         if allowed is not None:
             allowed = self._normalize_allowed(allowed)
         if self._alive is not None and not self._routing_clean:

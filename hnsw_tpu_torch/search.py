@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import graphs
+from . import graphs, trace
 from .config import IP, L2
 from .graph import GraphArrays
 from .graphs import EagerLoop
@@ -55,6 +55,9 @@ INF = float("inf")
 class SearchStats(NamedTuple):
     hops: int            # level-0 loop iterations for the batch
     ndis: torch.Tensor   # int32 [Q] distance computations per query
+    # device ms of the phases "entry", "hops" and "rerank" on a CUDA
+    # device (trace.Phases), None elsewhere
+    phase_ms: dict | None = None
 
 
 def _use_pallas_hop() -> bool:
@@ -283,27 +286,41 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     their conditions on the device and the host reads them once a chunk
     of ``graphs.LOOP_CHUNK`` steps. On a CUDA device the queries are
     padded to a multiple of 512 rows and the program is replayed from a
-    CUDA graph captured on the key's first search (``search_key``)."""
-    st, key, refs, inputs = _plan(
-        graph, vectors, queries, k=k, ef_search=ef_search, metric=metric,
-        max_level_cap=max_level_cap, max_hops=max_hops, n_expand=n_expand,
-        with_stats=with_stats, visited_mode=visited_mode, allowed=allowed,
-        packed=packed, dequant=dequant, pq=pq, beam_keys=beam_keys,
-        entry_mode=entry_mode)
+    CUDA graph captured on the key's first search (``search_key``).
+
+    Its phases, entry, hops and rerank, are spans while tracing is on
+    (``trace.py``). With ``with_stats`` on a CUDA device each phase's
+    device ms are timed by events between its graphs (the capture is
+    split at the phases), returned as ``SearchStats.phase_ms`` and, while
+    tracing is on, added to the trace's device times; the first host read
+    then waits in ``hnsw.search.wait``."""
+    with trace.span("hnsw.search.plan"):
+        st, key, refs, inputs = _plan(
+            graph, vectors, queries, k=k, ef_search=ef_search,
+            metric=metric, max_level_cap=max_level_cap, max_hops=max_hops,
+            n_expand=n_expand, with_stats=with_stats,
+            visited_mode=visited_mode, allowed=allowed, packed=packed,
+            dequant=dequant, pq=pq, beam_keys=beam_keys,
+            entry_mode=entry_mode)
 
     def body(inputs, loop):
         return _search_body(inputs, loop, st, graph, vectors, packed,
                             dequant, pq)
 
-    if graphs.capturing_enabled(vectors.device):
-        out = graphs.replay_or_capture(key, refs, inputs, body)
-    else:
-        out = body(inputs, EagerLoop(st.chunk))
+    with trace.Phases("hnsw.search", vectors.device, with_stats) as ph:
+        if graphs.capturing_enabled(vectors.device):
+            out = graphs.replay_or_capture(key, refs, inputs, body,
+                                           split=with_stats, phases=ph)
+        else:
+            out = body(inputs, EagerLoop(st.chunk, ph))
     qn = queries.shape[0]
     out_d, out_i = out["d"][:qn], out["i"][:qn]
     if with_stats:
-        return out_d, out_i, SearchStats(int(graphs.host_read(out["hops"])),
-                                         out["ndis"][:qn])
+        trace.wait(out["hops"])
+        hops = int(graphs.host_read(out["hops"]))
+        phase_ms = ph.ms()
+        trace.add_device("hnsw.search", phase_ms)
+        return out_d, out_i, SearchStats(hops, out["ndis"][:qn], phase_ms)
     return out_d, out_i
 
 
@@ -399,8 +416,10 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
                  vectors: torch.Tensor, packed, dequant, pq) -> dict:
     """The search as one program over ``inputs`` (padded queries; the
     runtime scalars ef_live, hop_limit, entry point, max level, ntotal and
-    the real query count; the filter), with its loops run by ``loop``.
-    Returns {"d", "i"} [q_rows, k], "hops" (0-d) and "ndis" [q_rows]."""
+    the real query count; the filter), with its loops run and its phases
+    marked (entry, hops, rerank) by ``loop``. Returns {"d", "i"} [q_rows,
+    k], "hops" (0-d) and "ndis" [q_rows]."""
+    loop.phase("entry")
     queries = inputs["queries"]
     allowed = inputs.get("allowed")
     sc = inputs["scalars"]
@@ -448,6 +467,7 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
     ep0 = torch.where(active[:, None], ep0, -1)
     ep0_dist = torch.where(active[:, None], ep0_dist, INF)
 
+    loop.phase("hops")
     neighbors0 = graph.neighbors0
     expand = None
     if packed is not None:
@@ -486,6 +506,7 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
             ef_live=live_width, hop_limit=hop_limit, expand=expand,
             early_exit=True, bound=bound, loop=loop)
 
+    loop.phase("rerank")
     # rerank of the final buffer (filtered: of the result buffer) with
     # storage-grade distances, exact f32 / sq8 x̂ (K3 with the affine) /
     # exact ADC: routing may have been quantized, the returned distances

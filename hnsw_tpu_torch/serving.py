@@ -14,6 +14,11 @@ layer's job is to collect small requests into device-sized batches:
 
 No threads are started here: a single caller drives ``search`` / ``flush``,
 and callers that submit from several threads hold their own lock.
+
+While tracing is on (``trace.py``) a flush is span ``hnsw.serve.flush``,
+with ``hnsw.serve.concat``, its searches, ``hnsw.search.wait`` (the wait
+for the device before the copies), ``hnsw.serve.download`` and
+``hnsw.serve.split``; ``submit`` records nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import trace
 
 
 def size_bucket(n: int, min_bucket: int = 64, max_bucket: int = 8192) -> int:
@@ -120,9 +127,12 @@ class Searcher:
             pending.append((s, len(chunk), d, i))
             self.launches += 1
             self.rows_padded += pad
-        for s, nr, d, i in pending:
-            out_d[s:s + nr] = _host(d)[:nr]
-            out_i[s:s + nr] = _host(i)[:nr]
+        if pending:
+            trace.wait(pending[0][2])
+        with trace.span("hnsw.serve.download"):
+            for s, nr, d, i in pending:
+                out_d[s:s + nr] = _host(d)[:nr]
+                out_i[s:s + nr] = _host(i)[:nr]
         self.queries_served += n
         return out_d, out_i
 
@@ -145,13 +155,16 @@ class Searcher:
         """Search everything queued in one (or a few) padded searches."""
         if not self._queue:
             return
-        x = np.concatenate(self._queue, axis=0)
-        pend, self._pending = self._pending, {}
-        self._queue, self._queued_rows = [], 0
-        d, i = self.search(x)
-        for h, p in pend.items():
-            self._results[h] = (d[p.start:p.start + p.n],
-                                i[p.start:p.start + p.n])
+        with trace.span("hnsw.serve.flush"):
+            with trace.span("hnsw.serve.concat"):
+                x = np.concatenate(self._queue, axis=0)
+            pend, self._pending = self._pending, {}
+            self._queue, self._queued_rows = [], 0
+            d, i = self.search(x)
+            with trace.span("hnsw.serve.split"):
+                for h, p in pend.items():
+                    self._results[h] = (d[p.start:p.start + p.n],
+                                        i[p.start:p.start + p.n])
 
     def result(self, handle: int):
         """(D, I) of a submitted request; flushes if it is still queued."""

@@ -92,12 +92,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_build_walls: CUDA is not available")
     import hnsw_tpu_torch  # noqa: F401  (exact-f32 matmul precision)
-    from hnsw_tpu_torch import graphs, synthetic_workload
+    from hnsw_tpu_torch import graphs, synthetic_workload, trace
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}; torch {torch.__version__}")
+
+    def host_reads() -> int:
+        return trace.totals().counters.get("host_reads", 0)
+
     dev = torch.device("cuda:0")
     for config in args.configs.split(","):
         d = 96 if config == "f" else 128
@@ -109,7 +113,7 @@ def main() -> None:
             idx = make(config, dev, wl)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            r0 = graphs.HOST_READS
+            r0 = host_reads()
             t = time.time()
             with graphs.eager() if eager else contextlib.nullcontext():
                 idx.add(wl.base)
@@ -127,7 +131,7 @@ def main() -> None:
                     raise AssertionError(f"{config}: a {form} build differs "
                                          f"from the first eager build")
             log(f"{config} {form}: {wall:.2f} s, host reads "
-                f"{graphs.HOST_READS - r0}, {stats_of(idx)}, peak "
+                f"{host_reads() - r0}, {stats_of(idx)}, peak "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, equal to "
                 f"the first eager build: {equal}")
             del idx, got

@@ -1092,3 +1092,135 @@ def test_failed_build_capture_raises_on_card(card, monkeypatch):
     idx = HnswIndex(32, 8, capacity=4096, ef_construction=40, device=card)
     with pytest.raises(RuntimeError, match="build capture failed"):
         idx.add(wl.base)
+
+
+# ------------------------------------------------ spans and phase times
+SPIN_CYCLES = 20_000_000     # torch.cuda._sleep before a timed replay
+
+
+def _record_replays(monkeypatch):
+    """Wrap ``graphs._Entry.replay``: each replay is appended as (entry,
+    its phases, an event pair around the whole replay), after a spin
+    kernel, so that the host has launched the chain before the device
+    reaches it."""
+    from hnsw_tpu_torch import graphs
+    seen = []
+    orig = graphs._Entry.replay
+
+    def replay(self, inputs, phases=None):
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(self, inputs, phases)
+        b.record()
+        seen.append((self, phases, a, b))
+        return out
+
+    monkeypatch.setattr(graphs._Entry, "replay", replay)
+    return seen
+
+
+def _record_captures(monkeypatch):
+    """Wrap ``graphs.capture``: every entry it makes is appended."""
+    from hnsw_tpu_torch import graphs
+    made = []
+    orig = graphs.capture
+
+    def capture(*a, **kw):
+        made.append(orig(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(graphs, "capture", capture)
+    return made
+
+
+def _unsplit(entry) -> bool:
+    """One chain as without phase marks: no labels, straight graphs only
+    between loop graphs."""
+    loops = sum(flag is not None for _, _, flag, _ in entry.parts)
+    return all(label is None for *_, label in entry.parts) and \
+        len(entry.parts) == 2 * loops + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [None, "bytes"])
+def test_split_replay_times_its_phases_on_card(card, monkeypatch, packed):
+    """A with_stats search is captured as three graphs, entry, hops and
+    rerank: its replay equals the eager search bit for bit, its phase ms
+    sum to within 5% of one event pair around the whole replay, and
+    tracing adds them to the device times. The same search without stats
+    stays one graph."""
+    from hnsw_tpu_torch import graphs, trace
+    idx, wl = _replay_index(card)
+    if packed:
+        idx.enable_packed(bits=8, layout=packed)
+    graphs.clear()
+    made = _record_captures(monkeypatch)
+    want, got = _eager_and_replay(idx, wl.queries)
+    _assert_same(got, want)
+    assert want[2].phase_ms.keys() == {"entry", "hops", "rerank"}
+    assert [p[3] for p in made[0].parts] == ["entry", "hops", "rerank"]
+    seen = _record_replays(monkeypatch)
+    with trace.collect() as t:
+        _, _, st = idx.search(wl.queries, k=10, ef_search=48,
+                              with_stats=True, device_out=True)
+    torch.cuda.synchronize()
+    (_, _, a, b), = seen
+    whole = a.elapsed_time(b)
+    assert sum(st.phase_ms.values()) == pytest.approx(whole, rel=0.05)
+    assert all(v > 0 for v in st.phase_ms.values())
+    for label, ms in st.phase_ms.items():
+        assert t.device_ms(f"hnsw.search.{label}") == (1, ms)
+    assert t.calls("hnsw.graph.launch") == 3
+    assert t.calls("hnsw.search.wait", parent="hnsw.search") == 1
+    idx.search(wl.queries, k=10, ef_search=48, device_out=True)
+    assert len(made) == 2 and _unsplit(made[1])
+
+
+@pytest.mark.cuda
+def test_traced_build_times_its_stages_on_card(card, monkeypatch):
+    """An add() under trace.collect() captures each profile split at the
+    six stages: its graph equals an untraced build's array for array, and
+    each replayed batch's stage ms sum to within 5% of one event pair
+    around its whole replay. Untraced builds capture one chain a profile,
+    as without the marks."""
+    from hnsw_tpu_torch import HnswIndex, graphs, synthetic_workload, trace
+    wl = synthetic_workload(12_000, 32, n_queries=8, seed=23)
+    made = _record_captures(monkeypatch)
+    plain = HnswIndex(32, 8, capacity=16_384, ef_construction=60,
+                      device=card)
+    plain.add(wl.base)
+    assert made and all(_unsplit(e) for e in made)
+    untraced = len(made)
+    made.clear()
+    seen = _record_replays(monkeypatch)
+    traced = HnswIndex(32, 8, capacity=16_384, ef_construction=60,
+                       device=card)
+    with trace.collect() as t:
+        traced.add(wl.base)
+    torch.cuda.synchronize()
+    _assert_same_graph(plain, traced, 12_000)
+    assert len(made) == untraced
+    stages = {"write", "descent", "upper", "beams", "select", "backlinks"}
+    for e in made:
+        labels = [p[3] for p in e.parts]
+        assert labels[0] == "write" and labels[-1] == "backlinks"
+        assert set(labels) <= stages
+    st = traced._builder.last_stats
+    assert len(seen) == st["replayed"] > 0
+    for _, ph, a, b in seen:
+        ms = ph.ms()
+        assert {"write", "descent", "beams", "select", "backlinks"} <= \
+            ms.keys() <= stages
+        assert sum(ms.values()) == pytest.approx(a.elapsed_time(b),
+                                                 rel=0.05)
+    assert t.device_ms("hnsw.build.beams")[0] == st["replayed"]
+    assert t.device_ms("hnsw.build.backlinks")[0] == st["replayed"]
+    assert t.calls("hnsw.build.step") == st["batches"]
+    assert t.calls("hnsw.build.capture", parent="hnsw.build.step") == \
+        st["captured"]
+    assert t.counters["captures.build"] == st["captured"]
+    assert t.counters["capture_ms.build"] == pytest.approx(
+        sum(st["capture_ms"]))
+    assert st["capture_ms"] == [e.capture_ms for e in made]

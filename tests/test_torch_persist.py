@@ -356,7 +356,7 @@ def test_resume_keeps_a_non_default_r_window(tmp_path):
     default.r_window = default._builder.r_window = 16
     for idx in (part, back, default):
         idx.add(wl.base[500:])
-    assert part._builder.backlink_dropped_total > 0
+    assert part._builder.last_backlink_dropped > 0
     for k, v in part.graph.numpy().items():
         np.testing.assert_array_equal(back.graph.numpy()[k], v, err_msg=k)
     assert not torch.equal(default.graph.neighbors0, part.graph.neighbors0)

@@ -20,7 +20,7 @@ from hnsw_tpu import HnswConfig as RefConfig
 from hnsw_tpu import build as ref_build
 from hnsw_tpu.graph import empty_graph as ref_empty_graph
 from hnsw_tpu.ops.repair import apply_backlinks as ref_backlinks
-from hnsw_tpu_torch import build, graphs
+from hnsw_tpu_torch import build, graphs, trace
 from hnsw_tpu_torch.config import HnswConfig
 from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS, empty_graph
 from hnsw_tpu_torch.ops.repair import apply_backlinks
@@ -328,9 +328,9 @@ def test_host_reads_per_batch(monkeypatch):
         return out
     monkeypatch.setattr(graphs.EagerLoop, "run", run)
 
-    before = graphs.HOST_READS
+    before = trace.totals().counters.get("host_reads", 0)
     g, _, b = port_staged([_points(1200)])
-    reads = graphs.HOST_READS - before
+    reads = trace.totals().counters.get("host_reads", 0) - before
     assert counts == {"other": 0, "nonzero": 0}
     assert loops and all(c == build.DESCENT_CHUNK for _, c in loops)
     # one descent a batch once the graph has an upper level
