@@ -11,7 +11,9 @@ Phases (any failure raises, and the exit code is not 0):
      and print the seconds;
   3. hold each of the five kernels against its plain PyTorch version on
      the card, at the main path's shapes (Q=8192, K=64, d=128, ef in {32,
-     64, 128, 256, 512}; K1 also with no fresh candidate and converged;
+     64, 128, 256, 512}; K1 also with no fresh candidate and converged,
+     and its hop entry, in place, with converged queries, ef_live < ef
+     and at the hop limit, on a 1M-node adjacency;
      K3 also at the build's upper-level beam, Q=86 and K=128) and at
      4-bit, bf16, uint8-dequant, odd-d, IP, padded word-segment,
      clamped-id and two-expansion variants, K2 also at the sq8 phase's
@@ -321,6 +323,10 @@ KERNELS = {
                                "hnsw_tpu/ops/hop_kernel.py:118"),
     "beam_update": ("hnsw_tpu_torch/csrc/beam_kernel.cu",
                     "hnsw_tpu/ops/beam_kernel.py:204"),
+    # K1's hop entry: the same kernel with the hop's bookkeeping, which the
+    # reference's search runs around its beam_update
+    "beam_hop": ("hnsw_tpu_torch/csrc/beam_kernel.cu",
+                 "hnsw_tpu/ops/beam_kernel.py:204"),
 }
 
 
@@ -823,6 +829,66 @@ def check_beam_update(dev, gen) -> dict:
                 out["ms"] = time_ms(lambda: bk.beam_update(*args, ef_live))
                 out["plain_ms"] = time_ms(
                     lambda: bk.beam_update_plain(*args, ef_live))
+    return out
+
+
+def check_beam_hop(dev, gen) -> dict:
+    """K1's hop entry (the fused beam's whole hop bookkeeping, in place):
+    must equal its plain version exactly (buffers, cur, ndis, steps) at
+    Q=8192, K=64 on a 1M-node adjacency, at ef in {32, 64, 128} (warp
+    path) and {256, 512} (block path), with and without ef_live < ef, a
+    tenth of the queries converged (cur -1), and once at the hop limit.
+    Timed at ef=64 on a state that keeps stepping (the limit out of
+    reach). Its bound counts the buffers in and out, the adjacency row and
+    the distances a stepping query reads, and cur / ndis / steps in and
+    out, with beam_update's operations."""
+    from hnsw_tpu_torch.ops import beam_kernel as bk
+    q, k, n = N_QUERIES, HOP_K, 1 << 20
+    nbrs0 = torch.randint(0, n, (n, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+    nbrs0[:, -k // 4:] = -1
+    out = {}
+    names = ("buf_d", "buf_p", "cur", "ndis", "steps")
+    for ef in (32, 64, 128, 256, 512):
+        for ef_live, limit in ((ef, 1 << 30), (ef * 3 // 4, 1 << 30),
+                               (ef, 5)):
+            buf_d, buf_p, _, cand_d = beam_inputs(q, ef, k, dev, gen)
+            slot = torch.arange(ef, device=dev)[None, :]
+            buf_d = torch.where(slot < ef_live, buf_d, float("inf"))
+            buf_p = torch.where(slot < ef_live, buf_p, -1)
+            cur = torch.where(
+                torch.rand(q, generator=gen, device=dev) < 0.1, -1,
+                torch.randint(0, n, (q,), generator=gen, device=dev,
+                              dtype=torch.int32))
+            state = [buf_d, buf_p, cur,
+                     torch.zeros(q, dtype=torch.int32, device=dev),
+                     torch.full((q,), 5, dtype=torch.int32, device=dev)]
+            live = None if ef_live == ef else torch.tensor(ef_live,
+                                                           device=dev)
+            lim = torch.tensor(limit, device=dev)
+            got = bk.beam_hop(*(t.clone() for t in state), nbrs0, cand_d,
+                              live, lim)
+            want = bk.beam_hop_plain(*state, nbrs0, cand_d, live, lim)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names, got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"beam_hop ef={ef} ef_live="
+                                         f"{ef_live} limit={limit}: {name} "
+                                         f"differs in {int((g != w).sum())} "
+                                         f"places")
+            log(f"  beam_hop ef={ef} ef_live={ef_live} limit={limit}: exact "
+                f"(ndis mean {want[3].float().mean():.1f})")
+            if ef == 64 and ef_live == ef and limit > 5:
+                m = ef + k
+                out.update(bound(q * ef * 8 * 2 + q * k * 8 + q * 4 * 6,
+                                 q * (k * ef + m * m.bit_length())))
+                out["max_abs_err"] = 0.0
+                # the plain hop's host work a call outlasts the spin at 20
+                out["plain_ms"] = time_ms(
+                    lambda: bk.beam_hop_plain(*state, nbrs0, cand_d, live,
+                                              lim), iters=5)
+                out["ms"] = time_ms(
+                    lambda: bk.beam_hop(*state, nbrs0, cand_d, live, lim))
     return out
 
 
@@ -3282,7 +3348,8 @@ def main() -> None:
                 "packed_row_dist": check_packed_dist(dev, gen),
                 "packed_row_dist_words": check_words_dist(dev, gen),
                 "fused_gather_distances": check_gather_dist(dev, gen),
-                "beam_update": check_beam_update(dev, gen)}
+                "beam_update": check_beam_update(dev, gen),
+                "beam_hop": check_beam_hop(dev, gen)}
     k5_bf16 = measured["fused_gather_distances"]["bfloat16"]
     timed_cases = dict(measured)
     timed_cases["packed_row_dist (8-bit, d=96)"] = \
@@ -3326,7 +3393,12 @@ def main() -> None:
     by_tag = totals.pop("by_tag")
     log(f"kernel launches over the main path's phases: {totals}; K3 and K5 "
         f"by row dtype {by_tag}")
-    missing = [k for k in KERNELS if totals.get(k, 0) == 0]
+    # K1's hop entry counts as K1, under the tag "hop"
+    hops = by_tag.get(("beam_update", "hop"), 0)
+    counts = dict(totals, beam_update=totals.get("beam_update", 0) - hops,
+                  beam_hop=hops)
+    missing = [k for k in KERNELS
+               if k != "beam_update" and counts.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -3343,7 +3415,7 @@ def main() -> None:
     # the f32 rows' launches
     k3, k5_name = "gathered_vec_dist", "fused_gather_distances"
     rows = [row(name, m, by_tag.get((name, "float32"), 0)
-                if name in (k3, k5_name) else totals[name])
+                if name in (k3, k5_name) else counts[name])
             for name, m in measured.items()]
     rows += [row(k3, m, by_tag.get((k3, tag), 0),
                  f"{k3} ({tag} rows{' + dequant' if tag == 'uint8' else ''}"

@@ -52,6 +52,20 @@
 // bitonic network is unstable on ties; the reference allows either order
 // (beam_kernel.py:28). Keys are compared as floats: negative L2 surrogates
 // sort correctly, +inf marks empty slots, and NaN keys are not supported.
+//
+// The hop entry (hnsw_beam_hop, kHop) is the fused beam's whole level-0 hop
+// bookkeeping in the same two kernels, so that a hop on the card is the
+// distance kernel and this one, with no PyTorch op between or after them.
+// It updates the search's state in place: a query whose cur is -1, or whose
+// steps (hops it has taken) reached the limit, returns before it reads
+// anything, so its row stays exactly as it is; otherwise the candidates are
+// the expanded node's adjacency row nbrs[cur] (-1 = no candidate), read
+// here, with the distances the distance kernel wrote, ndis grows by the
+// fresh count and steps by one. ef_live and the limit are read from device
+// scalars, so a captured search takes them at replay. The batch's hop count
+// is the largest steps (a query is live on a prefix of the hops, so its
+// steps equal the batch's count while it is live): no block needs another's
+// result, and the batch-wide condition costs no reduction a hop.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -106,6 +120,44 @@ __device__ __forceinline__ uint32_t hash_slot(int32_t id, int shift) {
   return (static_cast<uint32_t>(id) * 0x9E3779B1u) >> shift;
 }
 
+// The fused beam's per-query state that the hop entry reads and updates in
+// place (unused by beam_update).
+struct HopState {
+  const int32_t* nbrs;     // [n_rows, k] adjacency: candidates of node cur[q]
+  int64_t n_rows;
+  int32_t* steps;          // [q] hops the query has taken
+  const int64_t* ef_live;  // 0-d, or null: ef
+  const int64_t* limit;    // 0-d: no query takes more hops
+};
+
+// kHop: the query's row of the hop entry, or false where the query does not
+// step (cur -1 or steps at the limit: its state is left as it is). Sets the
+// candidate ids' row, the hops taken and ef_live.
+template <bool kHop>
+__device__ __forceinline__ bool hop_row(const HopState& h, const int32_t* cand_i,
+                                        const int32_t* cur, int64_t qi, int k,
+                                        const int32_t*& gi, int& taken, int& ef_live) {
+  if constexpr (!kHop) {
+    gi = cand_i + qi * k;
+    return true;
+  } else {
+    const int32_t node = cur[qi];
+    taken = h.steps[qi];
+    if (node < 0 || taken >= *h.limit) return false;
+    gi = h.nbrs + clamp_row(node, h.n_rows) * k;
+    if (h.ef_live != nullptr && *h.ef_live < ef_live) ef_live = static_cast<int>(*h.ef_live);
+    return true;
+  }
+}
+
+// a buffer value: read-only data (__ldg) for beam_update; for the hop entry
+// the buffer is rewritten in place by the same warp, so a plain load
+template <bool kHop, typename T>
+__device__ __forceinline__ T ld_buf(const T* p) {
+  if constexpr (kHop) return *p;
+  else return __ldg(p);
+}
+
 // Warp path: one warp per query, kCpl candidates per lane (K <= 32 kCpl).
 // Shared memory per warp, in int32 words, every region a multiple of 4
 // words so 16-byte accesses stay aligned:
@@ -116,20 +168,23 @@ __device__ __forceinline__ uint32_t hash_slot(int32_t id, int shift) {
 //   cpay [kN]            candidate payloads by candidate index
 //   sk [kN]              candidate keys in sorted order
 // vec: ef and K are multiples of 4 and every row is 16-byte aligned.
-template <int kCpl>
+// kHop: the hop entry (out_d / out_p are buf_d / buf_p, cur and ndis are
+// read and rewritten, cand_i is h.nbrs).
+template <int kCpl, bool kHop>
 __global__ void __launch_bounds__(kThreads)
-beam_warp_kernel(const float* __restrict__ buf_d,
-                 const int32_t* __restrict__ buf_p,
+beam_warp_kernel(const float* buf_d, const int32_t* buf_p,
                  const int32_t* __restrict__ cand_i,
                  const float* __restrict__ cand_d, int q, int ef, int k,
-                 int ef_live, int tab_log2, bool vec,
-                 float* __restrict__ out_d, int32_t* __restrict__ out_p,
-                 int32_t* __restrict__ cur, int32_t* __restrict__ ndis) {
+                 int ef_live, int tab_log2, bool vec, float* out_d,
+                 int32_t* out_p, int32_t* cur, int32_t* ndis, HopState h) {
   constexpr int kN = kWarp * kCpl;
   extern __shared__ __align__(16) int32_t smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int64_t qi = static_cast<int64_t>(blockIdx.x) * kQueriesPerBlock + warp;
   if (qi >= q) return;  // the whole warp: no block barrier follows
+  const int32_t* gi;
+  int taken = 0;
+  if (!hop_row<kHop>(h, cand_i, cur, qi, k, gi, taken, ef_live)) return;  // warp-uniform
   const int tab_n = 1 << tab_log2;
   const int efp = (ef + 3) & ~3;
   int32_t* tab = smem + static_cast<int64_t>(warp) * (tab_n + 2 * efp + 2 * kN);
@@ -140,17 +195,16 @@ beam_warp_kernel(const float* __restrict__ buf_d,
 
   const float* gd = buf_d + qi * ef;
   const int32_t* gp = buf_p + qi * ef;
-  const int32_t* gi = cand_i + qi * k;
   const float* gc = cand_d + qi * k;
   if (vec) {
     for (int i = lane; i < ef / 4; i += kWarp) {
-      reinterpret_cast<float4*>(bd)[i] = __ldg(reinterpret_cast<const float4*>(gd) + i);
-      reinterpret_cast<int4*>(bp)[i] = __ldg(reinterpret_cast<const int4*>(gp) + i);
+      reinterpret_cast<float4*>(bd)[i] = ld_buf<kHop>(reinterpret_cast<const float4*>(gd) + i);
+      reinterpret_cast<int4*>(bp)[i] = ld_buf<kHop>(reinterpret_cast<const int4*>(gp) + i);
     }
   } else {
     for (int i = lane; i < ef; i += kWarp) {
-      bd[i] = __ldg(gd + i);
-      bp[i] = __ldg(gp + i);
+      bd[i] = ld_buf<kHop>(gd + i);
+      bp[i] = ld_buf<kHop>(gp + i);
     }
   }
   // candidate e = lane * kCpl + r sits in register r of lane `lane`
@@ -336,20 +390,25 @@ beam_warp_kernel(const float* __restrict__ buf_d,
   }
   if (lane == 0) {
     cur[qi] = j < ef ? (fp[j] >> 1) : -1;
-    ndis[qi] = fresh_n;
+    if constexpr (kHop) {
+      ndis[qi] += fresh_n;
+      h.steps[qi] = taken + 1;
+    } else {
+      ndis[qi] = fresh_n;
+    }
   }
 }
 
 // Block path (ef + K > 256): one block per query, the state in shared
 // memory, each step a flat parallel pass with no data-dependent loop.
+// kHop as in beam_warp_kernel.
+template <bool kHop>
 __global__ void __launch_bounds__(kThreads)
-beam_block_kernel(const float* __restrict__ buf_d,
-                  const int32_t* __restrict__ buf_p,
+beam_block_kernel(const float* buf_d, const int32_t* buf_p,
                   const int32_t* __restrict__ cand_i,
                   const float* __restrict__ cand_d, int ef, int k,
-                  int ef_live, float* __restrict__ out_d,
-                  int32_t* __restrict__ out_p, int32_t* __restrict__ cur,
-                  int32_t* __restrict__ ndis) {
+                  int ef_live, float* out_d, int32_t* out_p, int32_t* cur,
+                  int32_t* ndis, HopState h) {
   extern __shared__ int32_t smem[];
   float* bd = reinterpret_cast<float*>(smem);          // [ef] buffer keys
   int32_t* bp = smem + ef;                             // [ef] buffer payloads
@@ -365,6 +424,9 @@ beam_block_kernel(const float* __restrict__ buf_d,
 
   const int64_t qi = blockIdx.x;
   const int tid = threadIdx.x;
+  const int32_t* gi;
+  int taken = 0;
+  if (!hop_row<kHop>(h, cand_i, cur, qi, k, gi, taken, ef_live)) return;  // block-uniform
   if (tid == 0) {
     s_fresh = 0;
     s_first = ef;
@@ -374,7 +436,7 @@ beam_block_kernel(const float* __restrict__ buf_d,
     bp[i] = buf_p[qi * ef + i];
   }
   for (int c = tid; c < k; c += blockDim.x) {
-    ci[c] = cand_i[qi * k + c];
+    ci[c] = gi[c];
     seen[c] = 0;
   }
   __syncthreads();
@@ -442,15 +504,20 @@ beam_block_kernel(const float* __restrict__ buf_d,
   }
   if (tid == 0) {
     cur[qi] = j < ef ? (op[j] >> 1) : -1;
-    ndis[qi] = s_fresh;
+    if constexpr (kHop) {
+      ndis[qi] += s_fresh;
+      h.steps[qi] = taken + 1;
+    } else {
+      ndis[qi] = s_fresh;
+    }
   }
 }
 
-template <int kCpl>
+template <int kCpl, bool kHop>
 void launch_warp(const float* bd, const int32_t* bp, const int32_t* ci,
                  const float* cd, int q, int ef, int k, int ef_live,
                  float* od, int32_t* op, int32_t* cur, int32_t* ndis,
-                 cudaStream_t s) {
+                 const HopState& h, cudaStream_t s) {
   const int efp = (ef + 3) & ~3;
   int tab_log2 = 6;  // >= 64 slots and >= 2 efp: load factor <= 1/2
   while ((1 << tab_log2) < 2 * efp) ++tab_log2;
@@ -461,15 +528,30 @@ void launch_warp(const float* bd, const int32_t* bp, const int32_t* ci,
                     reinterpret_cast<uintptr_t>(ci) | reinterpret_cast<uintptr_t>(cd) |
                     reinterpret_cast<uintptr_t>(od) | reinterpret_cast<uintptr_t>(op)) % 16 == 0;
   const unsigned grid = static_cast<unsigned>((q + kQueriesPerBlock - 1) / kQueriesPerBlock);
-  beam_warp_kernel<kCpl><<<grid, kThreads, smem, s>>>(
-      bd, bp, ci, cd, q, ef, k, ef_live, tab_log2, vec, od, op, cur, ndis);
+  beam_warp_kernel<kCpl, kHop><<<grid, kThreads, smem, s>>>(
+      bd, bp, ci, cd, q, ef, k, ef_live, tab_log2, vec, od, op, cur, ndis, h);
+}
+
+// ef + k <= 256 takes the warp path, wider shapes the block path.
+template <bool kHop>
+void launch_beam(const float* bd, const int32_t* bp, const int32_t* ci, const float* cd, int q,
+                 int ef, int k, int ef_live, float* od, int32_t* op, int32_t* c, int32_t* n,
+                 const HopState& h, cudaStream_t s) {
+  if (ef + k <= kWarpMaxWidth) {
+    if (k <= 32) launch_warp<1, kHop>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, h, s);
+    else if (k <= 64) launch_warp<2, kHop>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, h, s);
+    else if (k <= 128) launch_warp<4, kHop>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, h, s);
+    else launch_warp<8, kHop>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, h, s);
+  } else {
+    const size_t smem = (4 * static_cast<size_t>(ef) + 5 * static_cast<size_t>(k)) * sizeof(int32_t);
+    beam_block_kernel<kHop><<<q, kThreads, smem, s>>>(bd, bp, ci, cd, ef, k, ef_live, od, op, c, n, h);
+  }
 }
 
 }  // namespace
 }  // namespace hnsw
 
 // buf_d/buf_p [q, ef] and cand_i/cand_d [q, k], row-major, all contiguous.
-// ef + k <= 256 takes the warp path, wider shapes the block path.
 extern "C" int hnsw_beam_update(const void* buf_d, const void* buf_p,
                                 const void* cand_i, const void* cand_d, int q,
                                 int ef, int k, int ef_live, void* out_d,
@@ -477,23 +559,30 @@ extern "C" int hnsw_beam_update(const void* buf_d, const void* buf_p,
                                 void* stream) {
   using namespace hnsw;
   if (q <= 0) return static_cast<int>(cudaGetLastError());
-  auto s = static_cast<cudaStream_t>(stream);
-  auto bd = static_cast<const float*>(buf_d);
-  auto bp = static_cast<const int32_t*>(buf_p);
-  auto ci = static_cast<const int32_t*>(cand_i);
-  auto cd = static_cast<const float*>(cand_d);
-  auto od = static_cast<float*>(out_d);
-  auto op = static_cast<int32_t*>(out_p);
-  auto c = static_cast<int32_t*>(cur);
-  auto n = static_cast<int32_t*>(ndis);
-  if (ef + k <= kWarpMaxWidth) {
-    if (k <= 32) launch_warp<1>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, s);
-    else if (k <= 64) launch_warp<2>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, s);
-    else if (k <= 128) launch_warp<4>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, s);
-    else launch_warp<8>(bd, bp, ci, cd, q, ef, k, ef_live, od, op, c, n, s);
-  } else {
-    const size_t smem = (4 * static_cast<size_t>(ef) + 5 * static_cast<size_t>(k)) * sizeof(int32_t);
-    beam_block_kernel<<<q, kThreads, smem, s>>>(bd, bp, ci, cd, ef, k, ef_live, od, op, c, n);
-  }
+  launch_beam<false>(static_cast<const float*>(buf_d), static_cast<const int32_t*>(buf_p),
+                     static_cast<const int32_t*>(cand_i), static_cast<const float*>(cand_d), q,
+                     ef, k, ef_live, static_cast<float*>(out_d), static_cast<int32_t*>(out_p),
+                     static_cast<int32_t*>(cur), static_cast<int32_t*>(ndis), HopState{},
+                     static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused beam's hop, in place: buf_d/buf_p [q, ef], cur/ndis/steps [q]
+// int32, nbrs [n_rows, k] int32 adjacency, cand_d [q, k] the distances of
+// node cur[q]'s k candidates, ef_live (NULL: ef) and limit int64 0-d, all
+// contiguous.
+extern "C" int hnsw_beam_hop(void* buf_d, void* buf_p, const void* nbrs,
+                             int64_t n_rows, const void* cand_d, int q, int ef,
+                             int k, const void* ef_live, const void* limit,
+                             void* cur, void* ndis, void* steps, void* stream) {
+  using namespace hnsw;
+  if (q <= 0) return static_cast<int>(cudaGetLastError());
+  const HopState h{static_cast<const int32_t*>(nbrs), n_rows, static_cast<int32_t*>(steps),
+                   static_cast<const int64_t*>(ef_live), static_cast<const int64_t*>(limit)};
+  auto bd = static_cast<float*>(buf_d);
+  auto bp = static_cast<int32_t*>(buf_p);
+  launch_beam<true>(bd, bp, h.nbrs, static_cast<const float*>(cand_d), q, ef, k, ef, bd, bp,
+                    static_cast<int32_t*>(cur), static_cast<int32_t*>(ndis), h,
+                    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

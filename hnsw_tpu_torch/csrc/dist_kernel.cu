@@ -67,6 +67,8 @@
 //     unaligned views) take the plain-load path of the same kernel: the
 //     same persistent walk and sums, the query staged by the block, the row
 //     read with 4-byte __ldg.
+// A row whose cur is -1 (the fused beam's converged queries) reads nothing
+// and its K outputs are +inf, in every path below.
 // K4 returns dots (its caller applies the metric). K2 is the same kernel
 // with an epilogue: a bytes code row whose candidate segments are db = d
 // (8-bit) or ceil(d / 2) (4-bit) bytes with db % 4 == 0 is a word row of wp
@@ -108,10 +110,15 @@ packed_dist_kernel(const uint8_t* __restrict__ codes, int64_t n_rows,
   const int dq = kBits == 8 ? d : 2 * db;
   const int64_t b = blockIdx.x;
   const int64_t qi = b / t;
+  const int32_t node = cur[b];  // read while the query is staged
   for (int j = threadIdx.x; j < dq; j += blockDim.x)
     q_s[j] = j < d ? qs[qi * d + j] : 0.f;  // odd d, 4-bit: the pad dim is 0
   __syncthreads();
-  const int64_t row = clamp_row(cur[b], n_rows);
+  if (node < 0) {  // block-uniform: no row to read
+    for (int c = threadIdx.x; c < k; c += blockDim.x) out[b * k + c] = INFINITY;
+    return;
+  }
+  const int64_t row = clamp_row(node, n_rows);
   const uint8_t* r = codes + row * row_w;
   const float* sq_row = nbr_sq + row * static_cast<int64_t>(k);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -324,9 +331,12 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
       for (int64_t base = blockIdx.x; base < nb; base += kWarp * stride) {
         // lane j looks up row base + j * stride: 32 rows' ids at once
         const int64_t mine = base + lane * stride;
-        const int64_t row = mine < nb ? clamp_row(cur[mine], n_rows) : 0;
+        const int32_t node = mine < nb ? cur[mine] : -1;
+        const int64_t row = clamp_row(node, n_rows);
         const int64_t qrow = mine < nb ? mine / t : 0;
+        const unsigned skip = __ballot_sync(kFull, node < 0);
         for (int j = 0; j < kWarp && base + j * stride < nb; ++j) {  // warp-uniform
+          if (skip >> j & 1u) continue;  // the consumers skip it too
           const int64_t rj = __shfl_sync(kFull, row, j);
           const int64_t qj = __shfl_sync(kFull, qrow, j);
           if (lane == 0) {
@@ -342,6 +352,10 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
     }
     const WordLanes lanes(nw, kWordsConsumerWarps, lane);
     for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
+      if (cur[b] < 0) {  // block-uniform: no stage was filled for it
+        for (int c = threadIdx.x; c < k; c += kThreads) out[b * k + c] = INFINITY;
+        continue;
+      }
       const char* st = ring.wait(pos);
       word_row_dots<kBits, false, kEpi>(reinterpret_cast<const uint32_t*>(st),
                                         reinterpret_cast<const float*>(st + q_off), k, wp, lanes,
@@ -357,12 +371,17 @@ words_dist_kernel(const int32_t* __restrict__ words, int64_t n_rows,
     const WordLanes lanes(nw, n_warps, lane);
     for (int64_t b = blockIdx.x; b < nb; b += gridDim.x) {
       const int64_t qi = b / t;
+      const int32_t node = cur[b];  // read while the query is staged
       for (int j = threadIdx.x; j < nq; j += blockDim.x) q_s[j] = j < d ? qs[qi * d + j] : 0.f;
       __syncthreads();
-      const int64_t row = clamp_row(cur[b], n_rows);
-      const float* sq_row = kEpi == kEpiL2 ? nbr_sq + row * k : nullptr;
-      word_row_dots<kBits, true, kEpi>(reinterpret_cast<const uint32_t*>(words) + row * row_w,
-                                       q_s, k, wp, lanes, warp, sq_row, out + b * k);
+      if (node < 0) {  // block-uniform: no row to read
+        for (int c = threadIdx.x; c < k; c += blockDim.x) out[b * k + c] = INFINITY;
+      } else {
+        const int64_t row = clamp_row(node, n_rows);
+        const float* sq_row = kEpi == kEpiL2 ? nbr_sq + row * k : nullptr;
+        word_row_dots<kBits, true, kEpi>(reinterpret_cast<const uint32_t*>(words) + row * row_w,
+                                         q_s, k, wp, lanes, warp, sq_row, out + b * k);
+      }
       __syncthreads();
     }
   }
@@ -429,6 +448,24 @@ int launch_words(const int32_t* w, int64_t n_rows, int64_t row_w, int k, int wp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 on rows of dtype 0 = float32, 1 = bfloat16 or 2 = uint8.
+int launch_vec_dtype(const void* table, int dtype, int64_t n_rows, int d, const int32_t* ids,
+                     const int32_t* cur, int q, int k, const void* qs, const void* offset,
+                     const void* scale, int ip, void* out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto qf = static_cast<const float*>(qs);
+  auto off = static_cast<const float*>(offset);
+  auto sc = static_cast<const float*>(scale);
+  auto o = static_cast<float*>(out);
+  switch (dtype) {
+    case 0: launch_vec<float>(table, n_rows, d, ids, cur, q, k, qf, off, sc, ip, o, s); break;
+    case 1: launch_vec<__nv_bfloat16>(table, n_rows, d, ids, cur, q, k, qf, off, sc, ip, o, s); break;
+    case 2: launch_vec<uint8_t>(table, n_rows, d, ids, cur, q, k, qf, off, sc, ip, o, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace hnsw
 
@@ -441,19 +478,24 @@ extern "C" int hnsw_vec_dist(const void* table, int dtype, int64_t n_rows,
                              void* stream) {
   using namespace hnsw;
   if (q <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
-  auto s = static_cast<cudaStream_t>(stream);
-  auto i = static_cast<const int32_t*>(ids);
-  auto qf = static_cast<const float*>(qs);
-  auto off = static_cast<const float*>(offset);
-  auto sc = static_cast<const float*>(scale);
-  auto o = static_cast<float*>(out);
-  switch (dtype) {
-    case 0: launch_vec<float>(table, n_rows, d, i, q, k, qf, off, sc, ip, o, s); break;
-    case 1: launch_vec<__nv_bfloat16>(table, n_rows, d, i, q, k, qf, off, sc, ip, o, s); break;
-    case 2: launch_vec<uint8_t>(table, n_rows, d, i, q, k, qf, off, sc, ip, o, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_vec_dtype(table, dtype, n_rows, d, static_cast<const int32_t*>(ids), nullptr, q,
+                          k, qs, offset, scale, ip, out, stream);
+}
+
+// K3 by node (the fused beam's hop): the candidates of query q are the k
+// ids of adjacency row nbrs[cur[q]] (int32 [n_nodes, k]; -1 = none); a
+// query whose cur is -1 and a candidate whose id is -1 get +inf and read
+// no row. The other arguments as hnsw_vec_dist's.
+extern "C" int hnsw_vec_dist_cur(const void* table, int dtype, int64_t n_rows,
+                                 int d, const void* nbrs, const void* cur,
+                                 int q, int k, const void* qs,
+                                 const void* offset, const void* scale,
+                                 int ip, void* out, void* stream) {
+  using namespace hnsw;
+  if (q <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_vec_dtype(table, dtype, n_rows, d, static_cast<const int32_t*>(nbrs),
+                          static_cast<const int32_t*>(cur), q, k, qs, offset, scale, ip, out,
+                          stream);
 }
 
 // bits: 8 or 4. cur: int32 [q, t] packed-row ids. ip: 0 = L2 surrogate,

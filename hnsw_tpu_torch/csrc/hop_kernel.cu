@@ -44,9 +44,13 @@ extern "C" int hnsw_gather_dist(const void* vectors, int dtype, int64_t cap,
   auto qf = static_cast<const float*>(queries);
   auto o = static_cast<float*>(out);
   switch (dtype) {
-    case 0: launch_vec<float>(vectors, cap, d, i, q, k, qf, nullptr, nullptr, ip, o, s); break;
+    case 0:
+      launch_vec_src<float, false>(vectors, cap, d, i, nullptr, q, k, qf, nullptr, nullptr, ip, o,
+                                   s);
+      break;
     case 1:
-      launch_vec<__nv_bfloat16>(vectors, cap, d, i, q, k, qf, nullptr, nullptr, ip, o, s);
+      launch_vec_src<__nv_bfloat16, false>(vectors, cap, d, i, nullptr, q, k, qf, nullptr, nullptr,
+                                           ip, o, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,13 @@
 // K3's row engines for Hopper (sm_90a): the distances of K rows gathered by
 // id from a [n_rows, d] table (f32, bf16, or uint8 with an optional per-dim
 // dequant affine) against one f32 query each, ids clamped to [0, n_rows -
-// 1]. Two TPU kernels compute this function and both launch launch_vec:
+// 1]. Two TPU kernels compute this function and both launch these engines:
 //   * K3 gathered_vec_dist (hnsw_tpu/ops/dist_kernel.py, pallas_call at
-//     :308) from dist_kernel.cu, hnsw_vec_dist;
+//     :308) from dist_kernel.cu, hnsw_vec_dist (and hnsw_vec_dist_cur, its
+//     ids by node), through launch_vec;
 //   * K5 fused_gather_distances (hnsw_tpu/ops/hop_kernel.py, pallas_call at
 //     :118; K3's function without the affine) from hop_kernel.cu,
-//     hnsw_gather_dist.
+//     hnsw_gather_dist, through launch_vec_src's ids form.
 // Each .cu file is its own translation unit and compiles its own copy, so
 // K3 and K5 run the same instructions and return the same bits.
 // reduce_scatter and code_value are also K4's word engine's (dist_kernel.cu).
@@ -61,6 +62,16 @@
 //     because the first port's order with shuffles measured 15% slower
 //     (0.057 against 0.050 ms a serving hop);
 //   * other sub-word rows (odd d, an unaligned table) keep vec_dist_kernel.
+//
+// Where a query's candidates come from: a row of ids [q, k], or, for the
+// fused beam's hop (kByNode, cur given), the adjacency row of the node the
+// query expands (ids is then the adjacency [n_nodes, k] and row cur[q]
+// holds the query's ids). By node, a query whose cur is -1 and a candidate
+// whose id is -1 read no row and get +inf; every other distance is the one
+// the ids form gives the same id, bit for bit (each candidate's sums are
+// its own). The by-node form is a template flag, so the ids form compiles
+// to the same code as before it; the ids form keeps its clamp of any id to
+// [0, n_rows - 1].
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +122,48 @@ __device__ __forceinline__ float code_value(uint32_t w, int j) {
   return __uint_as_float(bits) - 8388608.f;
 }
 
+// Lane l's id among the candidates c0 .. c0 + live - 1 of query qi (live <=
+// 32): ids[qi, c0 + l], or by node ids[cur[qi], c0 + l]. By node, returns
+// the bit mask of the candidates that read a row (none when cur[qi] is -1,
+// else those whose id is not -1; their ids read as 0, never loaded); the
+// ids form reads every live candidate and returns 0, unused.
+template <bool kByNode>
+__device__ __forceinline__ unsigned load_ids(const int32_t* __restrict__ ids,
+                                             const int32_t* __restrict__ cur, int64_t qi, int k,
+                                             int c0, int live, int lane, int32_t& id) {
+  if constexpr (!kByNode) {
+    id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+    return 0u;
+  } else {
+    const int32_t node = __ldg(cur + qi);
+    id = lane < live && node >= 0 ? __ldg(ids + static_cast<int64_t>(node) * k + c0 + lane) : -1;
+    const bool ok = id >= 0;
+    if (!ok) id = 0;
+    return __ballot_sync(kFull, ok);
+  }
+}
+
+// candidate u (< live) of a chunk reads its row: always in the ids form, by
+// node where its bit of vm is set
+template <bool kByNode>
+__device__ __forceinline__ bool reads(unsigned vm, int u, int live) {
+  if constexpr (kByNode) return (vm >> u & 1u) != 0u;
+  else return u < live;
+}
+
+// by node, +inf for the live candidates of a warp that reads no row (cur
+// -1 or every id -1); returns whether it did
+template <bool kByNode>
+__device__ __forceinline__ bool store_none(unsigned vm, float* __restrict__ out, int64_t qi,
+                                           int k, int c0, int live, int lane) {
+  if constexpr (!kByNode) return false;
+  else {
+    if (vm != 0u) return false;
+    if (lane < live) out[qi * k + c0 + lane] = INFINITY;
+    return true;
+  }
+}
+
 constexpr int kVecChunk = 8;  // candidates a warp owns
 constexpr int kVecWarps = 4;  // warps a block
 constexpr int kVecPass = 4;   // loads a lane per row and pass: 4 x 32 = 128 dims
@@ -120,19 +173,22 @@ constexpr int kVecPass = 4;   // loads a lane per row and pass: 4 x 32 = 128 dim
 // with v = table[ids[q, c]] (dequantized as offset + scale * u when asked).
 // Warp w of the grid owns query w / chunks, candidates c0 = (w % chunks) *
 // 8, ..., c0 + 7 (those < k).
-template <typename T, bool kDequant, bool kIP>
+template <typename T, bool kDequant, bool kIP, bool kByNode>
 __global__ void __launch_bounds__(kVecWarps * kWarp)
 vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
-                const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
-                const float* __restrict__ qs, const float* __restrict__ offset,
-                const float* __restrict__ scale, float* __restrict__ out) {
+                const int32_t* __restrict__ ids, const int32_t* __restrict__ cur, int k,
+                int chunks, int64_t n_work, const float* __restrict__ qs,
+                const float* __restrict__ offset, const float* __restrict__ scale,
+                float* __restrict__ out) {
   const int lane = threadIdx.x % kWarp;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
   if (w >= n_work) return;  // warp-uniform
   const int64_t qi = w / chunks;
   const int c0 = static_cast<int>(w % chunks) * kVecChunk;
   const int live = min(kVecChunk, k - c0);
-  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  int32_t id;
+  const unsigned vm = load_ids<kByNode>(ids, cur, qi, k, c0, live, lane, id);
+  if (store_none<kByNode>(vm, out, qi, k, c0, live, lane)) return;  // warp-uniform
   const T* row[kVecChunk];
 #pragma unroll
   for (int u = 0; u < kVecChunk; ++u)
@@ -157,7 +213,7 @@ vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
       }
 #pragma unroll
       for (int u = 0; u < kVecChunk; ++u)
-        x[u][i] = in && u < live ? to_f32(__ldcs(row[u] + j)) : 0.f;
+        x[u][i] = in && reads<kByNode>(vm, u, live) ? to_f32(__ldcs(row[u] + j)) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kVecChunk; ++u) {
@@ -174,7 +230,9 @@ vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
   const float ssum = kIP ? 0.f : reduce_scatter<kVecChunk>(sq, lane, kWarp);
   constexpr int kSpan = kWarp / kVecChunk;  // lanes that end with the same candidate
   const int c = lane / kSpan;
-  if (lane % kSpan == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
+  if (lane % kSpan == 0 && c < live)
+    out[qi * k + c0 + c] = reads<kByNode>(vm, c, live) ? (kIP ? -dsum : ssum - 2.f * dsum)
+                                                       : INFINITY;
 }
 
 // K3 on uint8 rows that are a whole number of 4-byte words (d % 4 == 0,
@@ -189,12 +247,13 @@ vec_dist_kernel(const T* __restrict__ table, int64_t n_rows, int d,
 // int-to-float conversion). Lane j sums those dims in that order and the
 // xor tree adds the lanes (one reduce_scatter per group of 8), as in
 // vec_dist_kernel, so results equal it bit for bit.
-template <bool kDequant, bool kIP, int kC>
+template <bool kDequant, bool kIP, int kC, bool kByNode>
 __global__ void __launch_bounds__(kVecWarps * kWarp)
 vec_dist_bytes_kernel(const uint8_t* __restrict__ table, int64_t n_rows, int d,
-                      const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
-                      const float* __restrict__ qs, const float* __restrict__ offset,
-                      const float* __restrict__ scale, float* __restrict__ out) {
+                      const int32_t* __restrict__ ids, const int32_t* __restrict__ cur, int k,
+                      int chunks, int64_t n_work, const float* __restrict__ qs,
+                      const float* __restrict__ offset, const float* __restrict__ scale,
+                      float* __restrict__ out) {
   constexpr int kG = kC / kVecChunk;  // groups of 8 candidates
   const int lane = threadIdx.x % kWarp;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
@@ -202,7 +261,9 @@ vec_dist_bytes_kernel(const uint8_t* __restrict__ table, int64_t n_rows, int d,
   const int64_t qi = w / chunks;
   const int c0 = static_cast<int>(w % chunks) * kC;
   const int live = min(kC, k - c0);
-  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  int32_t id;
+  const unsigned vm = load_ids<kByNode>(ids, cur, qi, k, c0, live, lane, id);
+  if (store_none<kByNode>(vm, out, qi, k, c0, live, lane)) return;  // warp-uniform
   const int row_words = d / 4;
   const uint32_t* row[kC];
 #pragma unroll
@@ -219,7 +280,8 @@ vec_dist_bytes_kernel(const uint8_t* __restrict__ table, int64_t n_rows, int d,
     const int wi = d0 / 4 + lane;
     uint32_t x[kC];
 #pragma unroll
-    for (int u = 0; u < kC; ++u) x[u] = wi < row_words && u < live ? __ldcs(row[u] + wi) : 0u;
+    for (int u = 0; u < kC; ++u)
+      x[u] = wi < row_words && reads<kByNode>(vm, u, live) ? __ldcs(row[u] + wi) : 0u;
 #pragma unroll
     for (int i = 0; i < kVecPass; ++i) {
       if (d0 + i * kWarp < d) {  // warp-uniform; dims past d would add +0
@@ -248,7 +310,9 @@ vec_dist_bytes_kernel(const uint8_t* __restrict__ table, int64_t n_rows, int d,
     const float dsum = reduce_scatter<kVecChunk>(dot[g], lane, kWarp);
     const float ssum = kIP ? 0.f : reduce_scatter<kVecChunk>(sq[g], lane, kWarp);
     const int c = g * kVecChunk + lane / kSpan;
-    if (lane % kSpan == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
+    if (lane % kSpan == 0 && c < live)
+      out[qi * k + c0 + c] = reads<kByNode>(vm, c, live) ? (kIP ? -dsum : ssum - 2.f * dsum)
+                                                         : INFINITY;
   }
 }
 
@@ -280,11 +344,12 @@ constexpr int kBf16Rows = 4;  // rows a lane reads
 // 32 / lpr. Every row load of a step goes out before the sums (evict-first);
 // lane sl of a row sums its loads sl, sl + lpr, ... value by value, then
 // the row's lanes reduce (one reduce_scatter over the kBf16Rows rows).
-template <typename V, bool kIP>
+template <typename V, bool kIP, bool kByNode>
 __global__ void __launch_bounds__(kVecWarps * kWarp)
 vec_dist_bf16_kernel(const V* __restrict__ table, int64_t n_rows, int units, int lpr,
-                     const int32_t* __restrict__ ids, int k, int chunks, int64_t n_work,
-                     const float* __restrict__ qs, float* __restrict__ out) {
+                     const int32_t* __restrict__ ids, const int32_t* __restrict__ cur, int k,
+                     int chunks, int64_t n_work, const float* __restrict__ qs,
+                     float* __restrict__ out) {
   constexpr int kVals = static_cast<int>(sizeof(V)) / 2;  // values a load holds
   const int lane = threadIdx.x % kWarp;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kVecWarps + threadIdx.x / kWarp;
@@ -294,13 +359,15 @@ vec_dist_bf16_kernel(const V* __restrict__ table, int64_t n_rows, int units, int
   const int64_t qi = w / chunks;
   const int c0 = static_cast<int>(w % chunks) * cpw;
   const int live = min(cpw, k - c0);
-  const int32_t id = lane < live ? __ldg(ids + qi * k + c0 + lane) : 0;
+  int32_t id;
+  const unsigned vm = load_ids<kByNode>(ids, cur, qi, k, c0, live, lane, id);
+  if (store_none<kByNode>(vm, out, qi, k, c0, live, lane)) return;  // warp-uniform
   const V* row[kBf16Rows];
   bool ok[kBf16Rows];
 #pragma unroll
   for (int s = 0; s < kBf16Rows; ++s) {
     const int c = s * rpw + g;
-    ok[s] = c < live;
+    ok[s] = c < live && reads<kByNode>(vm, c, live);
     row[s] = table + clamp_row(__shfl_sync(kFull, id, c), n_rows) * static_cast<int64_t>(units);
   }
   const float2* q2 = reinterpret_cast<const float2*>(qs + qi * units * kVals);
@@ -333,12 +400,14 @@ vec_dist_bf16_kernel(const V* __restrict__ table, int64_t n_rows, int units, int
   const float ssum = kIP ? 0.f : reduce_scatter<kBf16Rows>(sq, sl, lpr);
   const int span = lpr / kBf16Rows;  // lanes that end with the same row
   const int c = ((sl / span) % kBf16Rows) * rpw + g;
-  if (sl % span == 0 && c < live) out[qi * k + c0 + c] = kIP ? -dsum : ssum - 2.f * dsum;
+  if (sl % span == 0 && c < live)
+    out[qi * k + c0 + c] = reads<kByNode>(vm, c, live) ? (kIP ? -dsum : ssum - 2.f * dsum)
+                                                       : INFINITY;
 }
 
-template <typename V>
-void launch_bf16(const void* table, int64_t n_rows, int d, const int32_t* ids, int q, int k,
-                 const float* qs, bool ip, float* out, cudaStream_t s) {
+template <typename V, bool kByNode>
+void launch_bf16(const void* table, int64_t n_rows, int d, const int32_t* ids, const int32_t* cur,
+                 int q, int k, const float* qs, bool ip, float* out, cudaStream_t s) {
   const int units = d * 2 / static_cast<int>(sizeof(V));
   int lpr = kBf16Rows;
   while (lpr < units && lpr < kWarp) lpr <<= 1;
@@ -348,11 +417,11 @@ void launch_bf16(const void* table, int64_t n_rows, int d, const int32_t* ids, i
   const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
   const V* t = static_cast<const V*>(table);
   if (ip)
-    vec_dist_bf16_kernel<V, true><<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, units, lpr, ids, k,
-                                                                     chunks, work, qs, out);
+    vec_dist_bf16_kernel<V, true, kByNode><<<grid, kVecWarps * kWarp, 0, s>>>(
+        t, n_rows, units, lpr, ids, cur, k, chunks, work, qs, out);
   else
-    vec_dist_bf16_kernel<V, false><<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, units, lpr, ids, k,
-                                                                      chunks, work, qs, out);
+    vec_dist_bf16_kernel<V, false, kByNode><<<grid, kVecWarps * kWarp, 0, s>>>(
+        t, n_rows, units, lpr, ids, cur, k, chunks, work, qs, out);
 }
 
 // K3: f32 rows, and sub-word rows no wider kernel can read, take
@@ -361,11 +430,11 @@ void launch_bf16(const void* table, int64_t n_rows, int d, const int32_t* ids, i
 // more: two groups of rows in flight; else 8, more warps for the build's
 // descent and entry); bf16 rows of whole 4-, 8- or 16-byte loads
 // vec_dist_bf16_kernel with the widest load the rows and the query rows
-// take.
-template <typename T>
-void launch_vec(const void* table, int64_t n_rows, int d, const int32_t* ids,
-                int q, int k, const float* qs, const float* offset,
-                const float* scale, bool ip, float* out, cudaStream_t s) {
+// take. kByNode: ids is the adjacency, read at row cur[q].
+template <typename T, bool kByNode>
+void launch_vec_src(const void* table, int64_t n_rows, int d, const int32_t* ids,
+                    const int32_t* cur, int q, int k, const float* qs, const float* offset,
+                    const float* scale, bool ip, float* out, cudaStream_t s) {
   const T* t = static_cast<const T*>(table);
   const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
   // loads of b bytes fit: b divides the row bytes and both bases
@@ -377,33 +446,49 @@ void launch_vec(const void* table, int64_t n_rows, int d, const int32_t* ids,
     const int chunks = (k + chunk - 1) / chunk;
     const int64_t work = static_cast<int64_t>(q) * chunks;
     const auto grid = static_cast<unsigned>((work + kVecWarps - 1) / kVecWarps);
-    kern<<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, d, ids, k, chunks, work, qs, offset, scale,
-                                            out);
+    kern<<<grid, kVecWarps * kWarp, 0, s>>>(t, n_rows, d, ids, cur, k, chunks, work, qs, offset,
+                                            scale, out);
   };
   if constexpr (sizeof(T) == 2) {
-    if (fits(16)) return launch_bf16<uint4>(table, n_rows, d, ids, q, k, qs, ip, out, s);
-    if (fits(8)) return launch_bf16<uint2>(table, n_rows, d, ids, q, k, qs, ip, out, s);
-    if (fits(4)) return launch_bf16<uint32_t>(table, n_rows, d, ids, q, k, qs, ip, out, s);
+    if (fits(16)) return launch_bf16<uint4, kByNode>(table, n_rows, d, ids, cur, q, k, qs, ip, out, s);
+    if (fits(8)) return launch_bf16<uint2, kByNode>(table, n_rows, d, ids, cur, q, k, qs, ip, out, s);
+    if (fits(4))
+      return launch_bf16<uint32_t, kByNode>(table, n_rows, d, ids, cur, q, k, qs, ip, out, s);
   }
   if constexpr (sizeof(T) == 1) {
     if (fits(4)) {
       const bool wide = k >= 64;
       const auto pick = [&](auto k16, auto k8) { wide ? run(k16, 16) : run(k8, 8); };
       if (offset)
-        ip ? pick(vec_dist_bytes_kernel<true, true, 16>, vec_dist_bytes_kernel<true, true, 8>)
-           : pick(vec_dist_bytes_kernel<true, false, 16>, vec_dist_bytes_kernel<true, false, 8>);
+        ip ? pick(vec_dist_bytes_kernel<true, true, 16, kByNode>,
+                  vec_dist_bytes_kernel<true, true, 8, kByNode>)
+           : pick(vec_dist_bytes_kernel<true, false, 16, kByNode>,
+                  vec_dist_bytes_kernel<true, false, 8, kByNode>);
       else
-        ip ? pick(vec_dist_bytes_kernel<false, true, 16>, vec_dist_bytes_kernel<false, true, 8>)
-           : pick(vec_dist_bytes_kernel<false, false, 16>, vec_dist_bytes_kernel<false, false, 8>);
+        ip ? pick(vec_dist_bytes_kernel<false, true, 16, kByNode>,
+                  vec_dist_bytes_kernel<false, true, 8, kByNode>)
+           : pick(vec_dist_bytes_kernel<false, false, 16, kByNode>,
+                  vec_dist_bytes_kernel<false, false, 8, kByNode>);
       return;
     }
   }
   if (offset)
-    ip ? run(vec_dist_kernel<T, true, true>, kVecChunk)
-       : run(vec_dist_kernel<T, true, false>, kVecChunk);
+    ip ? run(vec_dist_kernel<T, true, true, kByNode>, kVecChunk)
+       : run(vec_dist_kernel<T, true, false, kByNode>, kVecChunk);
   else
-    ip ? run(vec_dist_kernel<T, false, true>, kVecChunk)
-       : run(vec_dist_kernel<T, false, false>, kVecChunk);
+    ip ? run(vec_dist_kernel<T, false, true, kByNode>, kVecChunk)
+       : run(vec_dist_kernel<T, false, false, kByNode>, kVecChunk);
+}
+
+// K3 on ids [q, k], or, with cur given, by node on the adjacency ids [n_nodes, k]
+template <typename T>
+void launch_vec(const void* table, int64_t n_rows, int d, const int32_t* ids, const int32_t* cur,
+                int q, int k, const float* qs, const float* offset, const float* scale, bool ip,
+                float* out, cudaStream_t s) {
+  if (cur != nullptr)
+    launch_vec_src<T, true>(table, n_rows, d, ids, cur, q, k, qs, offset, scale, ip, out, s);
+  else
+    launch_vec_src<T, false>(table, n_rows, d, ids, cur, q, k, qs, offset, scale, ip, out, s);
 }
 
 }  // namespace

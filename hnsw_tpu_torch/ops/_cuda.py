@@ -40,6 +40,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # table, dtype, n_rows, d, ids, q, k, qs, offset, scale, ip, out, stream
     "hnsw_vec_dist": (_P, _I, _I64, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    # table, dtype, n_rows, d, nbrs, cur, q, k, qs, offset, scale, ip, out,
+    # stream
+    "hnsw_vec_dist_cur": (_P, _I, _I64, _I, _P, _P, _I, _I, _P, _P, _P, _I,
+                          _P, _P),
     # codes, n_rows, row_w, nbr_sq, k, d, bits, cur, q, t, qs, ip, out, stream
     "hnsw_packed_dist": (_P, _I64, _I64, _P, _I, _I, _I, _P, _I, _I, _P, _I,
                          _P, _P),
@@ -51,6 +55,10 @@ _SIGNATURES = {
     # buf_d, buf_p, cand_i, cand_d, q, ef, k, ef_live,
     # out_d, out_p, cur, ndis, stream
     "hnsw_beam_update": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # buf_d, buf_p, nbrs, n_rows, cand_d, q, ef, k, ef_live, limit,
+    # cur, ndis, steps, stream
+    "hnsw_beam_hop": (_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                      _P),
 }
 
 # shared memory a launch may ask for without opting in to more
@@ -134,8 +142,10 @@ def library() -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One C entry point plus its launch count (and, where the wrapper tags
-    its launches, e.g. with the row dtype, the count by tag)."""
+    """One kernel's C entry point plus its launch count (and, where the
+    wrapper tags its launches, e.g. with the row dtype, the count by tag).
+    A kernel with a second entry point (K3 by node, K1's hop) launches it
+    with ``launch(..., symbol=)``, counted as the kernel's."""
 
     def __init__(self, name: str, symbol: str):
         self.name = name
@@ -144,10 +154,10 @@ class CudaKernel:
         self.by_tag: dict[str, int] = {}
         KERNELS[name] = self
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, symbol: str | None = None) -> None:
         lib = library()
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, self.symbol)(*args, stream)
+        err = getattr(lib, symbol or self.symbol)(*args, stream)
         if err != 0:
             msg = lib.hnsw_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: CUDA error "

@@ -19,9 +19,10 @@ Two loops:
     ``lax.while_loop`` with its condition ``any(~buf_exp) & hops <
     min(max_hops, hop_limit)`` on the device;
   * ``beam_search_fused`` — one expansion per hop, with all bookkeeping in
-    the K1 kernel (``ops/beam_kernel.py``). Serving uses it when no
-    legacy option is asked for. Its condition is the reference's ``any(cur
-    >= 0) & hops < min(max_hops, hop_limit)``, on the device.
+    K1's hop entry (``ops/beam_kernel.py`` ``beam_hop``): on the card a
+    hop is the distance kernel and K1, two launches. Serving uses it when
+    no legacy option is asked for. Its condition is the reference's
+    ``any(cur >= 0) & hops < min(max_hops, hop_limit)``, on the device.
 
 A search loop is run by a ``loop`` runner (``graphs.py``): in chunks of
 steps with one host read of the condition after each, or captured into a
@@ -39,7 +40,7 @@ from typing import Callable
 import torch
 
 from ..graphs import EagerLoop
-from .beam_kernel import beam_update
+from .beam_kernel import beam_hop
 
 INF = float("inf")
 
@@ -286,27 +287,42 @@ def beam_search(state: BeamState,
     return BeamState(**s)
 
 
-def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
-                      expand: Callable, *, ef: int, max_hops: int,
-                      ef_live=None, hop_limit=None, bound: int | None = None,
-                      loop=None) -> BeamState:
-    """Level-0 search with one K1 launch per hop, the reference's
-    ``lax.while_loop`` run by ``loop`` (see ``beam_search``).
+def _device_int(v, device) -> torch.Tensor:
+    """A host int or a 0-d tensor as a 0-d int64 tensor on ``device`` (a
+    fill, not a host-to-device copy: a capture has no copies)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(v), dtype=torch.int64, device=device)
 
-    expand(cur [Q, 1], step_ok [Q, 1]) -> (nbrs int32 [Q, 1, K], dist f32
-    [Q, K]), the contract of ``beam_search``'s expand with T = 1.
+
+def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
+                      neighbors0: torch.Tensor, dist: Callable, *, ef: int,
+                      max_hops: int, ef_live=None, hop_limit=None,
+                      bound: int | None = None, loop=None) -> BeamState:
+    """Level-0 search, one expansion a hop, the reference's
+    ``lax.while_loop`` run by ``loop`` (see ``beam_search``). A hop is
+    ``dist(cur)`` and ``beam_hop``: on a CUDA device the distance kernel
+    and K1's hop entry, which reads the expanded node's adjacency row
+    ``neighbors0[cur]`` itself and updates the state in place; on the CPU
+    their plain versions.
+
+    dist(cur int32 [Q]) -> f32 [Q, K]: the distances of the K candidates
+    of node ``cur[q]`` (its adjacency row's order); a cur of -1 marks a
+    query that does not step, whose row is not read.
     Entries are [Q] or [Q, E] (E < ef), each row distance-sorted with -1 /
     inf for invalid seeds. Column 0 starts expanded with ``cur`` pointing at
     it; the other seeds wait unexpanded in the buffer. Seeds at columns >=
     ``ef_live`` are dropped, as the first hop's ef_live mask would.
 
-    ``ef_live`` (None: the whole buffer is live) is applied around K1,
-    which runs with the full width: its merge does not depend on ef_live,
-    so killing slots >= ef_live after it and dropping a ``cur`` that sat
-    in a killed slot (ids are unique in a buffer) is the kernel's own
-    result at ef_live, for a host int or a device tensor alike. A hop past
-    the condition keeps every value as it was (``torch.where``): K1 would
-    otherwise still pick and mark the next slot."""
+    The condition is kept per query: a query steps while its cur is a node
+    and its own hop count (``steps``) is below the limit. A query is live
+    on a prefix of the batch's hops, so while it is live its steps equal
+    the batch's hop count: the reference's condition holds exactly when
+    some query steps, and the batch's ``hops`` is the largest ``steps``,
+    read once after the loop. A hop past the condition changes nothing.
+    ``ef_live`` (None: the whole buffer is live) and ``hop_limit`` may be
+    host ints or 0-d device tensors (a captured search reads them at
+    replay)."""
     if entry_ids.dim() == 1:
         entry_ids, entry_dists = entry_ids[:, None], entry_dists[:, None]
     q, e = entry_ids.shape
@@ -325,37 +341,24 @@ def beam_search_fused(entry_ids: torch.Tensor, entry_dists: torch.Tensor,
          "cur": torch.where(active[:, 0], entry_ids[:, 0], -1).to(
              torch.int32),
          "ndis": torch.zeros(q, dtype=torch.int32, device=dev),
-         "hops": torch.zeros((), dtype=torch.int32, device=dev)}
-    limit = _limit(max_hops, hop_limit)
-    slot = torch.arange(ef, device=dev)[None, :]
+         "steps": torch.zeros(q, dtype=torch.int32, device=dev)}
+    limit = _device_int(_limit(max_hops, hop_limit), dev)
+    live = None if ef_live is None else _device_int(ef_live, dev)
 
     def cond(s):
-        return (s["cur"] >= 0).any() & (s["hops"] < limit)
+        return ((s["cur"] >= 0) & (s["steps"] < limit)).any()
 
     def step(s):
-        live = cond(s)
-        cur = s["cur"]
-        step_ok = cur >= 0
-        nbrs, dist = expand(torch.where(step_ok, cur, 0)[:, None],
-                            step_ok[:, None])
-        nbrs = nbrs.reshape(q, -1)
-        nbrs = torch.where((nbrs >= 0) & step_ok[:, None], nbrs, -1)
-        d, p, c, nd = beam_update(s["buf_d"], s["buf_p"], nbrs,
-                                  dist.contiguous(), ef)
-        if ef_live is not None:
-            dead = slot >= ef_live
-            d = torch.where(dead, INF, d)
-            p = torch.where(dead, -1, p)
-            c = torch.where(((p >> 1) == c[:, None]).any(1), c, -1)
-        return {"buf_d": torch.where(live, d, s["buf_d"]),
-                "buf_p": torch.where(live, p, s["buf_p"]),
-                "cur": torch.where(live, c, cur),
-                "ndis": s["ndis"] + torch.where(live, nd, 0),
-                "hops": s["hops"] + live.to(torch.int32)}
+        d, p, c, nd, st = beam_hop(s["buf_d"], s["buf_p"], s["cur"],
+                                   s["ndis"], s["steps"], neighbors0,
+                                   dist(s["cur"]), live, limit)
+        return {"buf_d": d, "buf_p": p, "cur": c, "ndis": nd, "steps": st}
 
     s = (loop or EagerLoop()).run(cond, step, s, bound)
-    buf_p = s["buf_p"]
-    return BeamState(buf_p >> 1, s["buf_d"], (buf_p & 1) == 1, s["hops"],
+    buf_p, steps = s["buf_p"], s["steps"]
+    hops = steps.max() if q else torch.zeros((), dtype=torch.int32,
+                                              device=dev)
+    return BeamState(buf_p >> 1, s["buf_d"], (buf_p & 1) == 1, hops,
                      s["ndis"])
 
 

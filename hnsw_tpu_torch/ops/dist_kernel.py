@@ -13,7 +13,11 @@ kernel when they are on a CUDA device; there is no fallback between the two.
     (the kernel uses no shared memory); launches are also counted by row
     dtype ("float32", "bfloat16", "uint8"). The search path calls this;
     ``gathered_vec_dist`` keeps the reference's pre-gathered signature for
-    the parity tests.
+    the parity tests. ``gathered_vec_dist_cur(table, nbrs, cur, qs, ...)``
+    is the same kernel with its ids read by node, the fused beam's hop:
+    query q's candidates are the adjacency row ``nbrs[cur[q]]``; a query
+    whose cur is -1 and a candidate whose id is -1 read no row and get
+    +inf. Its launches count as K3's, by row dtype too.
   * ``packed_row_dist_ids(codes, nbr_sq, cur, qs, bits=, metric=)`` —
     routing distances ``nbr_sq − 2Σ qs·u`` (L2) or ``−Σ qs·u`` (IP) from
     packed code row ``cur[q]`` (8-bit: one byte per dim; 4-bit: even dim in
@@ -31,7 +35,9 @@ kernel when they are on a CUDA device; there is no fallback between the two.
 
 The two packed-row kernels take ``cur`` as [Q] or [Q, T] (T expanded nodes
 per query, the legacy beam's ``n_expand``) and return [Q, T·k]: flattened
-row b reads code row ``cur.flat[b]`` against query b // T.
+row b reads code row ``cur.flat[b]`` against query b // T. A row whose cur
+is -1 (a converged query of the fused beam) reads nothing and its k
+outputs are +inf.
 """
 
 from __future__ import annotations
@@ -97,6 +103,53 @@ def gathered_vec_dist_ids(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def gathered_vec_dist_cur_plain(table, nbrs, cur, qs, dequant=None, *,
+                                metric):
+    ids = nbrs[cur.long().clamp(min=0)]                          # [Q, K]
+    d = gathered_vec_dist_plain(table, ids, qs, dequant, metric=metric)
+    return torch.where((cur[:, None] >= 0) & (ids >= 0), d, float("inf"))
+
+
+def gathered_vec_dist_cur(table: torch.Tensor, nbrs: torch.Tensor,
+                          cur: torch.Tensor, qs: torch.Tensor, dequant=None,
+                          *, metric: str) -> torch.Tensor:
+    """K3 with its ids by node: table [N, d] (f32/bf16/u8), nbrs int32
+    [n_nodes, K] (the adjacency, -1 = no candidate), cur int32 [Q] (the
+    node each query expands, -1 = none), qs f32 [Q, d], dequant as
+    ``gathered_vec_dist_ids``. Returns f32 [Q, K]: the distance to row
+    ``nbrs[cur[q], c]``, +inf where cur[q] or that id is -1."""
+    _check_metric(metric)
+    if table.dtype not in _ROW_DTYPES:
+        raise ValueError(f"table: unsupported dtype {table.dtype}")
+    check(table, "table", table.dtype, (None, None))
+    n, d = table.shape
+    check(nbrs, "nbrs", torch.int32, (None, None))
+    check(cur, "cur", torch.int32, (None,))
+    q, k = cur.shape[0], nbrs.shape[1]
+    check(qs, "qs", torch.float32, (q, d))
+    tensors = [table, nbrs, cur, qs]
+    if dequant is not None:
+        for t, name in zip(dequant, ("offset", "scale")):
+            check(t, name, torch.float32, (d,))
+        tensors += list(dequant)
+    if n == 0:
+        raise ValueError("gathered_vec_dist: empty table")
+    if on_cpu(*tensors):
+        return gathered_vec_dist_cur_plain(table, nbrs, cur, qs, dequant,
+                                           metric=metric)
+    out = torch.empty((q, k), dtype=torch.float32, device=table.device)
+    if q == 0 or k == 0:
+        return out
+    off, sc = (dequant[0].data_ptr(), dequant[1].data_ptr()) \
+        if dequant is not None else (None, None)
+    _VEC_DIST.launch(table.data_ptr(), _ROW_DTYPES[table.dtype], n, d,
+                     nbrs.data_ptr(), cur.data_ptr(), q, k, qs.data_ptr(),
+                     off, sc, int(metric == IP), out.data_ptr(),
+                     symbol="hnsw_vec_dist_cur")
+    _VEC_DIST.count_tag(str(table.dtype).removeprefix("torch."))
+    return out
+
+
 def gathered_vec_dist(vecs: torch.Tensor, qs: torch.Tensor, dequant=None, *,
                       metric: str) -> torch.Tensor:
     """The reference's signature: pre-gathered vecs [Q, K, d]. Runs the same
@@ -135,6 +188,14 @@ def _check_cur(cur: torch.Tensor, q: int) -> int:
     return 1 if cur.dim() == 1 else cur.shape[1]
 
 
+def _none_where_no_row(out, cur, k: int):
+    """out [Q, T*k] with the k outputs of every row whose cur is -1 set to
+    +inf (the kernels read no row for it)."""
+    q = out.shape[0]
+    skip = (cur.reshape(q, -1, 1) < 0).expand(-1, -1, k).reshape(q, -1)
+    return torch.where(skip, float("inf"), out)
+
+
 def packed_row_dist_plain(codes, nbr_sq, cur, qs, *, bits, metric):
     k = nbr_sq.shape[1]
     q, d = qs.shape
@@ -142,15 +203,15 @@ def packed_row_dist_plain(codes, nbr_sq, cur, qs, *, bits, metric):
     u = unpack_codes(codes[row.reshape(-1)], k, d, bits).float()
     dots = (u.view(q, -1, k, d) * qs[:, None, None, :]).sum(-1).view(q, -1)
     if metric == IP:
-        return -dots
-    return nbr_sq[row].view(q, -1) - 2.0 * dots
+        return _none_where_no_row(-dots, cur, k)
+    return _none_where_no_row(nbr_sq[row].view(q, -1) - 2.0 * dots, cur, k)
 
 
 def packed_row_dist_ids(codes: torch.Tensor, nbr_sq: torch.Tensor,
                         cur: torch.Tensor, qs: torch.Tensor, *, bits: int,
                         metric: str) -> torch.Tensor:
     """codes uint8 [R, k*db], nbr_sq f32 [R, k], cur int32 [Q] or [Q, T]
-    (rows of the expanded nodes, already made safe), qs f32 [Q, d]
+    (rows of the expanded nodes; -1: none, its outputs +inf), qs f32 [Q, d]
     (= q·scale). Returns f32 [Q, T*k]."""
     _check_metric(metric)
     check(codes, "codes", torch.uint8, (None, None))
@@ -200,7 +261,8 @@ def packed_row_dist_words_plain(words, cur, qs, *, wp, bits):
     k = words.shape[1] // wp
     row = cur.reshape(-1).long().clamp(0, words.shape[0] - 1)
     u = unpack_words(words[row].view(-1, k, wp), bits, d).float()
-    return (u.view(q, -1, k, d) * qs[:, None, None, :]).sum(-1).view(q, -1)
+    dots = (u.view(q, -1, k, d) * qs[:, None, None, :]).sum(-1).view(q, -1)
+    return _none_where_no_row(dots, cur, k)
 
 
 def packed_row_dist_words_ids(words: torch.Tensor, cur: torch.Tensor,
@@ -208,8 +270,8 @@ def packed_row_dist_words_ids(words: torch.Tensor, cur: torch.Tensor,
                               bits: int) -> torch.Tensor:
     """words int32 [R, k*wp] (``wp`` words per candidate, of which the
     first ceil(d*bits/32) carry values), cur int32 [Q] or [Q, T] (rows of
-    the expanded nodes, already made safe), qs f32 [Q, d]. Returns the dots
-    f32 [Q, T*k]; dims >= d are never read."""
+    the expanded nodes; -1: none, its outputs +inf), qs f32 [Q, d]. Returns
+    the dots f32 [Q, T*k]; dims >= d are never read."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     check(words, "words", torch.int32, (None, None))

@@ -327,37 +327,50 @@ def row_fingerprints(neighbors0: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def make_packed_expand(packed: PackedNeighbors, neighbors0: torch.Tensor,
-                       queries: torch.Tensor, metric: str):
-    """Returns (expand, shift). expand(cur [Q, T], step_ok [Q, T]) -> (nbrs
-    int32 [Q, T, m0], dist f32 [Q, T*m0]) computes every candidate distance
-    of the T expanded nodes from their packed code rows: K2 for the bytes
-    layout, K4 (dots; the metric is applied here) for words. The kernels
-    index the query of flattened row b as b // T, so the query rows are
-    never repeated. ``step_ok`` is not read: rows of masked slots are read
-    and their candidates masked by the caller. shift [Q] is added to
+def make_packed_dist(packed: PackedNeighbors, m0: int, queries: torch.Tensor,
+                     metric: str):
+    """Returns (dist, shift). dist(cur [Q] or [Q, T]) -> f32 [Q, T*m0]
+    computes every candidate distance of the expanded nodes from their
+    packed code rows: K2 for the bytes layout, K4 (dots; the metric is
+    applied here) for words. The kernels index the query of flattened row
+    b as b // T, so the query rows are never repeated. A cur of -1 (a
+    converged query of the fused beam) reads no code row; its distances
+    are +inf (bytes) or not to be read (words). shift [Q] is added to
     exactly computed distances (the entry point) to put them on the same
     scale: 2 q·offset for L2, q·offset for IP."""
     qf = queries.float()
     qs = (qf * packed.scale).contiguous()                        # [Q, d]
     qoff = qf @ packed.offset                                    # [Q]
     shift = qoff if metric == IP else 2.0 * qoff
-    m0 = neighbors0.shape[1]
     bits = packed.bits_for(qf.shape[1], m0)
     words = packed.layout == "words"
 
-    def expand(cur: torch.Tensor, step_ok: torch.Tensor):
-        nbrs = neighbors0[cur]                                   # [Q, T, m0]
+    def dist(cur: torch.Tensor) -> torch.Tensor:
         cur = cur.contiguous()
         if not words:
-            return nbrs, packed_row_dist_ids(packed.nbr_codes, packed.nbr_sq,
-                                             cur, qs, bits=bits,
-                                             metric=metric)
+            return packed_row_dist_ids(packed.nbr_codes, packed.nbr_sq, cur,
+                                       qs, bits=bits, metric=metric)
         dots = packed_row_dist_words_ids(packed.nbr_codes, cur, qs,
                                          wp=packed.row_w // m0, bits=bits)
         if metric == IP:
-            return nbrs, -dots
-        return nbrs, packed.nbr_sq[cur].reshape(dots.shape) - 2.0 * dots
+            return -dots
+        return packed.nbr_sq[cur].reshape(dots.shape) - 2.0 * dots
+
+    return dist, shift
+
+
+def make_packed_expand(packed: PackedNeighbors, neighbors0: torch.Tensor,
+                       queries: torch.Tensor, metric: str):
+    """Returns (expand, shift): ``make_packed_dist``'s distances with the
+    neighbor ids, the legacy beam's contract. expand(cur [Q, T], step_ok
+    [Q, T]) -> (nbrs int32 [Q, T, m0], dist f32 [Q, T*m0]). ``step_ok`` is
+    not read: rows of masked slots are read and their candidates masked by
+    the caller."""
+    dist, shift = make_packed_dist(packed, neighbors0.shape[1], queries,
+                                   metric)
+
+    def expand(cur: torch.Tensor, step_ok: torch.Tensor):
+        return neighbors0[cur], dist(cur)
 
     return expand, shift
 
@@ -442,26 +455,39 @@ def update_packed_pq_rows(nbr_codes: torch.Tensor, neighbors0: torch.Tensor,
     return nbr_codes
 
 
-def make_packed_pq_expand(packed: PackedPQ, neighbors0: torch.Tensor,
-                          queries: torch.Tensor, metric: str):
-    """Returns (expand, shift) like ``make_packed_expand``, with ADC routing
+def make_packed_pq_dist(packed: PackedPQ, m0: int, queries: torch.Tensor,
+                        metric: str):
+    """Returns (dist, shift) like ``make_packed_dist``, with ADC routing
     distances from the PQ code row of each expanded node: lookups in the
     per-query tables built once here (``ops/pq.py`` ``pq_lut`` /
-    ``adc_distance``). shift is 0: ADC carries the whole surrogate."""
+    ``adc_distance``). A cur of -1 reads the last row (not to be read).
+    shift is 0: ADC carries the whole surrogate."""
     from .pq import adc_distance, pq_lut
 
     qf = queries.float()
     lut = pq_lut(qf, packed.cb, metric)                          # [Q, m, ksub]
-    m0 = neighbors0.shape[1]
     pm = packed.cb.shape[0]
     four_bit = packed.pq_bits == 4
     bpn = packed.bpn(m0)
 
-    def expand(cur: torch.Tensor, step_ok: torch.Tensor):
-        nbrs = neighbors0[cur]                                   # [Q, T, m0]
-        qn, t = cur.shape
+    def dist(cur: torch.Tensor) -> torch.Tensor:
+        qn = cur.shape[0]
+        t = cur.numel() // qn
         rows = packed.nbr_codes[cur.reshape(-1)].view(qn, t * m0, bpn)
         codes = unpack_nibbles(rows, pm) if four_bit else rows
-        return nbrs, adc_distance(lut, codes)
+        return adc_distance(lut, codes)
 
-    return expand, qf.new_zeros(qf.shape[0])
+    return dist, qf.new_zeros(qf.shape[0])
+
+
+def make_packed_pq_expand(packed: PackedPQ, neighbors0: torch.Tensor,
+                          queries: torch.Tensor, metric: str):
+    """Returns (expand, shift) like ``make_packed_expand`` over
+    ``make_packed_pq_dist``."""
+    dist, shift = make_packed_pq_dist(packed, neighbors0.shape[1], queries,
+                                      metric)
+
+    def expand(cur: torch.Tensor, step_ok: torch.Tensor):
+        return neighbors0[cur], dist(cur)
+
+    return expand, shift

@@ -7,10 +7,11 @@
      upper-level descent (``greedy_descend``; "descend"), then an exact
      rescore of the seeds;
   2. level 0, one of two engines, chosen as the reference chooses them:
-       * fused (the default): ``beam_search_fused``; each hop gathers the
-         adjacency row and computes the candidates' distances (K2 or K4
-         from the packed code row, or K3 from the vectors), then K1
-         updates the beam;
+       * fused (the default): ``beam_search_fused``; each hop computes
+         the expanded node's candidates' distances (K2 or K4 from its
+         packed code row, K3 from the vectors of its adjacency row), then
+         K1's hop entry reads the adjacency row and updates the beam: on
+         the card K2 or K3 and K1 are the whole hop, two launches;
        * legacy (``beam_search``), whenever the search asks for a filter
          (``allowed``), ``n_expand > 1``, ``visited_mode="bitmap"``,
          ``HNSW_TPU_PALLAS_HOP=1`` or ``HNSW_TPU_BEAM_KERNEL=0``: a
@@ -43,10 +44,11 @@ from .config import IP, L2
 from .graph import GraphArrays
 from .graphs import EagerLoop
 from .ops import beam as beam_ops
-from .ops.dist_kernel import gathered_vec_dist_ids
+from .ops.dist_kernel import gathered_vec_dist_cur, gathered_vec_dist_ids
 from .ops.distances import decode_rows
 from .ops.hop_kernel import fused_gather_distances
-from .ops.packed import (PackedNeighbors, PackedPQ, make_packed_expand,
+from .ops.packed import (PackedNeighbors, PackedPQ, make_packed_dist,
+                         make_packed_expand, make_packed_pq_dist,
                          make_packed_pq_expand)
 
 INF = float("inf")
@@ -114,6 +116,28 @@ def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
                                      metric=metric)
 
     return distance_to
+
+
+def _make_hop_distances(vectors: torch.Tensor, queries: torch.Tensor,
+                        neighbors0: torch.Tensor, metric: str, dequant=None,
+                        pq=None, distance_to=None):
+    """The fused beam's dist(cur [Q]) -> f32 [Q, m0] on unpacked rows: K3
+    by node (the adjacency row ``neighbors0[cur]`` read in the kernel) on
+    f32, bf16 and sq8 rows; on PQ codes ``distance_to`` over the gathered
+    adjacency row (a cur of -1 reads the last row, not to be read)."""
+    if pq is not None:
+        def dist(cur: torch.Tensor) -> torch.Tensor:
+            nbrs = neighbors0[cur]
+            return distance_to(nbrs, nbrs >= 0)
+
+        return dist
+    qf = queries.float().contiguous()
+
+    def dist(cur: torch.Tensor) -> torch.Tensor:
+        return gathered_vec_dist_cur(vectors, neighbors0, cur, qf, dequant,
+                                     metric=metric)
+
+    return dist
 
 
 def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
@@ -307,6 +331,9 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
         return _search_body(inputs, loop, st, graph, vectors, packed,
                             dequant, pq)
 
+    if st.fused:
+        trace.count("searches.kernel_hop" if vectors.device.type == "cuda"
+                    else "searches.composed_hop")
     with trace.Phases("hnsw.search", vectors.device, with_stats) as ph:
         if graphs.capturing_enabled(vectors.device):
             out = graphs.replay_or_capture(key, refs, inputs, body,
@@ -469,27 +496,30 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
 
     loop.phase("hops")
     neighbors0 = graph.neighbors0
-    expand = None
+    hop_dist = expand = None
     if packed is not None:
         # sq rows route on a scale shifted by q·offset (shift the exactly
-        # scored entries onto it); PQ rows carry the whole surrogate
-        make = make_packed_pq_expand if isinstance(packed, PackedPQ) \
-            else make_packed_expand
-        expand, shift = make(packed, neighbors0, queries, metric)
+        # scored entries onto it); PQ rows carry the whole surrogate. The
+        # fused beam takes the distances by node, the legacy beam an expand
+        pq_rows = isinstance(packed, PackedPQ)
+        if st.fused:
+            make = make_packed_pq_dist if pq_rows else make_packed_dist
+            hop_dist, shift = make(packed, neighbors0.shape[1], queries,
+                                   metric)
+        else:
+            make = make_packed_pq_expand if pq_rows else make_packed_expand
+            expand, shift = make(packed, neighbors0, queries, metric)
         ep0_dist = ep0_dist + shift[:, None]
     live_width = None if st.ef_full else ef_live
     bound = ef_buf + 8 if st.bounded else None
     if st.fused:
-        if expand is None:
-            def expand(cur, step_ok):
-                nbrs = neighbors0[cur]                           # [Q, T, m0]
-                valid = (nbrs >= 0) & step_ok[..., None]
-                return nbrs, distance_to(nbrs.reshape(qn, -1),
-                                         valid.reshape(qn, -1))
-
+        if hop_dist is None:
+            hop_dist = _make_hop_distances(vectors, queries, neighbors0,
+                                           metric, dequant, pq, distance_to)
         state = beam_ops.beam_search_fused(
-            ep0, ep0_dist, expand, ef=ef_buf, max_hops=4 * ef_buf + 16,
-            ef_live=live_width, hop_limit=hop_limit, bound=bound, loop=loop)
+            ep0, ep0_dist, neighbors0, hop_dist, ef=ef_buf,
+            max_hops=4 * ef_buf + 16, ef_live=live_width,
+            hop_limit=hop_limit, bound=bound, loop=loop)
     else:
         # the legacy beam starts from the single best entry ("seed" is a
         # fused-beam feature)

@@ -13,7 +13,10 @@ Three records, kept in memory for the life of the process:
   * counters (``count(name, n)``): ``host_reads`` (every
     ``graphs.host_read``), ``captures.search`` / ``captures.build`` and
     ``capture_ms.search`` / ``capture_ms.build`` (CUDA graph captures and
-    their host milliseconds).
+    their host milliseconds), ``searches.kernel_hop`` /
+    ``searches.composed_hop`` (the fused-beam searches whose hops ran K1's
+    hop entry on a CUDA device, or its plain composition on the CPU;
+    counted on the host once a search call).
 
 Tracing is on while ``torch.profiler`` records in the process, or inside
 ``collect()``. Spans and device times are recorded only while it is on;

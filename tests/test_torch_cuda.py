@@ -1224,3 +1224,299 @@ def test_traced_build_times_its_stages_on_card(card, monkeypatch):
     assert t.counters["capture_ms.build"] == pytest.approx(
         sum(st["capture_ms"]))
     assert st["capture_ms"] == [e.capture_ms for e in made]
+
+
+# ------------------------------------------------ K1's hop entry
+# (ef, K): the warp path at 1-2 candidates a lane and rows not a multiple
+# of 4, and the block path (ef + K > 256)
+HOP_SHAPES = ((32, 64), (64, 64), (128, 64), (37, 17), (193, 64), (512, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "ef_live", "seeds",
+                                  "at_hop_limit", "past_condition"])
+def test_beam_hop_equals_plain_on_card(card, case):
+    """K1's hop entry, in place, equals its plain version exactly (buffers,
+    cur, ndis, steps) on mid-search states with converged and padded rows,
+    seeds waiting, ef_live < ef, at the hop limit and past the condition;
+    each hop one launch, counted as K1's."""
+    from test_torch_beam_hop import HOP_CASES, hop_case
+    counts, ef0, ef_live0, hops, limit = HOP_CASES[case]
+    _cuda.reset_launch_counts()
+    for ef, k in HOP_SHAPES:
+        ef_live = None if ef_live0 is None else ef * 3 // 4 + 1
+        s, steps, nbrs0, cd = hop_case(counts, ef, ef_live, hops, ef + k, k)
+        s = {n: t.to(card) for n, t in dict(s, steps=steps).items()}
+        nbrs0, cd = nbrs0.to(card), cd.to(card)
+        lim = torch.tensor(limit, device=card)
+        live = None if ef_live is None else torch.tensor(ef_live,
+                                                         device=card)
+        names = ("buf_d", "buf_p", "cur", "ndis", "steps")
+        args = [s[n].clone() for n in names]
+        got = beam_kernel.beam_hop(*args, nbrs0, cd, live, lim)
+        assert all(g is a for g, a in zip(got, args))
+        want = beam_kernel.beam_hop_plain(*(s[n] for n in names), nbrs0, cd,
+                                          live, lim)
+        for name, g, w in zip(names, got, want):
+            assert torch.equal(g, w), (case, ef, k, name)
+    assert _cuda.launch_counts()["beam_update"] == len(HOP_SHAPES)
+    assert _cuda.tagged_launch_counts()["beam_update"] == {
+        "hop": len(HOP_SHAPES)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])
+def test_vec_dist_by_node_equals_ids_form_on_card(card, dtype):
+    """K3 by node (ids from the adjacency row nbrs[cur]) equals K3 on the
+    same ids bit for bit where cur and the id are not -1, and is +inf
+    elsewhere, at d 96 / 100 / 128 and K 64 / 17; its launches count as
+    K3's under the row dtype."""
+    g = torch.Generator(device=card).manual_seed(5)
+    _cuda.reset_launch_counts()
+    for d, k in ((96, 64), (100, 17), (128, 64)):
+        if dtype == "uint8":
+            table = torch.randint(0, 256, (3000, d), generator=g,
+                                  device=card, dtype=torch.uint8)
+            dequant = (torch.rand(d, generator=g, device=card),
+                       torch.rand(d, generator=g, device=card) / 50)
+        else:
+            table = torch.randn((3000, d), generator=g,
+                                device=card).to(getattr(torch, dtype))
+            dequant = None
+        nbrs0 = torch.randint(0, 3000, (3000, k), generator=g, device=card,
+                              dtype=torch.int32)
+        nbrs0[:, -k // 4:] = -1
+        cur = torch.randint(-1, 3000, (1031,), generator=g, device=card,
+                            dtype=torch.int32)
+        qs = torch.randn((1031, d), generator=g, device=card)
+        for metric in ("l2", "ip"):
+            got = dist_kernel.gathered_vec_dist_cur(table, nbrs0, cur, qs,
+                                                    dequant, metric=metric)
+            ids = nbrs0[cur.clamp(min=0).long()]
+            ok = (cur[:, None] >= 0) & (ids >= 0)
+            want = dist_kernel.gathered_vec_dist_ids(
+                table, torch.where(ok, ids, 0), qs, dequant, metric=metric)
+            assert torch.equal(got[ok], want[ok]), (d, k, metric)
+            assert bool((got[~ok] == float("inf")).all()), (d, k, metric)
+            torch.testing.assert_close(
+                got, dist_kernel.gathered_vec_dist_cur_plain(
+                    table, nbrs0, cur, qs, dequant, metric=metric),
+                rtol=1e-5, atol=1e-3)
+    assert _cuda.tagged_launch_counts()["gathered_vec_dist"] == {dtype: 12}
+
+
+@pytest.mark.cuda
+def test_packed_kernels_skip_rows_without_a_node_on_card(card):
+    """K2 (its word engine's bulk and plain-load paths and its byte path)
+    and K4 read no row for a cur of -1 and give +inf there; the other rows
+    are bit for bit what the same kernel gives with every row read."""
+    g = torch.Generator(device=card).manual_seed(6)
+    cur = torch.randint(0, 4000, (2051,), generator=g, device=card,
+                        dtype=torch.int32)
+    dead = torch.rand(2051, generator=g, device=card) < 0.4
+    holed = torch.where(dead, -1, cur)
+    qs = torch.randn((2051, 128), generator=g, device=card)
+    nbr_sq = torch.rand((4000, 64), generator=g, device=card)
+    for d, bits, off in ((128, 8, 0), (128, 4, 0), (101, 8, 0),
+                         (128, 8, 1)):
+        db = d if bits == 8 else (d + 1) // 2
+        store = torch.randint(0, 256, (4000 * 64 * db + 4,), generator=g,
+                              device=card, dtype=torch.uint8)
+        codes = store[off:off + 4000 * 64 * db].view(4000, 64 * db)
+        q = qs[:, :d].contiguous()
+        for metric in ("l2", "ip"):
+            full = dist_kernel.packed_row_dist_ids(codes, nbr_sq, cur, q,
+                                                   bits=bits, metric=metric)
+            got = dist_kernel.packed_row_dist_ids(codes, nbr_sq, holed, q,
+                                                  bits=bits, metric=metric)
+            assert torch.equal(got[~dead], full[~dead]), (d, bits, off)
+            assert bool((got[dead] == float("inf")).all()), (d, bits, off)
+    words = torch.randint(-2**31, 2**31 - 1, (4000, 64 * 32), generator=g,
+                          device=card, dtype=torch.int32)
+    full = dist_kernel.packed_row_dist_words_ids(words, cur, qs, wp=32,
+                                                 bits=8)
+    got = dist_kernel.packed_row_dist_words_ids(words, holed, qs, wp=32,
+                                                bits=8)
+    assert torch.equal(got[~dead], full[~dead])
+    assert bool((got[dead] == float("inf")).all())
+
+
+def composed_fused(entry_ids, entry_dists, neighbors0, dist, *, ef,
+                   max_hops, ef_live=None, hop_limit=None, bound=None,
+                   loop=None):
+    """The fused beam as it ran before its hop moved into K1: each hop the
+    expand (the adjacency row gathered, the distance kernel on the made-safe
+    cur), its masks, ``beam_update`` at the full width, ef_live applied
+    around it, and every output kept where the batch-wide condition is
+    false (``torch.where``), with one hop count for the batch."""
+    from hnsw_tpu_torch.graphs import EagerLoop
+    from hnsw_tpu_torch.ops.beam import INF, BeamState, _limit
+    if entry_ids.dim() == 1:
+        entry_ids, entry_dists = entry_ids[:, None], entry_dists[:, None]
+    q, e = entry_ids.shape
+    dev = entry_ids.device
+    col = torch.arange(e, device=dev)[None, :]
+    active = entry_ids >= 0
+    if ef_live is not None:
+        active = active & (col < ef_live)
+    buf_d = torch.full((q, ef), INF, dtype=torch.float32, device=dev)
+    buf_d[:, :e] = torch.where(active, entry_dists.float(), INF)
+    buf_p = torch.full((q, ef), -1, dtype=torch.int32, device=dev)
+    buf_p[:, :e] = torch.where(active, (entry_ids << 1) | (col == 0).int(), -1)
+    s = {"buf_d": buf_d, "buf_p": buf_p,
+         "cur": torch.where(active[:, 0], entry_ids[:, 0], -1).to(
+             torch.int32),
+         "ndis": torch.zeros(q, dtype=torch.int32, device=dev),
+         "hops": torch.zeros((), dtype=torch.int32, device=dev)}
+    limit = _limit(max_hops, hop_limit)
+    slot = torch.arange(ef, device=dev)[None, :]
+
+    def cond(s):
+        return (s["cur"] >= 0).any() & (s["hops"] < limit)
+
+    def step(s):
+        live = cond(s)
+        cur = s["cur"]
+        step_ok = cur >= 0
+        safe = torch.where(step_ok, cur, 0)
+        nbrs, cand_d = neighbors0[safe], dist(safe)
+        nbrs = torch.where((nbrs >= 0) & step_ok[:, None], nbrs, -1)
+        d, p, c, nd = beam_kernel.beam_update(s["buf_d"], s["buf_p"], nbrs,
+                                              cand_d.contiguous(), ef)
+        if ef_live is not None:
+            dead = slot >= ef_live
+            d = torch.where(dead, INF, d)
+            p = torch.where(dead, -1, p)
+            c = torch.where(((p >> 1) == c[:, None]).any(1), c, -1)
+        return {"buf_d": torch.where(live, d, s["buf_d"]),
+                "buf_p": torch.where(live, p, s["buf_p"]),
+                "cur": torch.where(live, c, cur),
+                "ndis": s["ndis"] + torch.where(live, nd, 0),
+                "hops": s["hops"] + live.to(torch.int32)}
+
+    s = (loop or EagerLoop()).run(cond, step, s, bound)
+    buf_p = s["buf_p"]
+    return BeamState(buf_p >> 1, s["buf_d"], (buf_p & 1) == 1, s["hops"],
+                     s["ndis"])
+
+
+# (index dtype, packed rows, search keywords)
+HOP_FORMS = {
+    "bytes": ("float32", "bytes", {}),
+    "bytes_full_bucket": ("float32", "bytes", dict(ef_search=64)),
+    "bytes_converge": ("float32", "bytes", dict(max_hops=-1)),
+    "words": ("float32", "words", {}),
+    "pq_rows": ("sq8", "pq", {}),
+    "unpacked": ("float32", None, {}),
+    "unpacked_converge": ("float32", None, dict(max_hops=-1)),
+    "bf16": ("bfloat16", None, {}),
+    "sq8": ("sq8", None, {}),
+    "sq8_full_bucket": ("sq8", None, dict(ef_search=64)),
+    "pq_storage": ("pq", None, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(HOP_FORMS))
+def test_kernel_hop_equals_composed_hop_on_card(card, monkeypatch, form):
+    """A replayed search whose hops run K1's hop entry returns what the
+    same replayed search returns with each hop composed around
+    ``beam_update`` (``composed_fused``): ids, distances bit for bit,
+    hops and ndis; ef < its bucket by default, ef at its bucket, and
+    unbounded searches (max_hops=-1) replayed in chunks."""
+    from hnsw_tpu_torch import graphs
+    from hnsw_tpu_torch.ops import beam as beam_ops
+    dtype, packed, extra = HOP_FORMS[form]
+    idx, wl = _replay_index(card, dtype)
+    if packed in ("bytes", "words"):
+        idx.enable_packed(bits=8, layout=packed)
+    elif packed == "pq":
+        idx.enable_packed(mode="pq", pq_m=8)
+    kw = dict(k=10, ef_search=48, with_stats=True, device_out=True)
+    kw.update(extra)
+    graphs.clear()
+    idx.search(wl.queries, **kw)             # warm-up, capture, replay
+    got = idx.search(wl.queries, **kw)
+    graphs.clear()
+    monkeypatch.setattr(beam_ops, "beam_search_fused", composed_fused)
+    idx.search(wl.queries, **kw)
+    want = idx.search(wl.queries, **kw)
+    graphs.clear()
+    _assert_same(got, want)
+    assert got[2].hops > 0
+
+
+def _hops_phase_kernels(idx, queries, ef_search):
+    """One eager search under torch.profiler: (the device kernels launched
+    in its hops phase, by name, the hand kernels' launches of that phase by
+    the launch counters). A kernel counts where the operator that launched
+    it (the profiler's link between a device event and the operator,
+    record_function ranges included) started inside the hops span, so the
+    attribution rests on the host's clock alone; the launch counters are
+    read on the host at the phase marks. (The caller runs the bounded loop
+    in one chunk, so it reads its condition nowhere.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_tpu_torch import graphs, trace
+    orig = trace.Phases.mark
+    at_mark = {}
+
+    def mark(self, label):
+        at_mark[label] = _cuda.launch_counts()
+        orig(self, label)
+
+    kw = dict(k=10, ef_search=ef_search, device_out=True)
+    with graphs.eager():
+        idx.search(queries, **kw)
+        trace.Phases.mark = mark
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                idx.search(queries, **kw)
+                torch.cuda.synchronize()
+        finally:
+            trace.Phases.mark = orig
+    events = prof.events()
+    (span,) = [e for e in events if e.name == "hnsw.search.hops"
+               and e.device_type == DeviceType.CPU]
+    t0, t1 = span.time_range.start, span.time_range.end
+    inside = [kern.name for e in events if e.device_type == DeviceType.CPU
+              and t0 <= e.time_range.start <= t1 for kern in e.kernels]
+    launched = {n: at_mark["rerank"][n] - at_mark["hops"][n]
+                for n in at_mark["hops"]}
+    return inside, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bytes", "sq8"])
+def test_eager_hop_is_two_launches_on_card(card, monkeypatch, form):
+    """An eager search launches two kernels a hop in its hops phase, the
+    distance kernel (K2 on bytes rows, K3 on sq8 rows) and K1, and counts
+    one ``searches.kernel_hop``: at ef 32 and 64 (40 and 72 hops, every
+    step of the bounded loop run in one chunk, as a replay runs it) the
+    phase launches the hand kernels once each a hop, and the profiler sees
+    the same few other kernels in it at both (the state's set-up before
+    the loop, the hop count and the outputs after it), so none a hop."""
+    from hnsw_tpu_torch import graphs, trace
+    monkeypatch.setattr(graphs, "LOOP_CHUNK", 1 << 20)
+    idx, wl = _replay_index(card, "float32" if form == "bytes" else "sq8")
+    if form == "bytes":
+        idx.enable_packed(bits=8)
+    dist = "packed_row_dist" if form == "bytes" else "gathered_vec_dist"
+    dist_name = "words_dist_kernel" if form == "bytes" else \
+        "vec_dist_bytes_kernel"
+    others = []
+    for ef in (32, 64):
+        before = trace.totals().counters.get("searches.kernel_hop", 0)
+        inside, launched = _hops_phase_kernels(idx, wl.queries, ef)
+        assert trace.totals().counters["searches.kernel_hop"] == before + 2
+        steps = ef + 8              # the bounded loop runs every step
+        assert launched == dict.fromkeys(launched, 0) | {
+            "beam_update": steps, dist: steps}, launched
+        others.append(sorted(n.split("(")[0][:120] for n in inside
+                             if "beam_warp_kernel" not in n
+                             and dist_name not in n))
+    # a plain kernel a hop would add 32 between the two
+    assert others[0] and len(others[1]) == len(others[0]), others
+    assert len(others[1]) <= 48, others[1]
