@@ -2,7 +2,10 @@
 
 ``run_cell`` takes a configuration and a traffic mix (as their files hold
 them) and hands them to the runner the mix's ``kind`` names
-(``traffic/<kind>.py``), which drives the system. The window
+(``traffic/<kind>.py``), which drives the system. A cell on more than one
+card runs one process a card: ``ranks.launched`` starts the other ranks,
+which run the runner's ``follow()``, before set-up, and the result line
+gives the cell's card count and the fullest card's peak. The window
 opens once set-up is done: data made, the index built (search cells),
 every shape the traffic uses run once, so that every capture is made and
 every kernel built. The window's end-to-end numbers are taken over all of
@@ -24,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import checks, data, reference, system, traffic
+from . import checks, data, ranks, reference, system, traffic
 
 METRICS_DIR = Path(__file__).resolve().parent / "metrics"
 DIST_SAMPLE_ROWS = 1 << 17    # answered query rows whose distances are held
@@ -138,16 +141,25 @@ def delta(now: dict, before: dict) -> dict:
 
 
 def run_cell(cell: str, cfg: dict, spec: dict, seed: int, seconds: float,
-             trace: bool, device, t_process: float, e2e_names, layer_names):
-    """(result line as a dict, lines for standard error) of one run."""
-    res, ctx, win = traffic.runner(spec["kind"]).drive(
-        cell, cfg, spec, seed, seconds, trace, device, t_process)
+             trace: bool, device, t_process: float, e2e_names, layer_names,
+             chips: int = 1):
+    """(result line as a dict, lines for standard error) of one run on
+    ``chips`` cards (``ranks.RankFailure`` where a rank fails)."""
+    drive = traffic.runner(spec["kind"]).drive
+    if chips == 1:
+        res, ctx, win = drive(cell, cfg, spec, seed, seconds, trace, device,
+                              t_process)
+    else:
+        with ranks.launched(cell, cfg, spec, seed, seconds, trace, device,
+                            chips) as device:
+            res, ctx, win = drive(cell, cfg, spec, seed, seconds, trace,
+                                  device, t_process)
     dev = torch.device(device)
     device_info = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
-        "count": 1, "memory_peak_bytes": res.peak}
+        "count": chips, "memory_peak_bytes": res.peak}
     out = {"correct": res.verdict.correct and res.failed == 0,
            "attempted": res.attempted, "failed": res.failed}
     if trace:

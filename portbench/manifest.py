@@ -46,6 +46,15 @@ def metrics_for(man: dict, section: str, cell_name: str) -> list[dict]:
             if "workloads" not in m or cell_name in m["workloads"]]
 
 
+def _runner(mix: str):
+    """The runner of traffic mix ``mix``, or None where there is none."""
+    from portbench import traffic
+    try:
+        return traffic.runner(traffic.load(mix)["kind"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
 def _line(s: str) -> bool:
     return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
         and "\t" not in s
@@ -111,6 +120,13 @@ def problems(man: dict, root: Path = ROOT) -> list[str]:
         pairs.add((w["config"], w["traffic"]))
         if w["chips"] not in (1, 4):
             out.append(f"workload {w['name']}: chips")
+        elif w["chips"] > 1 and not hasattr(_runner(w["traffic"]), "follow"):
+            out.append(f"workload {w['name']}: {w['chips']} chips, and its "
+                       "kind's runner has no follow()")
+    four = [w["name"] for w in man.get("workloads", []) if w["chips"] > 1]
+    if len(four) > max(1, len(man.get("workloads", [])) // 4):
+        out.append(f"{len(four)} four-card cells of "
+                   f"{len(man['workloads'])}: at most a quarter, or one")
     e2e = {m["name"] for m in man.get("end_to_end", [])}
     if "setup_s" not in e2e:
         out.append("no setup_s")

@@ -6,17 +6,20 @@ on NVIDIA GPUs.
 
 from the root of a checkout. The cell (``workloads`` in
 ``BENCHMARK.json``) names a configuration (``portbench/configs/``) and a
-traffic mix (``portbench/traffic/``). One run is one process: it makes the
-data from the seed, sets up, measures for ``--seconds``, judges what the
-window produced against the plain reference, and prints, as the last line
-of standard output, one JSON object: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
+traffic mix (``portbench/traffic/``). One run is one process a card (a
+four-card cell's rank 0 starts the other three, ``portbench/ranks.py``):
+it makes the data from the seed, sets up, measures for ``--seconds``,
+judges what the window produced against the plain reference, and prints,
+as the last line of standard output, one JSON object: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
+with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``, each number compared beside its limit
 (also the last lines of standard error).
 
-Exits with another code than 0, and prints no result, without a CUDA
-device, or if the process has loaded JAX or the JAX package.
+Exits with another code than 0, and prints no result, without as many
+CUDA devices as the cell asks for, if a process of the run has loaded JAX
+or the JAX package, or if a rank fails (3; its last lines end standard
+error).
 """
 
 import time
@@ -43,13 +46,7 @@ for _var, _sub in (("TRITON_CACHE_DIR", "triton"),
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "hnsw_tpu")
-
-
-def loaded_forbidden() -> list[str]:
-    """Modules of ``sys.modules`` whose top-level name is one of
-    ``FORBIDDEN``, compared whole."""
-    return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
+from portbench.ranks import loaded_forbidden  # noqa: E402
 
 
 def parse(argv=None):
@@ -63,7 +60,7 @@ def parse(argv=None):
 
 def main(argv=None) -> int:
     args = parse(argv)
-    from portbench import cells, manifest, traffic
+    from portbench import cells, manifest, ranks, traffic
     man = manifest.load(ROOT)
     cell = manifest.cell(man, args.workload)
     cfg = manifest.config(man, cell["config"], ROOT)
@@ -77,11 +74,16 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    out, lines = cells.run_cell(
-        cell["name"], cfg, spec, args.seed, args.seconds, bool(args.trace),
-        "cuda", T_PROCESS, manifest.metrics_for(man, "end_to_end",
-                                                cell["name"]),
-        manifest.metrics_for(man, "per_layer", cell["name"]))
+    try:
+        out, lines = cells.run_cell(
+            cell["name"], cfg, spec, args.seed, args.seconds,
+            bool(args.trace), "cuda", T_PROCESS,
+            manifest.metrics_for(man, "end_to_end", cell["name"]),
+            manifest.metrics_for(man, "per_layer", cell["name"]),
+            chips=cell["chips"])
+    except ranks.RankFailure as e:
+        print(f"portbench: {e}", file=sys.stderr)
+        return 3
     bad = loaded_forbidden()
     if bad:
         print(f"portbench: the process loaded {', '.join(bad)}",

@@ -1,7 +1,12 @@
 """The system under test: ``hnsw_tpu_torch``, the PyTorch and CUDA port,
 driven through its public entry points (``HnswIndex``, ``Searcher``) and
-read through its own counters. The only module of the benchmark that
-imports the program.
+read through its own counters. The runners drive the program through this
+module. Three other modules of the benchmark import it: ``spans.py``
+(``hnsw_tpu_torch.trace``, the program's spans), ``faults.py``
+(``HnswIndex``, to break it under the fault tests) and
+``probe_sharded.py`` (``hnsw_tpu_torch.parallel.sharded``, the four-card
+probe, which is no cell). The reference and the data import nothing of
+it.
 """
 
 from __future__ import annotations

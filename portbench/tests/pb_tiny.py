@@ -1,6 +1,7 @@
 """Tiny configurations and traffic of the benchmark's cells, for CPU tests:
-the cells' own files with the scale cut (n, d, m, capacity, batch sizes,
-rates), every other key as the files hold it."""
+the cells' own files with the scale cut (n, d, m, capacity; each runner's
+``TINY`` cuts of its mixes: batch sizes, rates), every other key as the
+files hold it."""
 
 from __future__ import annotations
 
@@ -19,13 +20,6 @@ from portbench import cells, manifest, traffic  # noqa: E402
 MAN = manifest.load(ROOT)
 SEED = 2_147_483_659      # past 2**31
 
-TINY_TRAFFIC = {
-    "closed_batches": dict(batch=128, pool_batches=2, trace_seconds=0.3),
-    "ingest": dict(block=500, check_queries=128),
-    "open_requests": dict(rate_per_s=4000, pool_queries=512,
-                          trace_seconds=0.3),
-}
-
 
 def tiny_config(name: str) -> dict:
     c = manifest.config(MAN, name, ROOT)
@@ -38,8 +32,14 @@ def tiny_config(name: str) -> dict:
 
 def tiny_traffic(name: str) -> dict:
     spec = traffic.load(name)
-    spec.update(TINY_TRAFFIC[spec["kind"]])
+    spec.update(traffic.runner(spec["kind"]).TINY)
     return spec
+
+
+def runner(cell_name: str):
+    """The runner of the cell's traffic kind."""
+    cell = manifest.cell(MAN, cell_name)
+    return traffic.runner(traffic.load(cell["traffic"])["kind"])
 
 
 def run(cell_name: str, *, trace: bool = False, seconds: float = 1.0,
@@ -51,7 +51,8 @@ def run(cell_name: str, *, trace: bool = False, seconds: float = 1.0,
         cell_name, tiny_config(cell["config"]), tiny_traffic(cell["traffic"]),
         seed, seconds, trace, "cpu", time.time(),
         manifest.metrics_for(MAN, "end_to_end", cell_name),
-        manifest.metrics_for(MAN, "per_layer", cell_name))
+        manifest.metrics_for(MAN, "per_layer", cell_name),
+        chips=cell["chips"])
 
 
 CELLS = [w["name"] for w in MAN["workloads"]]

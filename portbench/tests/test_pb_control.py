@@ -23,9 +23,7 @@ def test_control_fails(cell):
                                              rows=1500, seconds=1.0)
     failed = {n for n, val, op, lim in v.items
               if not v._holds(val, op, lim)}
-    assert "dist_gap" in failed
-    if spec["kind"] == "ingest":
-        assert "row_gap" in failed
+    assert set(traffic.runner(spec["kind"]).CONTROL_FAILS) <= failed
     assert not v.correct
 
 

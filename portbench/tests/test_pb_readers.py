@@ -8,9 +8,8 @@ from portbench import cells, roofline
 from portbench.trace import Summary
 
 LAYER = {m["name"]: m for m in pb_tiny.MAN["per_layer"]}
-COUNTERS = {"hops_per_batch.search", "ndis_per_query.search",
-            "replayed_share.build", "capture_ms_per_add.build",
-            "pad_share.serve", "rows_per_launch.serve"}
+COUNTERS = {m["name"] for m in pb_tiny.MAN["per_layer"]
+            if m["source"] == "program_counter"}
 
 
 def test_every_metric_has_a_reader():

@@ -30,12 +30,38 @@ def test_union_and_gaps():
     assert s.ops["k1"] == pytest.approx(200 / 1e6)
     assert s.op_seconds("k") == pytest.approx((100 + 150 + 100 + 50 + 3)
                                               / 1e6)
-    assert s.gaps["portbench.search"] == pytest.approx(350 / 1e6)
-    assert sum(s.gaps.values()) == pytest.approx((100 + 250 + 2) / 1e6)
+    # 100 + 250 between device events, and the window's end after 705
+    assert s.gaps["portbench.search"] == pytest.approx((350 + 295) / 1e6)
+    assert sum(s.gaps.values()) == pytest.approx((100 + 250 + 2 + 295)
+                                                 / 1e6)
     assert s.idle_percent() == pytest.approx(100 * (1 - 0.353))
     b = s.breakdown()
     assert b["device_ops"][0][0] == "k2" or b["device_ops"][0][0] == "k1"
     assert len(b["device_ops"]) <= trace.TOP
+
+
+def test_window_ends_are_labelled():
+    """The time from the window's start marker to the first device event
+    (labelled by what the host did as the device started) and from the
+    last one to the window's end (by what it did as the device stopped)
+    are gaps, so the gaps sum to the idle time; the idle share reads as it
+    did without the ends."""
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _ev(trace.START, 1000, 1001, cpu),
+        _ev("portbench.add", 1005, 1900, cpu),
+        _ev("hnsw.build.plan", 1005, 1200, cpu),
+        _ev("k1", 1200, 1500, cuda), _ev("k2", 1600, 1700, cuda),
+        _ev("cudaStreamSynchronize", 1700, 1950, cpu),
+        _ev(trace.END, 2000, 2001, cpu),
+    ]
+    s = trace.summarize(events, window_s=1000e-6)
+    assert s.busy_s == pytest.approx(400e-6)
+    assert s.gaps == pytest.approx({"hnsw.build.plan": 200e-6,
+                                    "portbench.add": 100e-6,
+                                    "cudaStreamSynchronize": 300e-6})
+    assert sum(s.gaps.values()) == pytest.approx(s.window_s - s.busy_s)
+    assert s.idle_percent() == pytest.approx(60.0)
 
 
 def test_union_seconds():

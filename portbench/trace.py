@@ -8,7 +8,9 @@ seconds (the union of its kernel and copy events), the traced window's
 seconds, device time by operation name, and the idle gaps labelled by
 what the host was doing (the innermost host event around each gap's
 start: one of the harness's own spans, a PyTorch op or a CUDA runtime
-call).
+call). The window's two ends, from its start to the first device event
+and from the last one to its end, are gaps too, so the gaps sum to the
+idle time.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 SHORT_GAP_S = 10e-6      # shorter idle gaps are summed under one label
 TOP = 10                 # entries of each breakdown list
 NAME_CHARS = 120         # a device op's name is cut to this length
+START, END = "portbench.window.start", "portbench.window.end"   # markers
 
 
 def short_name(name: str) -> str:
@@ -96,9 +99,12 @@ class Summary:
 
 
 def summarize(events, window_s: float) -> Summary:
-    """Reduce profiler events (``prof.events()``) to a ``Summary``."""
+    """Reduce profiler events (``prof.events()``) to a ``Summary``. The
+    window opens at its ``START`` marker (at the first host event where
+    there is none); its end gap is the idle time the others leave."""
     from torch.autograd import DeviceType
     dev, host = [], []
+    opened = None
     for e in events:
         if getattr(e, "is_user_annotation", False) and \
                 e.device_type != DeviceType.CPU:
@@ -106,7 +112,9 @@ def summarize(events, window_s: float) -> Summary:
         a, b = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
             dev.append((a, b, e.name))
-        elif e.device_type == DeviceType.CPU:
+        elif e.name == START:
+            opened = a
+        elif e.device_type == DeviceType.CPU and e.name != END:
             host.append((a, b, e.name))
     ops = defaultdict(float)
     for a, b, name in dev:
@@ -124,12 +132,27 @@ def summarize(events, window_s: float) -> Summary:
             else:
                 merged.append([a, b])
                 end = b
-        for (_, g0), (g1, _) in zip(merged, merged[1:]):
+        if opened is None:
+            opened = min(starts[0], merged[0][0]) if starts \
+                else merged[0][0]
+        # (start, end, when to read the host's label): the window's head
+        # is labelled by what the host did as the device started
+        head = merged[0][0]
+        spans = [(opened, head, head - 1)]
+        spans += [(g0, g1, g0) for (_, g0), (g1, _) in
+                  zip(merged, merged[1:])]
+        inner = sum(max(g1 - g0, 0) for g0, g1, _ in spans) / 1e6
+        # the end: what the window's length leaves after busy and the gaps
+        tail = merged[-1][1]
+        spans.append((tail, tail + 1e6 * (window_s - busy - inner), tail))
+        for g0, g1, at in spans:
             gap = (g1 - g0) / 1e6
+            if gap <= 0:
+                continue
             if gap < SHORT_GAP_S:
                 gaps[f"gaps under {SHORT_GAP_S * 1e6:.0f} us"] += gap
                 continue
-            gaps[_label(host, starts, g0)] += gap
+            gaps[_label(host, starts, at)] += gap
     return Summary(window_s, busy, dict(ops), dict(gaps))
 
 
@@ -174,6 +197,8 @@ class Window:
         sync(self.device)
         self.prof = _profiler()
         self.prof.start()
+        with span(START):
+            pass
         self._t0 = time.perf_counter()
 
     def elapsed(self) -> float:
@@ -183,6 +208,8 @@ class Window:
     def stop(self) -> None:
         sync(self.device)
         self.window_s = time.perf_counter() - self._t0
+        with span(END):
+            pass
         self.prof.stop()
 
     @property

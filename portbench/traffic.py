@@ -1,10 +1,34 @@
 """The one traffic generator. A traffic mix is a data file,
 ``traffic/<name>.json``, of parameters that this module reads. Its
 ``kind`` names the runner that runs the mix against the system:
-``traffic/<kind>.py``, found by that name, with ``drive()`` (one run of a
-cell), ``pool_rows()`` (the queries the mix draws from) and ``control()``
-(the reference in the program's place). A new kind is a new runner file;
-a new mix of a kind is a new data file.
+``traffic/<kind>.py``, found by that name. A new kind is a new runner
+file; a new mix of a kind is a new data file.
+
+Every runner has:
+
+  * ``drive(cell, cfg, spec, seed, seconds, trace, device, t_process)``:
+    one run of a cell, returning (``cells.Result``, ``cells.Context``, the
+    trace's window or None);
+  * ``control(cfg, spec, seed, device, **kw)``: the verdict on the
+    reference in the program's place, and ``CONTROL_FAILS``, the numbers
+    it has to fail;
+  * ``TINY``: the mix's cuts for a tiny run on the CPU (the tests);
+  * ``FAULTS``: ``{name: plant}``, the faults its cells can have
+    (``faults.py``);
+  * a search kind, ``pool_rows(spec)``: the queries the mix draws from.
+
+A one-card kind's ``drive()`` is the whole run. A four-card kind (a cell
+with ``"chips": 4``) runs one process a card (``ranks.py``): its
+``drive()`` runs on rank 0 once the group is up, with the device
+``cuda:0``; ``follow(cell, cfg, spec, seed, seconds, trace, device)``
+runs on ranks 1-3, each on ``cuda:<rank>``, with the same dicts; every
+rank makes the same calls in the same order, rank 0 handing out each unit
+of work with ``ranks.step(j)`` and the followers taking it with
+``ranks.step()`` until it reads -1; ``drive()`` sets ``Result.peak`` from
+``ranks.fullest(device)`` in the window's wake, then calls
+``ranks.leave()`` after its last collective and before the reference
+runs (a follower leaves when ``follow()`` returns), and ``control()`` runs
+on rank 0 alone.
 
 Open-loop requests (``requests``) read these parameters:
 
@@ -30,6 +54,7 @@ import functools
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +79,7 @@ def runner(kind: str):
     spec = importlib.util.spec_from_file_location(
         f"portbench_traffic_{kind}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # its faults find it by its name
     spec.loader.exec_module(mod)
     return mod
 

@@ -10,8 +10,13 @@ import time
 import numpy as np
 import torch
 
-from portbench import cells, checks, reference, system, traffic
+from portbench import cells, checks, faults, reference, system, traffic
 from portbench.trace import Window, span, sync
+
+# the cuts of a tiny run on the CPU (the tests' ``pb_tiny``)
+TINY = dict(batch=128, pool_batches=2, trace_seconds=0.3)
+FAULTS = faults.SEARCH
+CONTROL_FAILS = ("dist_gap",)     # what the control has to fail
 
 
 def pool_rows(spec: dict) -> int:

@@ -12,8 +12,13 @@ import time
 import numpy as np
 import torch
 
-from portbench import cells, checks, reference, system
+from portbench import cells, checks, faults, reference, system
 from portbench.trace import Window, span, sync
+
+# the cuts of a tiny run on the CPU (the tests' ``pb_tiny``)
+TINY = dict(block=500, check_queries=128)
+FAULTS = faults.ADD
+CONTROL_FAILS = ("dist_gap", "row_gap")   # what the control has to fail
 
 
 def drive(cell, cfg, spec, seed, seconds, trace, device, t_process):

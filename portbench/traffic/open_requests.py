@@ -11,8 +11,13 @@ import time
 
 import numpy as np
 
-from portbench import cells, checks, reference, system, traffic
+from portbench import cells, checks, faults, reference, system, traffic
 from portbench.trace import Window, span, sync
+
+# the cuts of a tiny run on the CPU (the tests' ``pb_tiny``)
+TINY = dict(rate_per_s=4000, pool_queries=512, trace_seconds=0.3)
+FAULTS = faults.SEARCH
+CONTROL_FAILS = ("dist_gap",)     # what the control has to fail
 
 WARM_ROWS = (512, 1024, 2048, 4096, 8192)   # every search size a flush makes
 
