@@ -60,7 +60,7 @@ import logging
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, trace
 from ..build import (DeviceBuilder, order_batch_by_level, stage_plan,
                      upper_batch_cap)
 from ..config import L2, HnswConfig
@@ -202,8 +202,10 @@ class ShardedHnswIndex:
         self._routing_clean = True
         # per-shard health: a failed shard is left out of the merge
         self._shard_ok = np.ones(S, bool)
-        # sq8: ONE quantizer shared by every shard, (offset, scale) numpy
+        # sq8: ONE quantizer shared by every shard, (offset, scale) numpy,
+        # and its tensors on each local shard's device (None elsewhere)
         self._sq_np: tuple | None = None
+        self._sq_dev: list = [None] * S
         self.is_trained = not cfg.is_sq
         # per-shard packed serving tables (enable_packed); None: unpacked
         self._packed: list | None = None
@@ -238,11 +240,11 @@ class ShardedHnswIndex:
         return np.array([g.ntotal for g in self._graphs], np.int64)
 
     def _sq(self, s: int):
-        """The shared sq8 affine as tensors on shard ``s``'s device."""
-        if self._sq_np is None:
-            return None
-        return tuple(torch.from_numpy(a).to(self._dev[s])
-                     for a in self._sq_np)
+        """The shared sq8 affine as tensors on shard ``s``'s device: the
+        same objects on every call (a capture keys on them and is dropped
+        once they are freed), None for flat storage or another rank's
+        shard."""
+        return self._sq_dev[s]
 
     # ------------------------------------------------------------------ add
     def train(self, x: np.ndarray) -> None:
@@ -271,6 +273,10 @@ class ShardedHnswIndex:
     def _set_sq(self, offset, scale) -> None:
         self._sq_np = (np.array(offset, np.float32),
                        np.array(scale, np.float32))
+        self._sq_dev = [tuple(torch.from_numpy(a).to(self._dev[s])
+                              for a in self._sq_np)
+                        if self._is_local(s) else None
+                        for s in range(self.n_shards)]
         for b in self._builders:
             b.sq_params = self._sq_np
         self.is_trained = True
@@ -289,52 +295,61 @@ class ShardedHnswIndex:
         ``upper_batch_cap`` its tail is spilled to the next batch with its
         drawn levels thrown away (the generator has moved past them).
         Across processes every rank passes the same ``x``: a rank inserts
-        its own shards and replays the others' draws."""
-        cfg = self.config
-        if self._packed is not None:
-            log.warning("add() on a packed sharded index drops the packed "
-                        "tables; call enable_packed() again after adding")
-            self.disable_packed()
-        x = np.ascontiguousarray(np.asarray(x, np.float32))
-        if x.ndim != 2 or x.shape[1] != cfg.dim:
-            raise ValueError(f"expected [n, {cfg.dim}], got {x.shape}")
-        if not self.is_trained:
-            raise RuntimeError("sq8 storage: call train(x) before add()")
-        if cfg.is_sq:   # the whole build sees x̂; storage writes re-encode
-            x = self._sq_encode(x)
-        S = self.n_shards
-        user_ids = np.arange(self._ntotal, self._ntotal + len(x))
-        per_shard = [np.flatnonzero(user_ids % S == s) for s in range(S)]
-        counts = self._counts
-        if max(counts[s] + len(per_shard[s]) for s in range(S)) > \
-                cfg.capacity:
-            raise ValueError("capacity_per_shard exceeded")
-        offs = np.zeros(S, np.int64)
-        efc = int(self.ef_construction)
-        sizes = DeviceBuilder.BATCH_SIZES
-        parts = [[] for _ in range(S)]   # each shard's batches, in order
-        uids = [[] for _ in range(S)]    # and their user ids
-        while any(offs[s] < len(per_shard[s]) for s in range(S)):
-            allowed = max(sizes[0], max(1, int(self._counts.min())))
-            size = max(s for s in sizes if s <= allowed)
-            for s in range(S):
-                rows = per_shard[s][offs[s]:offs[s] + size]
-                if len(rows):
-                    offs[s] += self._plan_rows(s, x, rows, user_ids, size,
-                                               parts[s], uids[s])
-        runs = [self._stage_shard(s, parts[s], uids[s], efc)
-                for s in range(S)]
-        # the lockstep steps: each one batch of every shard that has one
-        for k in range(max(len(p) for p in parts)):
-            for s, run in enumerate(runs):
-                if run is not None and k < len(parts[s]):
-                    run.step()
-        self.last_build_stats = [None if run is None else
-                                 dict(run.stats(), dropped=run.finish())
-                                 for run in runs]
-        del runs                # frees the staged plans and their captures
-        graphs._purge()
-        self._ntotal += len(x)
+        its own shards and replays the others' draws.
+
+        While tracing is on (``trace.py``) the call is span
+        ``hnsw.shard.add``, with ``hnsw.shard.plan`` (the host's lockstep
+        schedule) and ``hnsw.shard.stage`` (each shard's plan staged on its
+        device) before the insert batches' own spans."""
+        with trace.span("hnsw.shard.add"):
+            cfg = self.config
+            if self._packed is not None:
+                log.warning("add() on a packed sharded index drops the "
+                            "packed tables; call enable_packed() again after "
+                            "adding")
+                self.disable_packed()
+            x = np.ascontiguousarray(np.asarray(x, np.float32))
+            if x.ndim != 2 or x.shape[1] != cfg.dim:
+                raise ValueError(f"expected [n, {cfg.dim}], got {x.shape}")
+            if not self.is_trained:
+                raise RuntimeError("sq8 storage: call train(x) before add()")
+            if cfg.is_sq:  # the whole build sees x̂; storage writes re-encode
+                x = self._sq_encode(x)
+            S = self.n_shards
+            user_ids = np.arange(self._ntotal, self._ntotal + len(x))
+            per_shard = [np.flatnonzero(user_ids % S == s) for s in range(S)]
+            counts = self._counts
+            if max(counts[s] + len(per_shard[s]) for s in range(S)) > \
+                    cfg.capacity:
+                raise ValueError("capacity_per_shard exceeded")
+            offs = np.zeros(S, np.int64)
+            efc = int(self.ef_construction)
+            sizes = DeviceBuilder.BATCH_SIZES
+            parts = [[] for _ in range(S)]   # each shard's batches, in order
+            uids = [[] for _ in range(S)]    # and their user ids
+            with trace.span("hnsw.shard.plan"):
+                while any(offs[s] < len(per_shard[s]) for s in range(S)):
+                    allowed = max(sizes[0], max(1, int(self._counts.min())))
+                    size = max(s for s in sizes if s <= allowed)
+                    for s in range(S):
+                        rows = per_shard[s][offs[s]:offs[s] + size]
+                        if len(rows):
+                            offs[s] += self._plan_rows(s, x, rows, user_ids,
+                                                       size, parts[s], uids[s])
+            with trace.span("hnsw.shard.stage"):
+                runs = [self._stage_shard(s, parts[s], uids[s], efc)
+                        for s in range(S)]
+            # the lockstep steps: each one batch of every shard that has one
+            for k in range(max(len(p) for p in parts)):
+                for s, run in enumerate(runs):
+                    if run is not None and k < len(parts[s]):
+                        run.step()
+            self.last_build_stats = [None if run is None else
+                                     dict(run.stats(), dropped=run.finish())
+                                     for run in runs]
+            del runs                # frees the staged plans and their captures
+            graphs._purge()
+            self._ntotal += len(x)
 
     def _plan_rows(self, s: int, x: np.ndarray, rows: np.ndarray,
                    user_ids: np.ndarray, size: int, parts: list,
@@ -447,24 +462,44 @@ class ShardedHnswIndex:
         a user-id filter, a bool mask or an int id list; it composes with
         the tombstones of ``remove_ids``. Raise ef_search when filtering
         hard: each shard's traversal is unfiltered. Across processes every
-        rank passes the same queries and gets the full merged result."""
-        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
-                       np.float32)
-        if self._ntotal == 0:
-            n = len(x)
-            return (np.full((n, k), np.inf, np.float32),
-                    np.full((n, k), -1, np.int64))
-        permit = None if allowed is None else self._normalize_allowed(allowed)
-        if self._removed is not None and not self._routing_clean:
-            alive = ~self._removed   # dead ids route until vacuum()
-            permit = alive if permit is None else permit & alive
-        ef = max(int(ef_search or self.ef_search), k)
-        parts = [self._search_shard(s, x, k, ef, permit)
-                 for s in self._local]
-        if self._world > 1:
-            parts = self._gather_parts(parts, len(x), k)
-        d, i = merge_topk([p[0] for p in parts], [p[1] for p in parts], k)
-        return d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+        rank passes the same queries and gets the full merged result.
+
+        While tracing is on (``trace.py``) the call is span
+        ``hnsw.shard.search``, with the phases ``hnsw.shard.local`` (this
+        rank's shard searches and their id map), ``hnsw.shard.gather`` (the
+        ``all_gather`` across processes, with the wait for the slowest
+        rank) and ``hnsw.shard.merge``, each timed on a CUDA device by
+        events between the phases, then ``hnsw.search.wait`` and
+        ``hnsw.shard.download`` (the result to the host)."""
+        with trace.span("hnsw.shard.search"):
+            x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                           np.float32)
+            if self._ntotal == 0:
+                n = len(x)
+                return (np.full((n, k), np.inf, np.float32),
+                        np.full((n, k), -1, np.int64))
+            permit = None if allowed is None else \
+                self._normalize_allowed(allowed)
+            if self._removed is not None and not self._routing_clean:
+                alive = ~self._removed   # dead ids route until vacuum()
+                permit = alive if permit is None else permit & alive
+            ef = max(int(ef_search or self.ef_search), k)
+            with trace.Phases("hnsw.shard", self._merge_dev,
+                              trace.enabled()) as ph:
+                ph.mark("local")
+                parts = [self._search_shard(s, x, k, ef, permit)
+                         for s in self._local]
+                if self._world > 1:
+                    ph.mark("gather")
+                    parts = self._gather_parts(parts, len(x), k)
+                ph.mark("merge")
+                d, i = merge_topk([p[0] for p in parts],
+                                  [p[1] for p in parts], k)
+            trace.wait(d)
+            with trace.span("hnsw.shard.download"):
+                out = d.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+            trace.add_device("hnsw.shard", ph.ms())
+            return out
 
     def _gather_parts(self, parts: list, n: int, k: int) -> list:
         """Every shard's (D, I), in shard order, from each rank's own
@@ -484,6 +519,8 @@ class ShardedHnswIndex:
             mine = mine.cpu()
         out = [torch.empty_like(mine) for _ in range(self._world)]
         dist.all_gather(out, mine)
+        trace.count("shard.gathered_bytes",
+                    self._world * mine.numel() * mine.element_size())
         every = [None] * self.n_shards
         for r, shards in enumerate(self._shards_of):
             for j, s in enumerate(shards):

@@ -16,7 +16,8 @@ Three records, kept in memory for the life of the process:
     their host milliseconds), ``searches.kernel_hop`` /
     ``searches.composed_hop`` (the fused-beam searches whose hops ran K1's
     hop entry on a CUDA device, or its plain composition on the CPU;
-    counted on the host once a search call).
+    counted on the host once a search call), ``shard.gathered_bytes``
+    (the bytes a sharded search's ``all_gather`` brought to this rank).
 
 Tracing is on while ``torch.profiler`` records in the process, or inside
 ``collect()``. Spans and device times are recorded only while it is on;
@@ -49,7 +50,14 @@ that encloses it where it runs:
     ``hnsw.build.finish``;
   * ``hnsw.serve.flush`` (``Searcher.flush``), with
     ``hnsw.serve.concat``, the searches, ``hnsw.search.wait``,
-    ``hnsw.serve.download`` and ``hnsw.serve.split``.
+    ``hnsw.serve.download`` and ``hnsw.serve.split``;
+  * ``hnsw.shard.search`` (``ShardedHnswIndex.search``), with the phases
+    ``hnsw.shard.local`` (the rank's shard searches), ``.gather`` (the
+    ``all_gather`` across processes) and ``.merge``, then
+    ``hnsw.search.wait`` and ``hnsw.shard.download``;
+    ``hnsw.shard.add`` (``ShardedHnswIndex.add``), with
+    ``hnsw.shard.plan`` and ``hnsw.shard.stage`` before the insert
+    batches' spans.
 
 While tracing is on, the first blocking read of a search waits for the
 device inside ``hnsw.search.wait`` (``wait``), so that the spans after it
