@@ -327,6 +327,9 @@ KERNELS = {
     # reference's search runs around its beam_update
     "beam_hop": ("hnsw_tpu_torch/csrc/beam_kernel.cu",
                  "hnsw_tpu/ops/beam_kernel.py:204"),
+    # no Pallas kernel: the reference's sampled entry scan is dense XLA
+    "entry_scan": ("hnsw_tpu_torch/csrc/entry_kernel.cu",
+                   "none (hnsw_tpu/search.py:227 _sample_seeds, XLA)"),
 }
 
 
@@ -889,6 +892,90 @@ def check_beam_hop(dev, gen) -> dict:
                                               lim), iters=5)
                 out["ms"] = time_ms(
                     lambda: bk.beam_hop(*state, nbrs0, cand_d, live, lim))
+    return out
+
+
+ENTRY_SHAPES = {          # (S, d, n_seeds, rows) at Q = N_QUERIES
+    "sift": (16384, 128, 4, "f32"),
+    "deep": (16384, 96, 4, "sq8"),
+    "fanout shard": (32768, 96, 8, "sq8"),
+}
+
+
+def seeds_agree(name, got, want, queries, sv, n_seeds, ip) -> float:
+    """K6's seeds against the plain version's: -1 at the same pairs, equal
+    on >= 99.9% of (query, stratum) pairs, every other pair a near-tie
+    (float64 distances within 1e-5 relative). Returns the widest gap."""
+    torch.cuda.synchronize()
+    if not torch.equal(got < 0, want < 0):
+        raise AssertionError(f"{name}: -1 at other pairs")
+    same = got == want
+    share = float(same.float().mean())
+    ss = sv.shape[0] // n_seeds
+    qi, j = torch.nonzero(~same, as_tuple=True)
+    gap = 0.0
+    if len(qi):
+        q64, v64 = queries.double(), sv.double()
+
+        def dist(r):
+            dot = (q64[qi] * v64[r]).sum(1)
+            return -dot if ip else (v64[r] ** 2).sum(1) - 2 * dot
+
+        dg = dist(j * ss + got[qi, j].long())
+        dw = dist(j * ss + want[qi, j].long())
+        gap = float(((dg - dw).abs()
+                     / torch.maximum(dg.abs(), dw.abs())).max())
+    if share < 0.999 or gap > 1e-5:
+        raise AssertionError(f"{name}: seeds equal on {share:.5f} of pairs, "
+                             f"widest gap {gap:.3g}")
+    log(f"  {name}: seeds equal on {share:.6f} of pairs, the rest "
+        f"near-ties within {gap:.3g}")
+    return gap
+
+
+def check_entry_scan(dev, gen) -> dict:
+    """K6 at the entry scan's shapes (``ENTRY_SHAPES``, Q=8192, the last
+    eighth of the queries zero as padded rows are, a tenth of the sample
+    masked): the sift cell's as the main row, the deep cell's (sq8 rows
+    decoded) and a fan-out shard's under ``"shapes"``; each held against
+    the plain composition (``seeds_agree``), L2 and IP, and timed (L2)
+    beside it. Bound: the product's 2 Q S d f32 operations over 67
+    TFLOP/s, the operands and the output once. library_ms is null: the
+    plain version's cuBLAS product is inside plain_ms."""
+    from hnsw_tpu_torch.ops import entry_kernel as ek
+    q = N_QUERIES
+    out = {}
+    for name, (s, d, n_seeds, rows) in ENTRY_SHAPES.items():
+        if rows == "sq8":
+            codes = torch.randint(0, 256, (s, d), generator=gen, device=dev,
+                                  dtype=torch.uint8)
+            sv = torch.randn(d, generator=gen, device=dev) + (
+                torch.rand(d, generator=gen, device=dev) * 0.05 + 0.01) \
+                * codes.float()
+        else:
+            sv = torch.randn((s, d), generator=gen, device=dev)
+        svsq = (sv * sv).sum(1)
+        ok = torch.rand(s, generator=gen, device=dev) >= 0.1
+        qs = torch.randn((q, d), generator=gen, device=dev)
+        qs[-(q // 8):] = 0
+        if name == "sift":
+            m = out
+        else:
+            m = out.setdefault("shapes", {}).setdefault(
+                f"{name} S={s} d={d} strata={n_seeds}", {})
+        for metric in ("l2", "ip"):
+            err = seeds_agree(
+                f"entry_scan {name} {metric}",
+                ek.entry_scan(qs, sv, svsq, ok, n_seeds, metric),
+                ek.entry_scan_plain(qs, sv, svsq, ok, n_seeds, metric),
+                qs, sv, n_seeds, metric == "ip")
+            if metric == "l2":
+                m["max_abs_err"] = err
+        m.update(bound((q * d + s * d + 2 * s) * 4 + q * n_seeds * 4,
+                       2 * q * s * d))
+        m["ms"] = time_ms(lambda: ek.entry_scan(qs, sv, svsq, ok, n_seeds))
+        m["plain_ms"] = time_ms(lambda: ek.entry_scan_plain(
+            qs, sv, svsq, ok, n_seeds), iters=5)
     return out
 
 
@@ -3349,7 +3436,8 @@ def main() -> None:
                 "packed_row_dist_words": check_words_dist(dev, gen),
                 "fused_gather_distances": check_gather_dist(dev, gen),
                 "beam_update": check_beam_update(dev, gen),
-                "beam_hop": check_beam_hop(dev, gen)}
+                "beam_hop": check_beam_hop(dev, gen),
+                "entry_scan": check_entry_scan(dev, gen)}
     k5_bf16 = measured["fused_gather_distances"]["bfloat16"]
     timed_cases = dict(measured)
     timed_cases["packed_row_dist (8-bit, d=96)"] = \
@@ -3357,6 +3445,8 @@ def main() -> None:
     timed_cases["fused_gather_distances (bfloat16 rows)"] = k5_bf16
     for shape, m in measured["fused_gather_distances"]["shapes"].items():
         timed_cases[f"fused_gather_distances ({shape})"] = m
+    for shape, m in measured["entry_scan"].pop("shapes").items():
+        timed_cases[f"entry_scan ({shape})"] = m
     for name, m in timed_cases.items():
         log(f"  {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} "
             f"ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']} "

@@ -59,6 +59,8 @@ _SIGNATURES = {
     # cur, ndis, steps, stream
     "hnsw_beam_hop": (_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                       _P),
+    # queries, q, d, sv, svsq, ok, s, n_seeds, ip, keys, out, stream
+    "hnsw_entry_scan": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 # shared memory a launch may ask for without opting in to more

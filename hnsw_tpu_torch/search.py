@@ -40,12 +40,13 @@ from typing import NamedTuple
 import torch
 
 from . import graphs, trace
-from .config import IP, L2
+from .config import L2
 from .graph import GraphArrays
 from .graphs import EagerLoop
 from .ops import beam as beam_ops
 from .ops.dist_kernel import gathered_vec_dist_cur, gathered_vec_dist_ids
 from .ops.distances import decode_rows
+from .ops.entry_kernel import entry_scan
 from .ops.hop_kernel import fused_gather_distances
 from .ops.packed import (PackedNeighbors, PackedPQ, make_packed_dist,
                          make_packed_expand, make_packed_pq_dist,
@@ -195,16 +196,16 @@ def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
 
 def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
                   queries: torch.Tensor, metric: str, dequant=None, *,
-                  n_sample: int, n_seeds: int, ntotal=None,
-                  tile_q: int = 2048) -> torch.Tensor:
+                  n_sample: int, n_seeds: int, ntotal=None) -> torch.Tensor:
     """Entry seeds from one dense scan over an evenly strided sample of
     ``n_sample`` ids in [0, ntotal): the sample is cut into ``n_seeds``
     equal contiguous strata and each stratum's argmin is returned, int32
     [Q, n_seeds] (-1 where a stratum had no live candidate). Sampled ids
     must be inserted and non-isolated. sq8 rows are dequantized with
     ``dequant``. ``ntotal``: a 0-d tensor (a captured search reads it at
-    replay), else ``graph.ntotal``. The [tile_q, n_sample] distance block
-    bounds the memory; the caller rescores the seeds exactly."""
+    replay), else ``graph.ntotal``. The scan is K6 ``entry_scan`` on the
+    card (``ops/entry_kernel.py``); the caller rescores the seeds
+    exactly."""
     dev = vectors.device
     if ntotal is None:
         ntotal = torch.tensor(graph.ntotal, dtype=torch.int64, device=dev)
@@ -215,17 +216,10 @@ def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
     ok = (graph.levels[ids] >= 0) & (graph.neighbors0[ids, 0] >= 0)
     sv = decode_rows(vectors[ids], dequant)                      # [S, d]
     svsq = (sv * sv).sum(1)
-    ss = n_sample // n_seeds
-    base = torch.arange(n_seeds, device=dev)[None, :] * ss
-    out = []
-    for q0 in range(0, queries.shape[0], tile_q):
-        dots = queries[q0:q0 + tile_q].float() @ sv.T
-        dist = -dots if metric == IP else svsq[None, :] - 2.0 * dots
-        dist = torch.where(ok[None, :], dist, INF).view(-1, n_seeds, ss)
-        j = torch.argmin(dist, dim=2)                            # first on ties
-        cd = torch.gather(dist, 2, j[..., None])[..., 0]
-        out.append(torch.where(torch.isfinite(cd), ids[base + j], -1))
-    return torch.cat(out).to(torch.int32)
+    j = entry_scan(queries, sv, svsq, ok, n_seeds, metric)      # [Q, E]
+    base = torch.arange(n_seeds, device=dev)[None, :] * (n_sample // n_seeds)
+    return torch.where(j >= 0, ids[base + j.clamp(min=0)], -1).to(
+        torch.int32)
 
 
 def entry_sample_size(capacity: int) -> int:
@@ -331,9 +325,13 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
         return _search_body(inputs, loop, st, graph, vectors, packed,
                             dequant, pq)
 
+    on_card = vectors.device.type == "cuda"
     if st.fused:
-        trace.count("searches.kernel_hop" if vectors.device.type == "cuda"
+        trace.count("searches.kernel_hop" if on_card
                     else "searches.composed_hop")
+    if st.n_sample:
+        trace.count("searches.kernel_entry" if on_card
+                    else "searches.composed_entry")
     with trace.Phases("hnsw.search", vectors.device, with_stats) as ph:
         if graphs.capturing_enabled(vectors.device):
             out = graphs.replay_or_capture(key, refs, inputs, body,

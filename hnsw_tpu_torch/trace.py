@@ -16,7 +16,10 @@ Three records, kept in memory for the life of the process:
     their host milliseconds), ``searches.kernel_hop`` /
     ``searches.composed_hop`` (the fused-beam searches whose hops ran K1's
     hop entry on a CUDA device, or its plain composition on the CPU;
-    counted on the host once a search call), ``shard.gathered_bytes``
+    counted on the host once a search call), ``searches.kernel_entry`` /
+    ``searches.composed_entry`` (the sampled-entry searches whose scan ran
+    K6 on a CUDA device, or its plain composition on the CPU; counted the
+    same way), ``shard.gathered_bytes``
     (the bytes a sharded search's ``all_gather`` brought to this rank).
 
 Tracing is on while ``torch.profiler`` records in the process, or inside

@@ -145,7 +145,7 @@ def test_kernels_match_plain_versions_on_card(card):
     assert _cuda.launch_counts() == {
         "gathered_vec_dist": 2, "packed_row_dist": 2,
         "packed_row_dist_words": 0, "beam_update": 3,
-        "fused_gather_distances": 0}
+        "fused_gather_distances": 0, "entry_scan": 0}
 
 
 # (ef, K) on both sides of the warp / block switch at ef + K = 256, with
@@ -1520,3 +1520,164 @@ def test_eager_hop_is_two_launches_on_card(card, monkeypatch, form):
     # a plain kernel a hop would add 32 between the two
     assert others[0] and len(others[1]) == len(others[0]), others
     assert len(others[1]) <= 48, others[1]
+
+
+# K6 ``entry_scan``: (Q, S, d, n_seeds, metric, rows). The batch cells'
+# shapes (sift, deep, the fan-out's 2.5M shard), the requests cell's padded
+# flush, the seed mode's strata of 8 and 256 rows, d off the vector loads,
+# Q off the tiles, and one stratum of all the sample
+ENTRY_CASES = {
+    "sift": (8192, 16384, 128, 4, "l2", "f32"),
+    "deep": (8192, 16384, 96, 4, "l2", "sq8"),
+    "fanout": (8192, 32768, 96, 8, "l2", "sq8"),
+    "flush": (512, 16384, 128, 4, "l2", "f32"),
+    "flush_small_ip": (512, 4096, 100, 1, "ip", "f32"),
+    "seed_strata_of_8": (512, 128, 128, 16, "l2", "f32"),
+    "seed_sq8_ip": (8192, 4096, 128, 16, "ip", "sq8"),
+    "wide_ip": (8192, 32768, 128, 16, "ip", "f32"),
+    "odd_d": (1000, 2048, 37, 8, "l2", "f32"),
+    "d100_sq8": (1000, 4096, 100, 4, "ip", "sq8"),
+}
+
+
+def _entry_inputs(card, q, s, d, n_seeds, rows, seed):
+    """Queries (the last eighth all-zero, as padded rows are) and a decoded
+    sample: f32 rows, or uint8 codes through an affine; a tenth of the rows
+    copy another row of their stratum (exact ties), a tenth masked, and
+    stratum 1 masked whole."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if rows == "sq8":
+        codes = torch.randint(0, 256, (s, d), generator=g, device=card,
+                              dtype=torch.uint8)
+        sv = torch.randn(d, generator=g, device=card) + (
+            torch.rand(d, generator=g, device=card) * 0.05 + 0.01) \
+            * codes.float()
+    else:
+        sv = torch.randn((s, d), generator=g, device=card)
+    ss = s // n_seeds
+    dst = torch.randperm(s, generator=g, device=card)[:s // 10]
+    src = dst // ss * ss + torch.randint(0, ss, dst.shape, generator=g,
+                                         device=card)
+    sv[dst] = sv[src]
+    ok = torch.rand(s, generator=g, device=card) >= 0.1
+    if n_seeds > 1:
+        ok[ss:2 * ss] = False
+    queries = torch.randn((q, d), generator=g, device=card)
+    queries[-(q // 8):] = 0
+    sv = sv.contiguous()
+    return queries, sv, (sv * sv).sum(1), ok
+
+
+def _assert_seeds_agree(got, want, queries, sv, ok, n_seeds, metric):
+    """K6's seeds against the plain version's: -1 exactly where it gives
+    -1, equal on >= 99.9% of (query, stratum) pairs, every other pair a
+    near-tie (the two rows' float64 distances within 1e-5 relative), and
+    among identical rows of a stratum always the first."""
+    got, want = got.cpu().long(), want.cpu().long()
+    assert torch.equal(got < 0, want < 0)
+    same = got == want
+    assert same.float().mean() >= 0.999, same.float().mean()
+    s = sv.shape[0]
+    ss = s // n_seeds
+    strat = torch.arange(n_seeds)[None, :].expand_as(got)
+    q64, v64 = queries.double().cpu(), sv.double().cpu()
+
+    def dist(qi, r):
+        dot = (q64[qi] * v64[r]).sum(1)
+        return -dot if metric == "ip" else (v64[r] ** 2).sum(1) - 2 * dot
+
+    qi, j = torch.nonzero(~same, as_tuple=True)
+    if len(qi):
+        dg = dist(qi, j * ss + got[qi, j])
+        dw = dist(qi, j * ss + want[qi, j])
+        rel = (dg - dw).abs() / torch.maximum(dg.abs(), dw.abs())
+        assert float(rel.max()) <= 1e-5, float(rel.max())
+    inv = torch.unique(sv.cpu(), dim=0, return_inverse=True)[1]
+    group = torch.arange(s) // ss * (int(inv.max()) + 1) + inv
+    okc = ok.cpu()
+    first = torch.full((int(group.max()) + 1,), s).scatter_reduce(
+        0, group[okc], torch.arange(s)[okc], "amin")
+    r = (strat * ss + got)[got >= 0]
+    assert torch.equal(first[group[r]], r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ENTRY_CASES))
+def test_entry_scan_matches_plain_on_card(card, case):
+    """K6 against the plain composition at the search's shapes, f32 and
+    sq8-decoded rows, L2 and IP, masked rows and a masked stratum,
+    duplicate rows and padded zero queries; one launch counted."""
+    from hnsw_tpu_torch.ops import entry_kernel as ek
+    q, s, d, n_seeds, metric, rows = ENTRY_CASES[case]
+    queries, sv, svsq, ok = _entry_inputs(card, q, s, d, n_seeds, rows, 7)
+    before = _cuda.launch_counts().get("entry_scan", 0)
+    got = ek.entry_scan(queries, sv, svsq, ok, n_seeds, metric)
+    want = ek.entry_scan_plain(queries, sv, svsq, ok, n_seeds, metric)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["entry_scan"] == before + 1
+    assert got.shape == (q, n_seeds) and got.dtype == torch.int32
+    _assert_seeds_agree(got, want, queries, sv, ok, n_seeds, metric)
+    if n_seeds > 1:
+        assert bool((got[:, 1] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_seeds", [1, 16])
+@pytest.mark.parametrize("rows", ["f32", "sq8"])
+def test_sample_seeds_below_the_sample_on_card(card, monkeypatch, n_seeds,
+                                               rows):
+    """``ntotal`` below ``n_sample``: the sample repeats ids (identical
+    rows side by side), and the kernel's seeds equal the plain scan's
+    exactly, the first of each run of repeats."""
+    from types import SimpleNamespace
+
+    from hnsw_tpu_torch import search
+    from hnsw_tpu_torch.ops import entry_kernel as ek
+    g = torch.Generator(device=card).manual_seed(3)
+    n, d = 100, 96
+    levels = torch.zeros(n, dtype=torch.int32, device=card)
+    levels[::7] = -1
+    nbr0 = torch.zeros((n, 4), dtype=torch.int32, device=card)
+    graph = SimpleNamespace(levels=levels, neighbors0=nbr0)
+    dequant = None
+    if rows == "sq8":
+        vectors = torch.randint(0, 256, (n, d), generator=g, device=card,
+                                dtype=torch.uint8)
+        dequant = (torch.randn(d, generator=g, device=card),
+                   torch.rand(d, generator=g, device=card) * 0.05 + 0.01)
+    else:
+        vectors = torch.randn((n, d), generator=g, device=card)
+    queries = torch.randn((512, d), generator=g, device=card)
+    queries[-64:] = 0
+    kw = dict(n_sample=128, n_seeds=n_seeds,
+              ntotal=torch.tensor(n, device=card))
+    got = search._sample_seeds(graph, vectors, queries, "l2", dequant, **kw)
+    monkeypatch.setattr(search, "entry_scan", ek.entry_scan_plain)
+    want = search._sample_seeds(graph, vectors, queries, "l2", dequant, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry_mode", ["sample", "seed"])
+def test_searches_scan_on_k6_on_card(card, monkeypatch, entry_mode):
+    """A replayed sampled-entry search counts ``searches.kernel_entry`` and
+    no ``searches.composed_entry``, K6 launches once a search, and its
+    results agree with the same search on the plain scan (ids >= 99%)."""
+    from hnsw_tpu_torch import graphs, search, trace
+    from hnsw_tpu_torch.ops import entry_kernel as ek
+    idx, wl = _replay_index(card, "float32")
+    kw = dict(k=10, ef_search=48, device_out=True, entry_mode=entry_mode)
+    graphs.clear()
+    idx.search(wl.queries, **kw)                 # capture
+    before = _cuda.launch_counts()["entry_scan"]
+    with trace.collect() as t:
+        got = idx.search(wl.queries, **kw)
+        torch.cuda.synchronize()
+    assert t.counters.get("searches.kernel_entry") == 1
+    assert "searches.composed_entry" not in t.counters
+    assert _cuda.launch_counts()["entry_scan"] == before + 1
+    graphs.clear()
+    monkeypatch.setattr(search, "entry_scan", ek.entry_scan_plain)
+    want = idx.search(wl.queries, **kw)
+    graphs.clear()
+    assert float((got[1] == want[1]).float().mean()) >= 0.99

@@ -26,7 +26,8 @@ from hnsw_tpu.ops.dist_kernel import words_query_planes
 from hnsw_tpu.ops.hop_kernel import BLOCK_Q
 from hnsw_tpu.ops.hop_kernel import fused_gather_distances as ref_gather_dist
 from hnsw_tpu.ops.packed import pack_words as ref_pack_words
-from hnsw_tpu_torch.ops import _cuda, beam_kernel, dist_kernel, hop_kernel
+from hnsw_tpu_torch.ops import (_cuda, beam_kernel, dist_kernel, entry_kernel,
+                                hop_kernel)
 from hnsw_tpu_torch.ops.packed import word_width
 from test_torch_cuda import BEAM_EDGES, beam_case, beam_edge_case
 
@@ -350,10 +351,12 @@ def test_cpu_tensors_run_plain_versions_and_count_nothing():
     dist_kernel.packed_row_dist_words_ids(
         torch.zeros((9, 6), dtype=torch.int32), ids, t[:4], wp=2, bits=8)
     hop_kernel.fused_gather_distances(t, ids, t[:4])
+    entry_kernel.entry_scan(t[:4], t[:16], torch.zeros(16),
+                            torch.ones(16, dtype=torch.bool), 2)
     assert _cuda.launch_counts() == {
         "gathered_vec_dist": 0, "packed_row_dist": 0,
         "packed_row_dist_words": 0, "beam_update": 0,
-        "fused_gather_distances": 0}
+        "fused_gather_distances": 0, "entry_scan": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
