@@ -1231,7 +1231,7 @@ def late_hop_k3(idx, launches: int, expand: int = 4) -> dict:
     masks them. Held against its plain version, timed and bounded;
     ``launches``: the build's K3 launches at that K, replays included."""
     from hnsw_tpu_torch.ops import dist_kernel as dk
-    g, vec = idx._graph, idx._vectors
+    g, vec = idx._graph, idx.vectors
     q, n, dev = 2048, idx.ntotal, vec.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1474,7 +1474,7 @@ def build_capture_phase(dev, totals: dict, profile: bool = False) -> dict:
                     for f in TENSOR_FIELDS)
                 and all(getattr(ga, f) == getattr(gb, f)
                         for f in SCALAR_FIELDS)
-                and torch.equal(a._vectors, b._vectors))
+                and torch.equal(a.vectors, b.vectors))
 
     def run():
         want, runs = None, {"eager": [], "captured": []}
@@ -1786,7 +1786,7 @@ def main_path(n: int, dev, totals: dict, profile: bool = False) -> dict:
         finally:
             idx.n_expand = 1
         res, secs = timed(lambda: hnsw_search(
-            idx.graph, idx.vectors, queries, k=10, ef_search=64,
+            idx.graph, idx._storage, queries, k=10, ef_search=64,
             with_stats=True, visited_mode="bitmap"), runs=1)
         out["bitmap"] = report("unpacked visited_mode=bitmap ef=64", res,
                                secs, gt, runs=1)
@@ -1849,7 +1849,8 @@ def mutable_phase(idx, wl, queries, gt, recall64: float, dev) -> dict:
     and ``recall64``: phase b's oracle ids and packed ef=64 recall."""
     from hnsw_tpu_torch import FlatIndex, Searcher
     from hnsw_tpu_torch.ops.packed import padded_rows, quantize_codes
-    from hnsw_tpu_torch.search import compute_sqnorms, entry_sample_size
+    from hnsw_tpu_torch.ops.distances import decode_rows
+    from hnsw_tpu_torch.search import entry_sample_size
     from hnsw_tpu_torch.utils.recall import recall_at_k
     out = {}
     n = idx.ntotal
@@ -1915,7 +1916,7 @@ def mutable_phase(idx, wl, queries, gt, recall64: float, dev) -> dict:
     if not (torch.equal(pk.offset, off) and torch.equal(pk.scale, sc)):
         raise AssertionError("the refresh retrained the quantization")
     codes_all = quantize_codes(idx.vectors[:n2], off, sc, 8)
-    xhat_sq = compute_sqnorms(codes_all, (off, sc))
+    xhat_sq = (decode_rows(codes_all, (off, sc)) ** 2).sum(-1)
     for r in range(0, n2, 1 << 16):
         safe = idx.graph.neighbors0[r:min(r + (1 << 16), n2)].clamp(
             min=0).long()
@@ -2139,21 +2140,19 @@ def compact_phase(wl, queries, dev) -> dict:
 def stored_rows(idx):
     """ids -> the stored vectors of ``idx`` as f32 on the card: x̂ for sq8
     (the affine) and PQ (the codebooks), the bf16 values for bf16."""
-    from hnsw_tpu_torch.ops.distances import decode_rows
-    return lambda ids: decode_rows(idx.vectors[ids], idx._sq, idx._pq)
+    return idx._storage.read
 
 
 def oracles(idx, queries, base: np.ndarray, n: int, dev):
-    """The x̂ oracle (brute_force_topk over the stored codes, ``dequant=`` /
-    ``pq=``, tiles decoded on the fly) and the f32 truth (over the raw
+    """The x̂ oracle (``Storage.exact_topk``: brute_force_topk over the
+    stored codes, tiles decoded on the fly) and the f32 truth (over the raw
     base): (x̂ ids [Q, 10] numpy, x̂ squared L2 [Q, 11] on the card, truth
     ids [Q, 10] numpy). Prints the share of queries whose 10th and 11th x̂
     neighbours tie: there, which of the tied ids the oracle lists is
     arbitrary."""
     from hnsw_tpu_torch.ops.distances import brute_force_topk
     t0 = time.time()
-    hat_d, hat = brute_force_topk(queries, idx.vectors, 11, n_valid=n,
-                                  dequant=idx._sq, pq=idx._pq)
+    hat_d, hat = idx._storage.exact_topk(queries, 11, "l2", n)
     raw = torch.from_numpy(base).to(dev)
     _, truth = brute_force_topk(queries, raw, 10)
     del raw
@@ -2992,8 +2991,8 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
                 else getattr(ga, f) == getattr(gc, f)
                 for ga, gc in zip(a._graphs, c._graphs) for f in vars(ga))
             same &= all(torch.equal(x, y) for x, y in
-                        zip(a._global_ids + a._vectors,
-                            c._global_ids + c._vectors))
+                        zip(a._global_ids + [st.rows for st in a._storage],
+                            c._global_ids + [st.rows for st in c._storage]))
             log(f"  mid-build save / load / add against an uninterrupted "
                 f"build: equal array for array {same} "
                 f"({time.time() - t0:.1f} s for the three builds)")
@@ -3004,7 +3003,7 @@ def sharded_path(dev, totals: dict, unsharded: dict) -> dict:
             p = os.path.join(tmp, "full.npz")
             c.save(p)
             secs_save = time.time() - t0
-            c._vectors[2].fill_(float("nan"))
+            c._storage[2].rows.fill_(float("nan"))
             failed = [r["shard"] for r in c.health_check() if not r["ok"]]
             t0 = time.time()
             restored = c.restore_shards(p)
@@ -3113,7 +3112,7 @@ def mp_child(args) -> None:
                 arrays[f"s{s}_{f}"] = getattr(g, f).cpu().numpy()
             for f in SCALAR_FIELDS:
                 arrays[f"s{s}_{f}"] = np.int64(getattr(g, f))
-            arrays[f"s{s}_vectors"] = idx._vectors[s].cpu().numpy()
+            arrays[f"s{s}_vectors"] = idx._storage[s].rows.cpu().numpy()
             arrays[f"s{s}_global_ids"] = idx._global_ids[s].cpu().numpy()
         for tag, (d, i, _) in res.items():
             arrays[f"D {tag}"], arrays[f"I {tag}"] = d, i
@@ -3179,7 +3178,7 @@ def multiprocess_phase(dev, totals: dict, one, base: np.ndarray,
             g = one._graphs[s]
             pairs = [(f, getattr(g, f).cpu().numpy()) for f in TENSOR_FIELDS]
             pairs += [(f, np.int64(getattr(g, f))) for f in SCALAR_FIELDS]
-            pairs += [("vectors", one._vectors[s].cpu().numpy()),
+            pairs += [("vectors", one._storage[s].rows.cpu().numpy()),
                       ("global_ids", one._global_ids[s].cpu().numpy())]
             for f, arr in pairs:
                 if not np.array_equal(a[f"s{s}_{f}"], arr):
@@ -3349,7 +3348,7 @@ def entry_points_phase(dev, totals: dict) -> dict:
         torch.cuda.synchronize()
         secs = time.time() - t0
         idx, queries = out["index"], out["queries"]
-        if any(t.device.type != dev.type for t in idx._vectors):
+        if any(st.rows.device.type != dev.type for st in idx._storage):
             raise AssertionError(f"q dryrun_multichip({n}) ran off {dev}")
         # a capture must not outlive the shard tensors it read: a failed
         # shard restored from its checkpoint searches new tensors
@@ -3369,7 +3368,7 @@ def entry_points_phase(dev, totals: dict) -> dict:
         same_result(f"dryrun({n}) restored, replay vs eager", after, eager)
         same_result(f"dryrun({n}) restored vs before", after, before)
         log(f"q dryrun_multichip({n}): {secs:.1f} s on "
-            f"{sorted({str(t.device) for t in idx._vectors})}, mesh "
+            f"{sorted({str(st.rows.device) for st in idx._storage})}, mesh "
             f"{out['mesh']}, recalls {out['recalls']}; after restore_shards "
             f"the replayed search equals the eager one and the one before "
             f"the failure")

@@ -4,8 +4,8 @@ faiss inserts one point at a time (greedy descent, beam search per level at
 efConstruction, heuristic prune to M, links and locked back-links). Here a
 batch of B points is inserted at once:
 
-  1. storage writes (vectors, or their sq8 / PQ codes; levels, upper-slot
-     maps);
+  1. storage writes (vectors, or their sq8 / PQ codes, through the index's
+     ``ops/storage.Storage``; levels, upper-slot maps);
   2. batched greedy descent to each point's level (shared with search);
   3. per upper level, top down: beam search at efConstruction, the
      select-neighbors prune, forward links, back-links (``ops/repair.py``);
@@ -58,12 +58,10 @@ from .config import IP, L2, HnswConfig
 from .graph import GraphArrays
 from .graphs import EagerLoop
 from .ops import beam as beam_ops
-from .ops.distances import decode_rows
-from .ops.packed import quantize_codes
-from .ops.pq import encode_pq
 from .ops.prune import select_neighbors
 from .ops.repair import apply_backlinks
-from .search import _make_distance_fn, greedy_descend
+from .ops.storage import Storage
+from .search import greedy_descend
 
 logger = logging.getLogger("hnsw_tpu_torch.build")
 
@@ -99,22 +97,21 @@ class _Profile(NamedTuple):
     descend: bool
 
 
-def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
+def _insert_batch(graph: GraphArrays, storage: Storage,
                   xb: torch.Tensor, ids: torch.Tensor, levels: torch.Tensor,
                   slots: torch.Tensor, entry_point: torch.Tensor,
                   max_level: torch.Tensor, prof: _Profile, *,
                   cfg: HnswConfig, ef_construction: int, intra_k: int,
                   r_window: int, n_expand: int = 4, hop_cap: int = 0,
-                  sq_params=None, pq_cb=None, loop=None) -> torch.Tensor:
-    """Insert one padded batch into ``graph``/``vectors`` in place.
+                  loop=None) -> torch.Tensor:
+    """Insert one padded batch into ``graph``/``storage`` in place.
 
     xb f32 [B, d]; ids, levels, slots int32 [B], level-sorted, with pad
     rows (id = capacity, level -1, slot -1) anywhere after row 0, which is
     live. entry_point, max_level: the graph's scalars before the batch, 0-d
     tensors; ``prof`` must agree with them and the levels. A pad row writes
-    what row 0 writes, so every written row has one value. Storage codecs:
-    with ``sq_params`` = (offset, scale) (sq8) or ``pq_cb`` = codebooks
-    (PQ), xb holds x̂ (``HnswIndex`` encodes at the API boundary), the
+    what row 0 writes, so every written row has one value. With an sq8 or
+    PQ codec, xb holds x̂ (``HnswIndex`` encodes at the API boundary), the
     write encodes it back to the same codes, and every read of a stored
     row decodes it, so each build distance is exact over x̂. ``loop`` runs
     the descent and marks the stages (``graphs.EagerLoop`` or a capture).
@@ -133,7 +130,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
 
     # ---- 1. storage writes (adjacency untouched: the beams below see the
     # pre-batch graph)
-    vectors[w_ids] = _encode_rows(xf, vectors.dtype, sq_params, pq_cb)[src]
+    storage.write(w_ids, xf[src])
     graph.levels[w_ids] = levels[src]
     graph.upper_slot[w_ids] = slots[src]
     b_up = upper_batch_cap(b, cfg.m)
@@ -141,15 +138,10 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
         up = torch.where(slots[:b_up] >= 0, pos[:b_up], 0)
         graph.upper_node[slots[up].long()] = ids[up]
 
-    def read_rows(node_ids):  # stored rows -> f32 vectors (x̂ for codecs)
-        return decode_rows(vectors[node_ids.clamp(min=0).long()], sq_params,
-                           pq_cb)
+    def read_rows(node_ids):  # stored rows -> f32 x̂
+        return storage.read(node_ids.clamp(min=0).long())
 
-    def distance_fn(queries):
-        return _make_distance_fn(vectors, queries, metric,
-                                 dequant=sq_params, pq=pq_cb)
-
-    distance_to = distance_fn(xf)
+    distance_to = storage.distance_fn(xf, metric)
     qsq = (xf * xf).sum(1, keepdim=True)   # surrogate -> true L2
 
     def to_true(d):
@@ -185,7 +177,7 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
         loop.phase("upper")
         lv_up, slots_up, ids_up = levels[:b_up], slots[:b_up], ids[:b_up]
         e_up, ed_up = e[:b_up], e_d[:b_up]
-        dist_up = distance_fn(xf[:b_up])
+        dist_up = storage.distance_fn(xf[:b_up], metric)
         for level in range(prof.n_levels, 0, -1):
             active = lv_up >= level        # row 0 always (its top level)
             adj_l = graph.upper_neighbors[:, level - 1]          # view [U, m]
@@ -212,8 +204,8 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
                                    graph.upper_slot[dst.clamp(min=0)], -1)
             _, nd = apply_backlinks(adj_l, dst_rows.clamp(min=0), dst,
                                     src_ids, pair_ok & (dst_rows >= 0),
-                                    vectors, sq_params, pq_cb,
-                                    r_window=r_window, metric=metric)
+                                    storage, r_window=r_window,
+                                    metric=metric)
             drops = drops + nd
             # the next level starts from the nearest node found at this one
             e_up = torch.where(active, buf_ids[:, 0], e_up)
@@ -255,19 +247,9 @@ def _insert_batch(graph: GraphArrays, vectors: torch.Tensor,
     src_ids = ids[:, None].expand_as(kept0).reshape(-1)
     pair_ok = (dst >= 0) & valid[:, None].expand_as(kept0).reshape(-1)
     _, nd = apply_backlinks(neighbors0, dst.clamp(min=0), dst, src_ids,
-                            pair_ok, vectors, sq_params, pq_cb,
-                            r_window=r_window, metric=metric)
+                            pair_ok, storage, r_window=r_window,
+                            metric=metric)
     return drops + nd
-
-
-def _encode_rows(x: torch.Tensor, dtype: torch.dtype, sq_params, pq_cb):
-    """f32 rows (x̂ for a codec) -> what the storage holds: sq8 or PQ codes
-    (the encode of x̂ gives back its own codes), else ``x`` in ``dtype``."""
-    if sq_params is not None:
-        return quantize_codes(x, sq_params[0], sq_params[1], 8)
-    if pq_cb is not None:
-        return encode_pq(x, pq_cb)
-    return x.to(dtype)
 
 
 class Plan(NamedTuple):
@@ -327,14 +309,13 @@ class StagedBuild:
     (``traced``), it splits its captures at the stages and times the
     stages of its replayed batches."""
 
-    def __init__(self, graph: GraphArrays, vectors: torch.Tensor,
-                 plan: Plan, *, cfg: HnswConfig, ef_construction: int,
-                 intra_k: int, r_window: int, n_expand: int, hop_cap: int,
-                 sq_params=None, pq_cb=None):
-        dev = vectors.device
+    def __init__(self, graph: GraphArrays, storage: Storage, plan: Plan, *,
+                 cfg: HnswConfig, ef_construction: int, intra_k: int,
+                 r_window: int, n_expand: int, hop_cap: int):
+        self.dev = dev = storage.rows.device
         sched, profiles, *self.after = _schedule(plan, graph.entry_point,
                                                   graph.max_level)
-        self.graph, self.vectors, self.profiles = graph, vectors, profiles
+        self.graph, self.storage, self.profiles = graph, storage, profiles
         self.left = collections.Counter(profiles)
         self.next = 0
         # what ran ("replayed", "eager", "captured") and the captures' ms
@@ -352,15 +333,13 @@ class StagedBuild:
         self.drops = torch.zeros((), dtype=torch.int64, device=dev)
         self.kw = dict(cfg=cfg, ef_construction=ef_construction,
                        intra_k=intra_k, r_window=r_window, n_expand=n_expand,
-                       hop_cap=hop_cap, sq_params=sq_params, pq_cb=pq_cb)
+                       hop_cap=hop_cap)
         self.refs = [graph.neighbors0, graph.levels, graph.upper_slot,
-                     graph.upper_node, graph.upper_neighbors, vectors,
-                     self.xs, self.ids, self.lv, self.sl, self.sched,
-                     self.cursor, self.drops]
-        self.refs += list(sq_params or ()) + ([] if pq_cb is None else [pq_cb])
+                     graph.upper_node, graph.upper_neighbors,
+                     *storage.refs(), self.xs, self.ids, self.lv, self.sl,
+                     self.sched, self.cursor, self.drops]
         self.key = (cfg, ef_construction, intra_k, r_window, n_expand,
-                    hop_cap, sq_params is not None, pq_cb is not None,
-                    DESCENT_CHUNK, self.traced,
+                    hop_cap, DESCENT_CHUNK, self.traced,
                     tuple(graphs.tensor_identity(t) for t in self.refs))
 
     def _body(self, prof: _Profile, loop) -> None:
@@ -374,7 +353,7 @@ class StagedBuild:
         ids = torch.where(live, self.ids.index_select(0, idx), capacity)
         levels = torch.where(live, self.lv.index_select(0, idx), -1)
         slots = torch.where(live, self.sl.index_select(0, idx), -1)
-        nd = _insert_batch(self.graph, self.vectors,
+        nd = _insert_batch(self.graph, self.storage,
                            self.xs.index_select(0, idx), ids, levels, slots,
                            row[2], row[3], prof, loop=loop, **self.kw)
         self.drops.add_(nd)
@@ -385,10 +364,9 @@ class StagedBuild:
         prof = self.profiles[self.next]
         self.next += 1
         self.left[prof] -= 1
-        dev = self.vectors.device
         with trace.span("hnsw.build.step"), \
-                trace.Phases("hnsw.build", dev, self.traced) as ph:
-            if not graphs.capturing_enabled(dev):
+                trace.Phases("hnsw.build", self.dev, self.traced) as ph:
+            if not graphs.capturing_enabled(self.dev):
                 with trace.span("hnsw.build.eager"):
                     self._body(prof, EagerLoop(DESCENT_CHUNK, ph))
                     ph.stop()
@@ -408,9 +386,9 @@ class StagedBuild:
     def sync(self) -> None:
         """Wait for the batches issued so far (bounds the host's run-ahead
         on a CUDA device)."""
-        if self.vectors.device.type == "cuda":
+        if self.dev.type == "cuda":
             with trace.span("hnsw.build.sync"):
-                torch.cuda.current_stream(self.vectors.device).synchronize()
+                torch.cuda.current_stream(self.dev).synchronize()
 
     def finish(self) -> int:
         """After the last batch: moves the graph's entry point and max
@@ -447,7 +425,7 @@ class DeviceBuilder:
 
     def __init__(self, cfg: HnswConfig, *, max_batch: int = 2048,
                  intra_k: int = 32, r_window: int = 16, n_expand: int = 4,
-                 hop_cap: int = 0, sq_params=None, pq_cb=None):
+                 hop_cap: int = 0):
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
         self.max_batch = max_batch
@@ -455,11 +433,6 @@ class DeviceBuilder:
         self.r_window = r_window
         self.n_expand = n_expand
         self.hop_cap = hop_cap
-        # storage codecs, fixed once trained: sq8 (offset [d], scale [d])
-        # and PQ codebooks [m_sub, ksub, dsub], as f32 numpy arrays
-        self.sq_params = None if sq_params is None else tuple(
-            np.asarray(a, np.float32) for a in sq_params)
-        self.pq_cb = None if pq_cb is None else np.asarray(pq_cb, np.float32)
         # back-link pairs beyond the repair window, lost by the last add()
         self.last_backlink_dropped = 0
         self.last_stats: dict = {}    # the last add()'s StagedBuild.stats()
@@ -479,21 +452,12 @@ class DeviceBuilder:
                       self.cfg.level_mult).astype(np.int32)
         return np.minimum(lv, self.cfg.max_level_cap)
 
-    def _codecs(self, device):
-        """(sq_params, pq_cb) as tensors on ``device`` (None where unset)."""
-        sq = None if self.sq_params is None else tuple(
-            torch.from_numpy(a).to(device) for a in self.sq_params)
-        pq = None if self.pq_cb is None else \
-            torch.from_numpy(self.pq_cb).to(device)
-        return sq, pq
-
-    def _seed_first(self, graph: GraphArrays, vectors: torch.Tensor,
+    def _seed_first(self, graph: GraphArrays, storage: Storage,
                     x0: np.ndarray, level: int) -> None:
         """Insert the very first point (x̂0 for a codec): no search
         needed."""
-        x0 = torch.from_numpy(x0).to(vectors.device)[None]
-        vectors[0] = _encode_rows(x0, vectors.dtype,
-                                  *self._codecs(vectors.device))[0]
+        storage.write(slice(0, 1), torch.from_numpy(x0).to(
+            storage.rows.device)[None])
         graph.levels[0] = level
         if level >= 1:
             graph.upper_slot[0] = 0
@@ -535,19 +499,19 @@ class DeviceBuilder:
             i += take
         return stage_plan(parts, x.shape[1], cfg.capacity)
 
-    def staged(self, graph: GraphArrays, vectors: torch.Tensor, plan: Plan,
+    def staged(self, graph: GraphArrays, storage: Storage, plan: Plan,
                ef_construction: int) -> StagedBuild:
-        """``plan`` staged on ``vectors``' device against ``graph``."""
-        sq_params, pq_cb = self._codecs(vectors.device)
+        """``plan`` staged on the storage's device against ``graph``."""
         return StagedBuild(
-            graph, vectors, plan, cfg=self.cfg,
+            graph, storage, plan, cfg=self.cfg,
             ef_construction=ef_construction, intra_k=self.intra_k,
             r_window=self.r_window, n_expand=self.n_expand,
-            hop_cap=self.hop_cap, sq_params=sq_params, pq_cb=pq_cb)
+            hop_cap=self.hop_cap)
 
-    def add(self, graph: GraphArrays, vectors: torch.Tensor, x: np.ndarray,
+    def add(self, graph: GraphArrays, storage: Storage, x: np.ndarray,
             *, ef_construction: int | None = None) -> None:
-        """Insert ``x`` (f32 [n, d], host) with ids ntotal.. in place."""
+        """Insert ``x`` (f32 [n, d], host; x̂ for a codec) with ids
+        ntotal.. in place."""
         cfg = self.cfg
         efc = int(ef_construction or cfg.ef_construction)
         x = np.ascontiguousarray(np.asarray(x, np.float32))
@@ -555,13 +519,13 @@ class DeviceBuilder:
             all_levels = self._draw_levels(len(x))
             i = 0
             if graph.ntotal == 0 and len(x):
-                self._seed_first(graph, vectors, x[0], int(all_levels[0]))
+                self._seed_first(graph, storage, x[0], int(all_levels[0]))
                 i = 1
             plan = self._plan(graph.ntotal, graph.n_upper, x[i:],
                               all_levels[i:])
             if not plan.batches:
                 return
-            run = self.staged(graph, vectors, plan, efc)
+            run = self.staged(graph, storage, plan, efc)
         batches = plan.batches
         bi = 0
         while bi < len(batches):

@@ -30,6 +30,7 @@ import torch
 from .config import HnswConfig
 from .graph import graph_from_numpy
 from .ops._cuda import default_device
+from .ops.storage import Storage
 from .parallel.sharded import ShardedHnswIndex, make_mesh
 from .reference_impl import NumpyHnsw
 from .search import hnsw_search
@@ -53,17 +54,18 @@ def _tiny_index(n=384, d=16, m=8, seed=0, device=None):
 
 def entry(device=None):
     """Returns (fn, example_args): the batched HNSW search step
-    ``fn(graph, vectors, queries)`` -> (dists [64, 10], ids [64, 10]) and
+    ``fn(graph, storage, queries)`` -> (dists [64, 10], ids [64, 10]) and
     its arguments on ``device`` (default: the card), 64 queries drawn after
     the index's points."""
     graph, vectors, rng = _tiny_index(device=device)
     queries = np.asarray(rng.normal(size=(64, vectors.shape[1])), np.float32)
 
-    def fn(graph, vectors, queries):
-        return hnsw_search(graph, vectors, queries, k=10, ef_search=32,
+    def fn(graph, storage, queries):
+        return hnsw_search(graph, storage, queries, k=10, ef_search=32,
                            metric="l2", max_level_cap=6)
 
-    return fn, (graph, vectors, torch.from_numpy(queries).to(vectors.device))
+    return fn, (graph, Storage(vectors),
+                torch.from_numpy(queries).to(vectors.device))
 
 
 def _require(ok, msg: str) -> None:

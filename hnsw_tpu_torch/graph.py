@@ -93,13 +93,24 @@ def save_graph(path, graph: GraphArrays, vectors: torch.Tensor,
                         **arrs)
 
 
+def jsonify(obj):
+    """numpy scalars inside np.random state dicts -> plain python (JSON)."""
+    if isinstance(obj, dict):
+        return {k: jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    return obj
+
+
 def load_graph(path):
     """Read a ``.npz`` written by either package (``save_graph`` /
     ``HnswIndex.save``). Returns (arrays, vectors, config, extra,
     extra_arrays), all host-side numpy; ``arrays`` maps the
     ``GraphArrays`` field names to numpy arrays. The reference writes bf16
     vectors as 2-byte void items; those come back as int16 holding the bf16
-    bits (``vectors_tensor`` makes them bf16 again)."""
+    bits (``ops/storage.py`` ``Storage.load`` makes them bf16 again)."""
     with np.load(path, allow_pickle=False) as z:
         cfg = HnswConfig.from_json(bytes(z["config_json"].item()).decode())
         arrays = {k: z[f"graph_{k}"] for k in TENSOR_FIELDS + SCALAR_FIELDS}
@@ -112,19 +123,6 @@ def load_graph(path):
         extra_arrays = {k[5:]: z[k] for k in z.files if k.startswith("xarr_")}
     return arrays, vectors, cfg, extra, extra_arrays
 
-
-def vectors_tensor(vectors: np.ndarray, cfg: HnswConfig,
-                   device) -> torch.Tensor:
-    """Saved vectors as the storage tensor of ``cfg``: uint8 codes for sq8
-    and PQ, bf16 from the bits ``load_graph`` returns for a reference bf16
-    file (or from widened f32), else f32."""
-    t = torch.from_numpy(np.ascontiguousarray(vectors))
-    if cfg.storage_dtype == "bfloat16":
-        t = t.view(torch.bfloat16) if t.dtype == torch.int16 \
-            else t.to(torch.bfloat16)
-    else:
-        t = t.to(getattr(torch, cfg.storage_dtype))
-    return t.to(device)
 
 
 def check_invariants(graph: GraphArrays, cfg: HnswConfig,

@@ -74,7 +74,7 @@ from typing import Callable
 import torch
 
 from . import trace
-from .ops import _cuda
+from .ops._cuda import add_recorded, start_recording, stop_recording
 
 # steps a loop runs between two reads of its condition (>= 16 keeps a
 # search to a few reads; 1 reads once a step, as a plain loop would)
@@ -179,7 +179,7 @@ class _Capture:
 
     def begin(self) -> None:
         self._graph = torch.cuda.CUDAGraph()
-        _cuda.start_recording()
+        start_recording()
         self._graph.capture_begin(pool=self.pool)
 
     def end(self, flag: torch.Tensor | None = None) -> None:
@@ -187,7 +187,7 @@ class _Capture:
         try:
             g.capture_end()
         finally:
-            counts = _cuda.stop_recording()
+            counts = stop_recording()
         self.parts.append((g, counts, flag, self.label))
 
     def phase(self, label: str) -> None:
@@ -212,7 +212,7 @@ class _Capture:
             except Exception:  # noqa: BLE001 — the first error is raised
                 pass
             finally:
-                _cuda.stop_recording()
+                stop_recording()
 
     def run(self, cond, step, state: dict, bound: int | None = None):
         if bound is not None:
@@ -279,7 +279,7 @@ class _Entry:
 def _launch(g, counts) -> None:
     with trace.span("hnsw.graph.launch"):
         g.replay()
-    _cuda.add_recorded(counts)
+    add_recorded(counts)
 
 
 _CACHE: dict = {}

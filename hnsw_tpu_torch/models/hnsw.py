@@ -39,9 +39,9 @@ import torch
 from .. import trace
 from ..config import L2, HnswConfig
 from ..graph import (GraphArrays, check_invariants, empty_graph,
-                     graph_from_numpy, load_graph, save_graph, vectors_tensor)
+                     graph_from_numpy, jsonify, load_graph, save_graph)
 from ..ops._cuda import default_device
-from ..ops.distances import decode_rows
+from ..ops.storage import Storage
 from ..search import hnsw_search
 
 log = logging.getLogger("hnsw_tpu_torch")
@@ -72,15 +72,12 @@ class HnswIndex:
         self.beam_keys = "auto"  # default merge-key dtype (see search())
         self.entry_mode = "auto"
         self.r_window = 16  # back-link repair window; set before first add()
-        # faiss SQ / PQ need train() before add(); flat storage is train-free
-        self.is_trained = not (config.is_sq or config.is_pq)
         self._graph: GraphArrays | None = None
-        self._vectors: torch.Tensor | None = None
+        # the stored rows and their codec (set by train() or load)
+        self._storage: Storage | None = None
         if _alloc:
             self._graph = empty_graph(config, self.device)
-            self._vectors = torch.zeros(
-                (config.capacity, config.storage_width),
-                dtype=getattr(torch, config.storage_dtype), device=self.device)
+            self._storage = Storage.empty(config, self.device)
         self._builder = None
         self._host = None   # build="host": the NumpyHnsw holding the graph
         self._packed = None
@@ -99,10 +96,6 @@ class HnswIndex:
         self._routing_clean = True
         # rows patched by the last vacuum(): {"level0": n, "upper": n}
         self._last_vacuum = None
-        # storage codecs, None until train(): each as device tensors (the
-        # search) and numpy (the builder, and the host-side sq8 encode)
-        self._sq = self._sq_np = None   # (offset [d], scale [d])
-        self._pq = self._pq_np = None   # codebooks [pq_m, ksub, dsub]
         # (codebooks, codes [capacity, pq_m]) of PQ ROUTING rows over flat
         # or sq8 storage (enable_packed(mode="pq")), kept across re-packs
         self._route = None
@@ -128,7 +121,13 @@ class HnswIndex:
 
     @property
     def vectors(self) -> torch.Tensor:
-        return self._vectors
+        return self._storage.rows
+
+    @property
+    def is_trained(self) -> bool:
+        """faiss parity: sq8 / PQ storage needs its codec (``train``)."""
+        return not (self.config.is_sq or self.config.is_pq) or \
+            self._storage.coded
 
     # -- construction -------------------------------------------------------
     def train(self, x: np.ndarray) -> None:
@@ -145,47 +144,7 @@ class HnswIndex:
         x = np.asarray(x, np.float32)
         if x.ndim != 2 or x.shape[1] != self.config.dim:
             raise ValueError(f"expected [n, {self.config.dim}], got {x.shape}")
-        if self.config.is_pq:
-            from ..ops.pq import train_pq
-            self._set_pq(train_pq(x, self.config.pq_m,
-                                  ksub=self.config.pq_ksub,
-                                  seed=self.config.seed, device=self.device))
-        else:
-            from ..ops.packed import quantization_params
-            xt = torch.from_numpy(x).to(self.device)
-            off, sc = quantization_params(
-                xt, torch.ones(len(x), dtype=torch.bool, device=self.device),
-                8)
-            self._set_sq(off.cpu().numpy(), sc.cpu().numpy())
-
-    def _set_sq(self, offset: np.ndarray, scale: np.ndarray) -> None:
-        self._sq_np = (np.array(offset, np.float32),
-                       np.array(scale, np.float32))
-        self._sq = tuple(torch.from_numpy(a).to(self.device)
-                         for a in self._sq_np)
-        self.is_trained = True
-
-    def _set_pq(self, cb: np.ndarray) -> None:
-        self._pq_np = np.array(cb, np.float32)
-        self._pq = torch.from_numpy(self._pq_np).to(self.device)
-        self.is_trained = True
-
-    def _sq_encode(self, x: np.ndarray) -> np.ndarray:
-        """f32 -> x̂, the dequantized value of the stored code, on the host
-        in numpy as in the reference (so x̂ is the reference's, bit for
-        bit). The builder sees x̂, so every build distance is what a search
-        of the finished index measures; the storage write re-encodes x̂ to
-        the same code."""
-        off, sc = self._sq_np
-        u = np.clip(np.round((x - off) / sc), 0, 255).astype(np.float32)
-        return off + sc * u
-
-    def _pq_encode_decode(self, x: np.ndarray) -> np.ndarray:
-        """f32 -> the PQ reconstruction x̂ (the rationale of
-        ``_sq_encode``), encoded and decoded on this index's device."""
-        from ..ops.pq import decode_pq, encode_pq
-        codes = encode_pq(torch.from_numpy(x).to(self.device), self._pq)
-        return decode_pq(codes, self._pq).cpu().numpy()
+        self._storage.train(x, self.config)
 
     def add(self, x: np.ndarray) -> None:
         """Append vectors; ids are assigned sequentially (faiss parity)."""
@@ -198,10 +157,7 @@ class HnswIndex:
         if self.ntotal + len(x) > self.config.capacity:
             raise ValueError("capacity exceeded; create the index with a "
                              "larger `capacity` or grow() it")
-        if self.config.is_sq:
-            x = self._sq_encode(x)
-        elif self.config.is_pq:
-            x = self._pq_encode_decode(x)
+        x = self._storage.encode(x)     # x̂ for a codec
         # packed tables: the adjacency rows' fingerprints before the build
         # find the rows to re-pack after it (the tables stay on the device
         # through the build; disable_packed() first to free them). A host
@@ -216,10 +172,9 @@ class HnswIndex:
         else:
             from ..build import DeviceBuilder
             if self._builder is None:
-                self._builder = DeviceBuilder(
-                    self.config, r_window=self.r_window,
-                    sq_params=self._sq_np, pq_cb=self._pq_np)
-            self._builder.add(self._graph, self._vectors, x,
+                self._builder = DeviceBuilder(self.config,
+                                              r_window=self.r_window)
+            self._builder.add(self._graph, self._storage, x,
                               ef_construction=self.ef_construction)
         if self._route is not None and not self.config.is_pq:
             self._encode_route(old_ntotal)
@@ -245,9 +200,9 @@ class HnswIndex:
         graph, so results are filtered again until the next vacuum."""
         h = self._host
         self._graph = graph_from_numpy(h.to_graph_arrays(), self.device)
-        self._vectors = torch.from_numpy(h.vectors).to(
+        self._storage = Storage(torch.from_numpy(h.vectors).to(
             self.device, getattr(torch, self.config.storage_dtype),
-            copy=True)      # never a view of the builder's array
+            copy=True))     # never a view of the builder's array
         if self.n_deleted:
             self._routing_clean = False
 
@@ -257,11 +212,10 @@ class HnswIndex:
         ``enable_packed(mode="pq")`` never routes new ids on stale codes.
         A failure is logged and drops the codebooks (the next PQ enable
         trains anew): the add itself is kept."""
-        from ..ops.pq import encode_pq
         cb, codes, _ = self._route
         try:
-            codes[start:self.ntotal] = encode_pq(
-                self._vectors[start:self.ntotal], cb, dequant=self._sq)
+            codes[start:self.ntotal] = self._storage.pq_codes(
+                cb, start, self.ntotal)
         except Exception:  # noqa: BLE001 — serving must not lose adds
             log.warning("routing-code encode failed; routing codebooks "
                         "dropped", exc_info=True)
@@ -299,14 +253,14 @@ class HnswIndex:
                 if is_pq_rows:
                     update_packed_pq_rows(
                         packed.nbr_codes, self._graph.neighbors0,
-                        self._vectors if self.config.is_pq
+                        self._storage.rows if self.config.is_pq
                         else self._route[1], part, pq_bits=packed.pq_bits)
                 else:
                     update_packed_rows(
                         packed.nbr_codes, packed.nbr_sq,
-                        self._graph.neighbors0, self._vectors,
+                        self._graph.neighbors0, self._storage,
                         packed.offset, packed.scale, part,
-                        bits=self._packed_opts["bits"], dequant=self._sq)
+                        bits=self._packed_opts["bits"])
             self._packed = packed
             self._last_refresh = {"branch": "incremental",
                                   "rows": int(ids.numel())}
@@ -348,7 +302,7 @@ class HnswIndex:
             setattr(g, name, pad(getattr(g, name), c, -1))
         for name in ("upper_node", "upper_neighbors"):
             setattr(g, name, pad(getattr(g, name), u, -1))
-        self._vectors = pad(self._vectors, c, 0)
+        self._storage.grow(c)
         if self._alive is not None:
             self._alive = pad(self._alive, c, True)
         if self._route is not None:    # PQ routing codes [capacity, pq_m]
@@ -413,9 +367,9 @@ class HnswIndex:
             from ..ops.packed import pack_neighbors
             layout = "bytes" if layout == "auto" else layout
             self._packed = pack_neighbors(
-                self._graph.neighbors0, self._vectors, self._graph.levels,
+                self._graph.neighbors0, self._storage, self._graph.levels,
                 bits=bits, max_bytes=max_bytes, n_rows=n_rows, chunk=chunk,
-                dequant=self._sq, layout=layout)
+                layout=layout)
         else:
             from ..ops.packed import pack_pq_neighbors
             cb, codes, pq_bits = self._route_codebooks(pq_m, pq_bits, train_x)
@@ -433,7 +387,7 @@ class HnswIndex:
         pq storage's own, or ROUTING-only codebooks trained once and kept
         until ``disable_packed(reset_routing=True)``."""
         if self.config.is_pq:
-            return self._pq, self._vectors, self.config.pq_bits
+            return self._storage.pq, self._storage.rows, self.config.pq_bits
         if self._route is not None:
             cb = self._route[0]
             if pq_m not in (None, cb.shape[0]):
@@ -442,7 +396,7 @@ class HnswIndex:
                     f"{cb.shape[0]}; call disable_packed(reset_routing="
                     f"True) to retrain with pq_m={pq_m}")
             return self._route
-        from ..ops.pq import encode_pq, train_pq
+        from ..ops.pq import train_pq
         if pq_m is None or pq_m <= 0 or self.config.dim % pq_m:
             raise ValueError(
                 f"mode='pq' on {self.config.dtype} storage needs pq_m > 0 "
@@ -452,7 +406,7 @@ class HnswIndex:
         cb = torch.from_numpy(train_pq(xs, pq_m, ksub=1 << pq_bits,
                                        seed=self.config.seed,
                                        device=self.device)).to(self.device)
-        codes = encode_pq(self._vectors, cb, dequant=self._sq)
+        codes = self._storage.pq_codes(cb)
         self._route = (cb, codes, pq_bits)
         return self._route
 
@@ -511,11 +465,11 @@ class HnswIndex:
                 n = len(x)
                 return (np.full((n, k), np.inf, np.float32),
                         np.full((n, k), -1, np.int64))
-            g, v, q, kw = self._search_call(
+            g, st, q, kw = self._search_call(
                 x, k, ef_search=ef_search, with_stats=with_stats,
                 allowed=allowed, max_hops=max_hops, packed=packed,
                 beam_keys=beam_keys, entry_mode=entry_mode)
-            out = hnsw_search(g, v, q, **kw)
+            out = hnsw_search(g, st, q, **kw)
             if device_out:
                 return out
             if not with_stats:          # with_stats: hnsw_search waited
@@ -528,7 +482,7 @@ class HnswIndex:
     def _search_call(self, x, k: int, *, ef_search=None, with_stats=False,
                      allowed=None, max_hops=0, packed=None, beam_keys=None,
                      entry_mode=None):
-        """(graph, vectors, queries, {keywords}) of the ``hnsw_search`` call
+        """(graph, storage, queries, {keywords}) of the ``hnsw_search`` call
         that ``search`` makes (``search.search_key`` takes the same)."""
         with trace.span("hnsw.search.upload"):
             if not isinstance(x, torch.Tensor):
@@ -539,24 +493,19 @@ class HnswIndex:
         if self._alive is not None and not self._routing_clean:
             allowed = self._alive if allowed is None \
                 else allowed & self._alive
-        return self._graph, self._vectors, x, dict(
+        return self._graph, self._storage, x, dict(
             k=k, ef_search=int(ef_search or self.ef_search),
             metric=self.config.metric,
             max_level_cap=self.config.max_level_cap, max_hops=max_hops,
             n_expand=self.n_expand, with_stats=with_stats, allowed=allowed,
-            packed=packed, dequant=self._sq, pq=self._pq,
-            beam_keys=beam_keys or self.beam_keys,
+            packed=packed, beam_keys=beam_keys or self.beam_keys,
             entry_mode=entry_mode or self.entry_mode)
 
     def _oracle_ids(self, x: torch.Tensor, k: int) -> np.ndarray:
         """Exact top-k ids of ``x`` over the stored vectors (x̂ for a
         codec), tombstoned ids included, as the reference's tuners."""
-        from ..ops.distances import brute_force_topk
-        _, gt = brute_force_topk(x, self._vectors, k,
-                                 metric=self.config.metric,
-                                 n_valid=self.ntotal, dequant=self._sq,
-                                 pq=self._pq)
-        return gt.cpu().numpy()
+        return self._storage.exact_topk(x, k, self.config.metric,
+                                        self.ntotal)[1].cpu().numpy()
 
     def _recall_at(self, x, gt, k: int, ef: int, hops: int = 0) -> float:
         from ..utils.recall import recall_at_k
@@ -675,18 +624,14 @@ class HnswIndex:
         return torch.from_numpy(mask).to(self.device)
 
     # -- reconstruction (faiss reconstruct*) ----------------------------------
-    def _decode(self, rows: torch.Tensor) -> np.ndarray:
-        """Stored rows -> f32 vectors on the host (x̂ for sq8 / PQ), never a
-        view of the storage."""
-        return np.array(decode_rows(rows, self._sq, self._pq).cpu())
-
     def reconstruct(self, i: int) -> np.ndarray:
         if not 0 <= i < self.ntotal:
             raise IndexError(i)
         return self.reconstruct_n(i, 1)[0]
 
     def reconstruct_n(self, i0: int, n: int) -> np.ndarray:
-        return self._decode(self._vectors[i0:i0 + n])
+        """Stored rows as f32 on the host (x̂ for a codec), not a view."""
+        return np.array(self._storage.read(slice(i0, i0 + n)).cpu())
 
     def reconstruct_batch(self, ids: np.ndarray) -> np.ndarray:
         """Decode arbitrary ids (faiss ``reconstruct_batch``); ids may
@@ -694,8 +639,8 @@ class HnswIndex:
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ((ids < -1) | (ids >= self.ntotal)).any():
             raise IndexError("reconstruct_batch: id out of range")
-        v = self._decode(self._vectors[torch.from_numpy(
-            np.maximum(ids, 0)).to(self.device)])
+        v = np.array(self._storage.read(torch.from_numpy(
+            np.maximum(ids, 0)).to(self.device)).cpu())
         v[ids < 0] = 0.0
         return v
 
@@ -766,11 +711,10 @@ class HnswIndex:
         g, metric = self._graph, self.config.metric
         dead = ~self._alive & (g.levels >= 0)
         self._packed = None          # rows hold pre-vacuum adjacency
-        rows0 = vacuum_level0(g.neighbors0, self._vectors, dead,
-                              metric=metric, dequant=self._sq, pq=self._pq)
+        rows0 = vacuum_level0(g.neighbors0, self._storage, dead,
+                              metric=metric)
         rows_up = vacuum_upper(g.upper_neighbors, g.upper_node, g.upper_slot,
-                               self._vectors, dead, metric=metric,
-                               dequant=self._sq, pq=self._pq)
+                               self._storage, dead, metric=metric)
         g.entry_point, g.max_level = live_entry_point(g.levels, dead)
         self._routing_clean = True
         self._last_vacuum = {"level0": rows0, "upper": rows_up}
@@ -797,10 +741,7 @@ class HnswIndex:
                         device=self.device)
         out.ef_construction = self.ef_construction
         out.ef_search = self.ef_search
-        if self._sq_np is not None:
-            out._set_sq(*self._sq_np)
-        if self._pq_np is not None:
-            out._set_pq(self._pq_np)
+        out._storage.set_codec(self._storage.codec_arrays())
         if len(old_ids):
             out.add(x[old_ids])
         return out, old_ids
@@ -826,16 +767,12 @@ class HnswIndex:
         extra = {"routing_clean": bool(self._routing_clean),
                  "r_window": int(self.r_window)}
         if self._builder is not None:
-            extra["builder_rng_state"] = _jsonify(
+            extra["builder_rng_state"] = jsonify(
                 self._builder.rng.bit_generator.state)
-        xarr = {}
+        xarr = self._storage.codec_arrays()
         if self._alive is not None:
             xarr["alive"] = self._alive.cpu().numpy()
-        if self._sq_np is not None:
-            xarr["sq_offset"], xarr["sq_scale"] = self._sq_np
-        if self._pq_np is not None:
-            xarr["pq_codebooks"] = self._pq_np
-        save_graph(path, self._graph, self._vectors, self.config, extra,
+        save_graph(path, self._graph, self._storage.rows, self.config, extra,
                    extra_arrays=xarr)
 
     def to_bytes(self) -> bytes:
@@ -861,11 +798,7 @@ class HnswIndex:
         idx = cls(config=cfg, device=device, _alloc=False)
         idx.r_window = int(extra.get("r_window", idx.r_window))
         idx._graph = graph_from_numpy(arrays, idx.device)
-        idx._vectors = vectors_tensor(vectors, cfg, idx.device)
-        if "sq_offset" in xarr:
-            idx._set_sq(xarr["sq_offset"], xarr["sq_scale"])
-        if "pq_codebooks" in xarr:
-            idx._set_pq(xarr["pq_codebooks"])
+        idx._storage = Storage.load(vectors, cfg, idx.device, xarr)
         if "alive" in xarr:
             alive = np.asarray(xarr["alive"], bool)
             idx._alive = torch.from_numpy(alive).to(idx.device)
@@ -873,19 +806,6 @@ class HnswIndex:
             idx._routing_clean = bool(extra.get("routing_clean", False))
         if "builder_rng_state" in extra:
             from ..build import DeviceBuilder
-            idx._builder = DeviceBuilder(cfg, r_window=idx.r_window,
-                                         sq_params=idx._sq_np,
-                                         pq_cb=idx._pq_np)
+            idx._builder = DeviceBuilder(cfg, r_window=idx.r_window)
             idx._builder.rng.bit_generator.state = extra["builder_rng_state"]
         return idx
-
-
-def _jsonify(obj):
-    """numpy scalars inside np.random state dicts -> plain python."""
-    if isinstance(obj, dict):
-        return {k: _jsonify(v) for k, v in obj.items()}
-    if isinstance(obj, np.integer):
-        return int(obj)
-    if isinstance(obj, np.floating):
-        return float(obj)
-    return obj

@@ -43,6 +43,7 @@ headroom.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
@@ -50,14 +51,17 @@ from ..config import IP
 from .dist_kernel import packed_row_dist_ids, packed_row_dist_words_ids
 from .distances import decode_rows
 
+if TYPE_CHECKING:
+    from .storage import Storage
+
 
 @dataclasses.dataclass
 class PackedNeighbors:
     nbr_codes: torch.Tensor  # uint8 [n_rows, row_w] (bytes layout) or int32
     #                          [n_rows, m0 * word_width(d, bits)] (words)
     nbr_sq: torch.Tensor     # f32   [n_rows, m0]  ||x̂||² of each neighbor
-    scale: torch.Tensor      # f32   [d]  per-dim dequant scale
-    offset: torch.Tensor     # f32   [d]  per-dim dequant offset
+    scale: torch.Tensor      # f32   [d]  per-dim affine scale
+    offset: torch.Tensor     # f32   [d]  per-dim affine offset
 
     @property
     def row_w(self) -> int:
@@ -191,10 +195,10 @@ def _gather_rows(neighbors0: torch.Tensor, n_rows: int, pad_cap: int):
     return safe
 
 
-def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
+def pack_neighbors(neighbors0: torch.Tensor, storage: "Storage",
                    levels: torch.Tensor, *, bits: int = 8,
                    max_bytes: int | None = None, n_rows: int | None = None,
-                   chunk: int = 1 << 16, dequant=None,
+                   chunk: int = 1 << 16,
                    layout: str = "bytes") -> PackedNeighbors:
     """Build the packed serving tables from a finished graph.
 
@@ -202,16 +206,16 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
     (ValueError) a table larger than this. n_rows: rows only for ids <
     n_rows (pass ntotal: only inserted nodes are ever expanded); the table
     holds ``padded_rows(n_rows, chunk)`` rows, and ``max_bytes`` counts
-    those. dequant: (offset, scale) when ``vectors`` holds sq8 storage
-    codes; at 8 bits the stored codes are the routing codes (the same
-    affine), at 4 bits x̂ is quantized anew. layout: "bytes" (uint8 rows)
-    or "words" (int32 rows, the same bits; module docstring)."""
+    those. storage: the stored rows (``ops/storage.py``); of sq8 storage
+    at 8 bits the stored codes are the routing codes (the same affine),
+    otherwise x̂ is quantized anew. layout: "bytes" (uint8 rows) or
+    "words" (int32 rows, the same bits; module docstring)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if layout not in ("bytes", "words"):
         raise ValueError(f"layout must be 'bytes' or 'words', got {layout!r}")
     cap, m0 = neighbors0.shape
-    d = vectors.shape[1]
+    d = storage.rows.shape[1]
     n_rows = cap if n_rows is None else max(1, min(int(n_rows), cap))
     if layout == "words":
         wp = word_width(d, bits)
@@ -229,23 +233,28 @@ def pack_neighbors(neighbors0: torch.Tensor, vectors: torch.Tensor,
             f"packed table needs {total / 1e9:.1f} GB "
             f"(> budget {max_bytes / 1e9:.1f} GB); use bits=4 or skip "
             f"packing for this capacity")
-    from ..search import compute_sqnorms
-
     live = levels >= 0
-    if dequant is not None and bits == 8:
-        offset, scale = dequant
-        codes_all = vectors                                      # [cap, d] u8
+    if storage.sq is not None and bits == 8:
+        offset, scale = storage.sq
+        codes_all = storage.rows                                 # [cap, d] u8
     else:
-        if dequant is not None:
-            vectors = decode_rows(vectors, dequant)
+        vectors = storage.rows if storage.sq is None else \
+            storage.decode(storage.rows)
         offset, scale = quantization_params(vectors, live, bits)
         codes_all = quantize_codes(vectors, offset, scale, bits)  # [cap, d]
-    xhat_sq = compute_sqnorms(codes_all, (offset, scale))
+    xhat_sq = _sqnorms(codes_all, offset, scale)
     payload = _encode_payload(codes_all, bits, layout == "words")
     safe = _gather_rows(neighbors0, n_rows, pad_cap)            # [rows, m0]
     nbr_codes = payload[safe].view(pad_cap, m0 * payload.shape[1])
     return PackedNeighbors(nbr_codes, xhat_sq[safe], scale=scale,
                            offset=offset)
+
+
+def _sqnorms(codes: torch.Tensor, offset: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """||x̂||² of code rows under the table's affine."""
+    v = decode_rows(codes, (offset, scale))
+    return (v * v).sum(-1)
 
 
 def _encode_payload(codes: torch.Tensor, bits: int, words: bool):
@@ -262,24 +271,21 @@ def _valid_ids(ids: torch.Tensor) -> torch.Tensor:
 
 
 def update_packed_rows(nbr_codes: torch.Tensor, nbr_sq: torch.Tensor,
-                       neighbors0: torch.Tensor, vectors: torch.Tensor,
+                       neighbors0: torch.Tensor, storage: "Storage",
                        offset: torch.Tensor, scale: torch.Tensor,
-                       ids: torch.Tensor, dequant=None, *, bits: int):
+                       ids: torch.Tensor, *, bits: int):
     """Rewrite, in place, the packed rows of ``ids`` (int [U], −1 = a pad,
-    skipped) from the CURRENT adjacency and vectors under the table's
-    retained ``offset`` / ``scale`` (no retraining: a later vector outside
-    the trained range has its routing codes clipped; the exact rerank is
-    unaffected). Bytes (8- or 4-bit) and words layouts; ``dequant`` for sq8
-    storage codes. Returns (nbr_codes, nbr_sq)."""
-    from ..search import compute_sqnorms
-
+    skipped) from the CURRENT adjacency and stored rows (decoded to x̂)
+    under the table's retained ``offset`` / ``scale`` (no retraining: a
+    later vector outside the trained range has its routing codes clipped;
+    the exact rerank is unaffected). Bytes (8- or 4-bit) and words
+    layouts. Returns (nbr_codes, nbr_sq)."""
     rows = _valid_ids(ids)
     if rows.numel() == 0:
         return nbr_codes, nbr_sq
-    nv = decode_rows(vectors[neighbors0[rows].clamp(min=0).long()],
-                     dequant)                                    # [U, m0, d]
+    nv = storage.read(neighbors0[rows].clamp(min=0).long())     # [U, m0, d]
     nc = quantize_codes(nv, offset, scale, bits)
-    nsq = compute_sqnorms(nc, (offset, scale))                   # [U, m0]
+    nsq = _sqnorms(nc, offset, scale)                            # [U, m0]
     upd = _encode_payload(nc, bits, nbr_codes.dtype == torch.int32)
     nbr_codes.index_copy_(0, rows, upd.reshape(rows.numel(), -1))
     nbr_sq.index_copy_(0, rows, nsq)

@@ -25,23 +25,21 @@ from __future__ import annotations
 import torch
 
 from ..config import L2
-from .distances import decode_rows
 from .prune import compact_append, select_neighbors
+from .storage import Storage
 
 _PRUNE_BYTES = 1 << 30  # candidate-vector bytes gathered per prune chunk
 
 
 def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
                     dst_ids: torch.Tensor, src_ids: torch.Tensor,
-                    valid: torch.Tensor, vectors: torch.Tensor,
-                    dequant=None, pq_cb=None, *, r_window: int = 16,
-                    metric: str = L2):
+                    valid: torch.Tensor, storage: Storage, *,
+                    r_window: int = 16, metric: str = L2):
     """adj int32 [n_rows, W]: adjacency of ONE level, updated in place (a
     view into a larger table is fine). dst_rows/dst_ids/src_ids int32 [P]:
     per pair the row in ``adj``, the destination's node id (for distances)
-    and the source to link back; valid bool [P]. vectors [capacity, d]
-    (sq8 codes with ``dequant`` = (offset, scale), PQ codes with ``pq_cb``
-    = codebooks: the prune then measures against x̂).
+    and the source to link back; valid bool [P]. ``storage``: the stored
+    rows and their codec (the prune measures against x̂).
 
     Returns (adj, n_dropped) with n_dropped an int64 0-d tensor: valid pairs
     beyond the R-window of their destination (duplicates are not drops)."""
@@ -82,15 +80,11 @@ def apply_backlinks(adj: torch.Tensor, dst_rows: torch.Tensor,
     over = first & ((cand >= 0).sum(1) > w)
     prune_ids = torch.where(over[:, None], cand, -1)
     prune_dst = torch.where(over, sdst_id, 0).long()
-    d_model = vectors.shape[1] if pq_cb is None else \
-        pq_cb.shape[0] * pq_cb.shape[2]
-    chunk = max(256, _PRUNE_BYTES // max(cand.shape[1] * d_model * 4, 1))
+    chunk = max(256, _PRUNE_BYTES // max(cand.shape[1] * storage.dim * 4, 1))
     for c0 in range(0, p, chunk):
         ids_c = prune_ids[c0:c0 + chunk]
-        dvec = decode_rows(vectors[prune_dst[c0:c0 + chunk]], dequant,
-                           pq_cb)                                # [C, d]
-        cvec = decode_rows(vectors[ids_c.clamp(min=0).long()], dequant,
-                           pq_cb)                                # [C, W+R, d]
+        dvec = storage.read(prune_dst[c0:c0 + chunk])            # [C, d]
+        cvec = storage.read(ids_c.clamp(min=0).long())           # [C, W+R, d]
         dots = (cvec * dvec[:, None, :]).sum(-1)
         if metric == L2:
             cd = (dvec * dvec).sum(1, keepdim=True) + (cvec * cvec).sum(-1) \

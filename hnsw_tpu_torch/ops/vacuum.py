@@ -18,8 +18,8 @@ only those, in chunks and in place (the rows a chunk reads are its own,
 not yet written, and dead ones), where the reference computes every row.
 
 Distances from a row's node to its candidates go through the route the
-build uses (``search._make_distance_fn``: K3 on f32, bf16 and uint8 rows,
-ADC on PQ codes) plus the node's own ||u||²; the heuristic's
+build uses (``Storage.distance_fn``, ``ops/storage.py``: K3 on f32, bf16
+and uint8 rows, ADC on PQ codes) plus the node's own ||u||²; the heuristic's
 candidate-pair matrix is a matmul (``ops/prune.py``).
 """
 
@@ -28,15 +28,14 @@ from __future__ import annotations
 import torch
 
 from ..config import L2
-from ..search import _make_distance_fn
 from .beam import _first_occurrence_mask
-from .distances import decode_rows
 from .prune import compact_append, select_neighbors
+from .storage import Storage
 
 
 def _repair_rows(rows: torch.Tensor, own: torch.Tensor, table: torch.Tensor,
-                 slot_of, vectors: torch.Tensor, dead: torch.Tensor, *,
-                 metric: str, dequant, pq) -> torch.Tensor:
+                 slot_of, storage: Storage, dead: torch.Tensor, *,
+                 metric: str) -> torch.Tensor:
     """New lists for rows with a dead neighbor. rows int32 [B, m] (their
     current lists), own int64 [B] (each row's node id), table int32 [T, m]
     (the level's pre-vacuum lists, read for the dead neighbors), slot_of
@@ -56,13 +55,12 @@ def _repair_rows(rows: torch.Tensor, own: torch.Tensor, table: torch.Tensor,
                          2 * m)
     pool = torch.cat([live_n, inh], 1)                           # [B, 3m]
     pool = torch.where(_first_occurrence_mask(pool), pool, -1)
-    vu = decode_rows(vectors[own], dequant, pq)                  # [B, d]
+    vu = storage.read(own)                                       # [B, d]
     ok = pool >= 0
-    dist = _make_distance_fn(vectors, vu, metric, dequant=dequant,
-                             pq=pq)(pool, ok)
+    dist = storage.distance_fn(vu, metric)(pool, ok)
     if metric == L2:
         dist = dist + (vu * vu).sum(1, keepdim=True)
-    vc = decode_rows(vectors[pool.clamp(min=0).long()], dequant, pq)
+    vc = storage.read(pool.clamp(min=0).long())
     kept, _ = select_neighbors(pool, dist, vc, m=m, metric=metric)
     return kept
 
@@ -74,9 +72,9 @@ def _rows_with_dead(rows: torch.Tensor, row_ok: torch.Tensor,
     return torch.nonzero(nd & row_ok).flatten()
 
 
-def vacuum_level0(neighbors0: torch.Tensor, vectors: torch.Tensor,
+def vacuum_level0(neighbors0: torch.Tensor, storage: Storage,
                   dead: torch.Tensor, *, metric: str = L2,
-                  chunk: int = 4096, dequant=None, pq=None) -> int:
+                  chunk: int = 4096) -> int:
     """Patch and purge the level-0 adjacency in place. dead: bool
     [capacity]. Every live row with a dead neighbor gets a new list
     (``_repair_rows``), ``chunk`` rows at a time; then the dead rows are
@@ -85,16 +83,15 @@ def vacuum_level0(neighbors0: torch.Tensor, vectors: torch.Tensor,
     for c in range(0, todo.numel(), chunk):
         ids = todo[c:c + chunk]
         neighbors0[ids] = _repair_rows(
-            neighbors0[ids], ids, neighbors0, lambda n: n, vectors, dead,
-            metric=metric, dequant=dequant, pq=pq)
+            neighbors0[ids], ids, neighbors0, lambda n: n, storage, dead,
+            metric=metric)
     neighbors0[dead] = -1
     return int(todo.numel())
 
 
 def vacuum_upper(upper_neighbors: torch.Tensor, upper_node: torch.Tensor,
-                 upper_slot: torch.Tensor, vectors: torch.Tensor,
-                 dead: torch.Tensor, *, metric: str = L2, dequant=None,
-                 pq=None) -> int:
+                 upper_slot: torch.Tensor, storage: Storage,
+                 dead: torch.Tensor, *, metric: str = L2) -> int:
     """The same repair at every upper level, in place (the tables hold
     ~capacity/m rows, one pass a level). Slot and level maps stay: dead
     nodes keep their slots, their rows are cleared at every level. Returns
@@ -112,8 +109,7 @@ def vacuum_upper(upper_neighbors: torch.Tensor, upper_node: torch.Tensor,
         todo = _rows_with_dead(tab, node_ok & ~row_dead, dead)
         if todo.numel():
             tab[todo] = _repair_rows(tab[todo], nodes[todo], tab, slot_of,
-                                     vectors, dead, metric=metric,
-                                     dequant=dequant, pq=pq)
+                                     storage, dead, metric=metric)
             patched += todo.numel()
     upper_neighbors[row_dead] = -1
     return patched

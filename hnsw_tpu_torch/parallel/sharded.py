@@ -3,8 +3,8 @@ per shard, a fan-out search and a global top-k merge.
 
   * the dataset is sharded round robin (user id ``u`` lives on shard
     ``u % S``); each shard owns an independent sub-index: its graph, its
-    vector storage and a local-row -> user-id table, as tensors on the
-    shard's device;
+    ``Storage`` (``ops/storage.py``: the rows and the codec's tensors) and
+    a local-row -> user-id table, as tensors on the shard's device;
   * **build**: every shard takes the same batch schedule in lockstep (the
     reference's one ``shard_map`` step a batch): the batch size follows the
     smallest shard, each shard draws its levels from its own seeded
@@ -65,9 +65,8 @@ from ..build import (DeviceBuilder, order_batch_by_level, stage_plan,
                      upper_batch_cap)
 from ..config import L2, HnswConfig
 from ..graph import (SCALAR_FIELDS, TENSOR_FIELDS, GraphArrays,
-                     check_invariants, empty_graph, vectors_tensor)
-from ..models.hnsw import _jsonify
-from ..ops.distances import decode_rows
+                     check_invariants, empty_graph, jsonify)
+from ..ops.storage import Storage
 from ..search import hnsw_search
 
 SHARD_AXIS = "shard"
@@ -184,10 +183,11 @@ class ShardedHnswIndex:
             else torch.device("cpu")
         self._graphs = [empty_graph(cfg, self._dev[s]) if self._is_local(s)
                         else _RemoteShard() for s in range(S)]
-        self._vectors = [torch.zeros((cfg.capacity, cfg.dim),
-                                     dtype=getattr(torch, cfg.storage_dtype),
-                                     device=self._dev[s])
+        # each local shard's rows and codec tensors; the one sq8 quantizer
+        # of every shard on the host (the x̂ encode, saving): ``_codec``
+        self._storage = [Storage.empty(cfg, self._dev[s])
                          if self._is_local(s) else None for s in range(S)]
+        self._codec = Storage(torch.zeros((0, cfg.dim)))
         # local row -> user id (insertion order), -1 unused
         self._global_ids = [torch.full((cfg.capacity,), -1, dtype=torch.int32,
                                        device=self._dev[s])
@@ -202,11 +202,6 @@ class ShardedHnswIndex:
         self._routing_clean = True
         # per-shard health: a failed shard is left out of the merge
         self._shard_ok = np.ones(S, bool)
-        # sq8: ONE quantizer shared by every shard, (offset, scale) numpy,
-        # and its tensors on each local shard's device (None elsewhere)
-        self._sq_np: tuple | None = None
-        self._sq_dev: list = [None] * S
-        self.is_trained = not cfg.is_sq
         # per-shard packed serving tables (enable_packed); None: unpacked
         self._packed: list | None = None
         # per shard, the last add()'s StagedBuild.stats() (None: no batch
@@ -216,6 +211,10 @@ class ShardedHnswIndex:
     @property
     def ntotal(self) -> int:
         return self._ntotal
+
+    @property
+    def is_trained(self) -> bool:
+        return not self.config.is_sq or self._codec.coded
 
     def _is_local(self, s: int) -> bool:
         return self._owner[s] == self._rank
@@ -239,13 +238,6 @@ class ShardedHnswIndex:
         """Points on each shard (int64 [S])."""
         return np.array([g.ntotal for g in self._graphs], np.int64)
 
-    def _sq(self, s: int):
-        """The shared sq8 affine as tensors on shard ``s``'s device: the
-        same objects on every call (a capture keys on them and is dropped
-        once they are freed), None for flat storage or another rank's
-        shard."""
-        return self._sq_dev[s]
-
     # ------------------------------------------------------------------ add
     def train(self, x: np.ndarray) -> None:
         """A no-op for flat storage; for sq8 the per-dim range of ``x``,
@@ -256,36 +248,19 @@ class ShardedHnswIndex:
         if self._ntotal:
             raise RuntimeError("train() after add(): stored codes would "
                                "decode under different params")
-        from ..ops.packed import quantization_params
         params = None
         if self._is_local(0):   # on shard 0's device, as in one process
-            xt = torch.from_numpy(np.asarray(x, np.float32)).to(self._dev[0])
-            off, sc = quantization_params(
-                xt, torch.ones(len(xt), dtype=torch.bool, device=xt.device), 8)
-            params = [off.cpu().numpy(), sc.cpu().numpy()]
+            self._storage[0].train(np.asarray(x, np.float32), self.config)
+            params = self._storage[0].codec_arrays()
         if self._world > 1:
             import torch.distributed as dist
             box = [params]
             dist.broadcast_object_list(box, src=self._owner[0])
             params = box[0]
-        self._set_sq(*params)
-
-    def _set_sq(self, offset, scale) -> None:
-        self._sq_np = (np.array(offset, np.float32),
-                       np.array(scale, np.float32))
-        self._sq_dev = [tuple(torch.from_numpy(a).to(self._dev[s])
-                              for a in self._sq_np)
-                        if self._is_local(s) else None
-                        for s in range(self.n_shards)]
-        for b in self._builders:
-            b.sq_params = self._sq_np
-        self.is_trained = True
-
-    def _sq_encode(self, x: np.ndarray) -> np.ndarray:
-        """f32 -> x̂ on the host, in numpy as in the reference."""
-        off, sc = self._sq_np
-        u = np.clip(np.round((x - off) / sc), 0, 255).astype(np.float32)
-        return off + sc * u
+        self._codec.set_codec(params)
+        for st in self._storage:      # its tensors made once on each device
+            if st is not None:
+                st.set_codec(params)
 
     def add(self, x: np.ndarray) -> None:
         """Round-robin shard assignment; user ids are insertion order. Every
@@ -313,8 +288,7 @@ class ShardedHnswIndex:
                 raise ValueError(f"expected [n, {cfg.dim}], got {x.shape}")
             if not self.is_trained:
                 raise RuntimeError("sq8 storage: call train(x) before add()")
-            if cfg.is_sq:  # the whole build sees x̂; storage writes re-encode
-                x = self._sq_encode(x)
+            x = self._codec.encode(x)  # the build sees x̂, writes re-encode
             S = self.n_shards
             user_ids = np.arange(self._ntotal, self._ntotal + len(x))
             per_shard = [np.flatnonzero(user_ids % S == s) for s in range(S)]
@@ -367,7 +341,7 @@ class ShardedHnswIndex:
         if g.ntotal == 0:   # the first point of an empty shard
             lv0 = int(b._draw_levels(1)[0])
             if local:
-                b._seed_first(g, self._vectors[s], x[rows[0]], lv0)
+                b._seed_first(g, self._storage[s], x[rows[0]], lv0)
                 self._global_ids[s][0] = int(user_ids[rows[0]])
             else:
                 g.entry_point, g.max_level, g.ntotal = 0, lv0, 1
@@ -415,7 +389,7 @@ class ShardedHnswIndex:
         rows = np.concatenate([p[1] for p in parts]).astype(np.int64)
         self._global_ids[s][torch.from_numpy(rows).to(dev)] = \
             torch.from_numpy(np.concatenate(uids).astype(np.int32)).to(dev)
-        return self._builders[s].staged(g, self._vectors[s], plan, efc)
+        return self._builders[s].staged(g, self._storage[s], plan, efc)
 
     # ------------------------------------------------- packed serving mode
     @property
@@ -443,11 +417,11 @@ class ShardedHnswIndex:
         n_rows = max(1, int(self._counts.max()))
         self._packed = None          # free the old tables first
         self._packed = [
-            pack_neighbors(g.neighbors0, v, g.levels, bits=bits,
+            pack_neighbors(g.neighbors0, st, g.levels, bits=bits,
                            n_rows=n_rows, chunk=min(1 << 16, n_rows),
-                           dequant=self._sq(s), layout=layout)
-            if self._is_local(s) else None
-            for s, (g, v) in enumerate(zip(self._graphs, self._vectors))]
+                           layout=layout)
+            if st is not None else None
+            for g, st in zip(self._graphs, self._storage)]
         return sum(self._gather_objects(
             sum(p.nbytes for p in self._packed if p is not None)))
 
@@ -542,11 +516,10 @@ class ShardedHnswIndex:
             p = torch.from_numpy(permit).to(dev)
             allowed = (gids >= 0) & p[gids.clamp(min=0).long()]
         d, i = hnsw_search(
-            self._graphs[s], self._vectors[s], torch.from_numpy(x).to(dev),
+            self._graphs[s], self._storage[s], torch.from_numpy(x).to(dev),
             k=k, ef_search=ef, metric=self.config.metric,
             max_level_cap=self.config.max_level_cap, allowed=allowed,
-            packed=None if self._packed is None else self._packed[s],
-            dequant=self._sq(s))
+            packed=None if self._packed is None else self._packed[s])
         i = torch.where(i >= 0, gids[i.clamp(min=0).long()], -1)
         return d.to(merge_dev), i.to(merge_dev)
 
@@ -607,12 +580,11 @@ class ShardedHnswIndex:
             if live.size == 0:
                 return True, 0.0
             row = int(live[0])
-        sq = self._sq(s)
-        q = decode_rows(self._vectors[s][row:row + 1], sq)
-        d, i = hnsw_search(self._graphs[s], self._vectors[s], q, k=1,
-                           ef_search=8, metric=self.config.metric,
-                           max_level_cap=self.config.max_level_cap,
-                           dequant=sq)
+        st = self._storage[s]
+        q = st.decode(st.rows[row:row + 1])
+        d, i = hnsw_search(self._graphs[s], st, q, k=1, ef_search=8,
+                           metric=self.config.metric,
+                           max_level_cap=self.config.max_level_cap)
         d0 = float(d[0, 0])
         return int(i[0, 0]) == row and bool(np.isfinite(d0)), d0
 
@@ -641,7 +613,7 @@ class ShardedHnswIndex:
         return shards
 
     def _load_shard(self, z, s: int) -> None:
-        """Shard ``s``'s graph, vectors, user ids and scalars from an open
+        """Shard ``s``'s graph, rows, user ids and scalars from an open
         sharded ``.npz`` (the host keys ``entry`` / ``max_level`` /
         ``n_upper`` and ``counts`` give the scalars, as the reference's
         flush after a load does)."""
@@ -651,10 +623,8 @@ class ShardedHnswIndex:
                                device=dev) for f in TENSOR_FIELDS},
             entry_point=int(z["entry"][s]), max_level=int(z["max_level"][s]),
             ntotal=int(z["counts"][s]), n_upper=int(z["n_upper"][s]))
-        vec = z["vectors"][s]
-        if vec.dtype.kind == "V" and vec.dtype.itemsize == 2:
-            vec = vec.view(np.int16)     # the reference's bf16 bits
-        self._vectors[s] = vectors_tensor(vec, self.config, dev)
+        self._storage[s] = Storage.load(z["vectors"][s], self.config, dev,
+                                        self._codec.codec_arrays())
         self._global_ids[s] = torch.tensor(z["global_ids"][s],
                                            dtype=torch.int32, device=dev)
 
@@ -694,12 +664,12 @@ class ShardedHnswIndex:
         self._packed = None          # rows hold the pre-vacuum adjacency
         for s in self._local:
             g = self._graphs[s]
-            gids, vec, sq = self._global_ids[s], self._vectors[s], self._sq(s)
+            gids, st = self._global_ids[s], self._storage[s]
             removed = torch.from_numpy(self._removed).to(self._dev[s])
             dead = (gids >= 0) & removed[gids.clamp(min=0).long()]
-            vacuum_level0(g.neighbors0, vec, dead, metric=metric, dequant=sq)
-            vacuum_upper(g.upper_neighbors, g.upper_node, g.upper_slot, vec,
-                         dead, metric=metric, dequant=sq)
+            vacuum_level0(g.neighbors0, st, dead, metric=metric)
+            vacuum_upper(g.upper_neighbors, g.upper_node, g.upper_slot, st,
+                         dead, metric=metric)
             g.entry_point, g.max_level = live_entry_point(g.levels, dead)
         self._routing_clean = True
         return n_dead
@@ -744,8 +714,9 @@ class ShardedHnswIndex:
                                         for g in gs]) for f in TENSOR_FIELDS}
         arrs.update({f"graph_{f}": np.array([getattr(g, f) for g in gs],
                                             np.int32) for f in SCALAR_FIELDS})
-        vectors = np.stack([(v.float() if v.dtype == torch.bfloat16 else v)
-                            .cpu().numpy() for v in self._vectors])
+        vectors = np.stack([(st.rows.float() if st.rows.dtype == torch.bfloat16
+                             else st.rows).cpu().numpy()
+                            for st in self._storage])
         i64 = np.int64
         np.savez_compressed(
             path, vectors=vectors,
@@ -755,16 +726,14 @@ class ShardedHnswIndex:
             max_level=np.array([g.max_level for g in gs], i64),
             n_upper=np.array([g.n_upper for g in gs], i64),
             rng_states=np.bytes_(json.dumps(
-                [_jsonify(b.rng.bit_generator.state)
+                [jsonify(b.rng.bit_generator.state)
                  for b in self._builders]).encode()),
             removed=(self._removed if self._removed is not None
                      else np.zeros(0, bool)),
             routing_clean=np.bool_(self._routing_clean),
             shard_ok=self._shard_ok,
             config_json=np.bytes_(self.config.to_json()),
-            **({"sq_offset": self._sq_np[0], "sq_scale": self._sq_np[1]}
-               if self._sq_np is not None else {}),
-            **arrs)
+            **self._codec.codec_arrays(), **arrs)
 
     @classmethod
     def load(cls, path, *, mesh: Mesh | None = None) -> "ShardedHnswIndex":
@@ -780,8 +749,7 @@ class ShardedHnswIndex:
             if idx.n_shards != len(z["counts"]):
                 raise ValueError(f"index was saved with {len(z['counts'])} "
                                  f"shards; mesh has {idx.n_shards}")
-            if "sq_offset" in z.files:
-                idx._set_sq(z["sq_offset"], z["sq_scale"])
+            idx._codec.set_codec(z)
             for s in range(idx.n_shards):
                 if idx._is_local(s):
                     idx._load_shard(z, s)

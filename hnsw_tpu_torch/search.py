@@ -26,10 +26,10 @@ back on the final top-k only. Under ``HNSW_TPU_PALLAS_HOP=1`` every
 distance before the rerank (entry rescore, descent, hops) goes through K5
 ``fused_gather_distances``, and the packed expand is unchanged.
 
-Storage codecs: bf16 rows go through K3 (K5 under
-``HNSW_TPU_PALLAS_HOP=1``) and sq8 rows (uint8 + the per-dim affine,
-``dequant``) through K3 everywhere; PQ codes (``pq``) through ADC table
-lookups (``ops/pq.py``). Every distance is then exact over the stored x̂.
+The stored rows and their codec come as one ``ops/storage.Storage``, which
+picks each exact distance's kernel: K3 on f32, bf16 and sq8 rows (K5 for
+f32 and bf16 under ``HNSW_TPU_PALLAS_HOP=1``), ADC table lookups on PQ
+codes. Every distance is then exact over the stored x̂.
 """
 
 from __future__ import annotations
@@ -44,13 +44,11 @@ from .config import L2
 from .graph import GraphArrays
 from .graphs import EagerLoop
 from .ops import beam as beam_ops
-from .ops.dist_kernel import gathered_vec_dist_cur, gathered_vec_dist_ids
-from .ops.distances import decode_rows
 from .ops.entry_kernel import entry_scan
-from .ops.hop_kernel import fused_gather_distances
 from .ops.packed import (PackedNeighbors, PackedPQ, make_packed_dist,
                          make_packed_expand, make_packed_pq_dist,
                          make_packed_pq_expand)
+from .ops.storage import Storage
 
 INF = float("inf")
 
@@ -74,71 +72,6 @@ def _beam_kernel_off() -> bool:
     beam on every device. Any other value keeps the fused beam (the
     reference's choice on its own chip)."""
     return os.environ.get("HNSW_TPU_BEAM_KERNEL", "") == "0"
-
-
-def _make_distance_fn(vectors: torch.Tensor, queries: torch.Tensor,
-                      metric: str, pallas_hop: bool = False, dequant=None,
-                      pq=None):
-    """distance_to(ids [Q, K], mask) -> f32 [Q, K] surrogate distances,
-    exact over the stored vectors (x̂ for a codec):
-
-      * f32 / bf16 rows: K3, or K5 with ``pallas_hop`` (for every d: the
-        reference's d % 128 gate is a TPU lane limit; K5 widens bf16 rows
-        in registers where the reference copies the table to f32);
-      * sq8 rows (``dequant`` = (offset, scale)): K3 on the uint8 rows with
-        the affine in the kernel, under ``pallas_hop`` too, as the
-        reference's dequant path;
-      * PQ codes (``pq`` = codebooks): ADC of the gathered code rows by
-        lookups in per-query tables built once here (``ops/pq.py``,
-        PyTorch ops, as the reference's ADC is XLA).
-
-    On CPU tensors each kernel runs its plain version. Masked ids read row
-    0 and are to be ignored by the caller."""
-    qf = queries.float().contiguous()
-    if pq is not None:
-        from .ops.pq import adc_distance, pq_lut
-        lut = pq_lut(qf, pq, metric)                             # [Q, m, ksub]
-
-        def distance_to(ids: torch.Tensor, mask: torch.Tensor):
-            codes = vectors[torch.where(mask, ids, 0).long()]    # [Q, K, m]
-            return adc_distance(lut, codes)
-
-        return distance_to
-    if pallas_hop and dequant is None:
-        def distance_to(ids: torch.Tensor, mask: torch.Tensor):
-            safe = torch.where(mask, ids, 0).to(torch.int32)
-            return fused_gather_distances(vectors, safe, qf, metric=metric)
-
-        return distance_to
-
-    def distance_to(ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        safe = torch.where(mask, ids, 0).to(torch.int32)
-        return gathered_vec_dist_ids(vectors, safe, qf, dequant,
-                                     metric=metric)
-
-    return distance_to
-
-
-def _make_hop_distances(vectors: torch.Tensor, queries: torch.Tensor,
-                        neighbors0: torch.Tensor, metric: str, dequant=None,
-                        pq=None, distance_to=None):
-    """The fused beam's dist(cur [Q]) -> f32 [Q, m0] on unpacked rows: K3
-    by node (the adjacency row ``neighbors0[cur]`` read in the kernel) on
-    f32, bf16 and sq8 rows; on PQ codes ``distance_to`` over the gathered
-    adjacency row (a cur of -1 reads the last row, not to be read)."""
-    if pq is not None:
-        def dist(cur: torch.Tensor) -> torch.Tensor:
-            nbrs = neighbors0[cur]
-            return distance_to(nbrs, nbrs >= 0)
-
-        return dist
-    qf = queries.float().contiguous()
-
-    def dist(cur: torch.Tensor) -> torch.Tensor:
-        return gathered_vec_dist_cur(vectors, neighbors0, cur, qf, dequant,
-                                     metric=metric)
-
-    return dist
 
 
 def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
@@ -194,19 +127,19 @@ def greedy_descend(graph: GraphArrays, distance_to, entry: torch.Tensor,
     return s["cur"], s["curd"]
 
 
-def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
-                  queries: torch.Tensor, metric: str, dequant=None, *,
+def _sample_seeds(graph: GraphArrays, storage: Storage,
+                  queries: torch.Tensor, metric: str, *,
                   n_sample: int, n_seeds: int, ntotal=None) -> torch.Tensor:
     """Entry seeds from one dense scan over an evenly strided sample of
     ``n_sample`` ids in [0, ntotal): the sample is cut into ``n_seeds``
     equal contiguous strata and each stratum's argmin is returned, int32
     [Q, n_seeds] (-1 where a stratum had no live candidate). Sampled ids
-    must be inserted and non-isolated. sq8 rows are dequantized with
-    ``dequant``. ``ntotal``: a 0-d tensor (a captured search reads it at
+    must be inserted and non-isolated; their rows are decoded to x̂.
+    ``ntotal``: a 0-d tensor (a captured search reads it at
     replay), else ``graph.ntotal``. The scan is K6 ``entry_scan`` on the
     card (``ops/entry_kernel.py``); the caller rescores the seeds
     exactly."""
-    dev = vectors.device
+    dev = storage.rows.device
     if ntotal is None:
         ntotal = torch.tensor(graph.ntotal, dtype=torch.int64, device=dev)
     nt = ntotal.to(torch.int64).clamp(min=1)
@@ -214,7 +147,7 @@ def _sample_seeds(graph: GraphArrays, vectors: torch.Tensor,
     step, rem = nt // n_sample, nt % n_sample
     ids = torch.minimum(a * step + (a * rem) // n_sample, nt - 1)
     ok = (graph.levels[ids] >= 0) & (graph.neighbors0[ids, 0] >= 0)
-    sv = decode_rows(vectors[ids], dequant)                      # [S, d]
+    sv = storage.read(ids)                                       # [S, d]
     svsq = (sv * sv).sum(1)
     j = entry_scan(queries, sv, svsq, ok, n_seeds, metric)      # [Q, E]
     base = torch.arange(n_seeds, device=dev)[None, :] * (n_sample // n_seeds)
@@ -233,13 +166,6 @@ def ef_bucket(ef: int) -> int:
     """Beam-buffer width for a requested efSearch: the next power of two
     >= ef (min 32). The true ef masks the tail (``ef_live``)."""
     return max(32, 1 << (int(ef) - 1).bit_length())
-
-
-def compute_sqnorms(vectors: torch.Tensor, dequant=None) -> torch.Tensor:
-    """||x||² per row; with ``dequant`` = (offset, scale), ||x̂||² of the
-    dequantized codes."""
-    v = decode_rows(vectors, dequant)
-    return (v * v).sum(-1)
 
 
 class _Statics(NamedTuple):
@@ -265,14 +191,13 @@ class _Statics(NamedTuple):
     chunk: int              # graphs.LOOP_CHUNK
 
 
-def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
+def hnsw_search(graph: GraphArrays, storage: Storage,
                 queries: torch.Tensor, *, k: int, ef_search: int,
                 metric: str = L2, max_level_cap: int = 6, max_hops: int = 0,
                 n_expand: int = 1, with_stats: bool = False,
                 visited_mode: str = "buffer",
                 allowed: torch.Tensor | None = None,
                 packed: PackedNeighbors | PackedPQ | None = None,
-                dequant=None, pq=None,
                 beam_keys: str = "auto", entry_mode: str = "auto"):
     """Batched k-NN. Returns (dists [Q, k] f32, ids [Q, k] int32), ascending;
     ids are -1 (dist inf) past the reachable set. ``with_stats`` adds
@@ -283,9 +208,8 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     (filtered: runs to convergence); > 0 sets the cap; < 0 runs to
     convergence. ``packed``: route on the packed 8/4-bit code rows or on
     PQ-coded rows (``ops/packed.py``); the final buffer is re-ranked with
-    storage-grade distances either way. ``dequant`` = (offset, scale) for
-    sq8 storage (uint8 ``vectors``), ``pq`` = codebooks for PQ storage
-    (``vectors`` holds the codes): every distance is then exact over x̂.
+    storage-grade distances either way. ``storage``: the stored rows and
+    their codec (``ops/storage.py``); every distance is exact over x̂.
     ``entry_mode``: "sample" (default via "auto"), "seed" (the fused beam
     starts from up to 16 stratified seeds; the legacy beam from the best)
     or "descend" (faiss's greedy upper-level walk). PQ storage always
@@ -314,26 +238,25 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     then waits in ``hnsw.search.wait``."""
     with trace.span("hnsw.search.plan"):
         st, key, refs, inputs = _plan(
-            graph, vectors, queries, k=k, ef_search=ef_search,
+            graph, storage, queries, k=k, ef_search=ef_search,
             metric=metric, max_level_cap=max_level_cap, max_hops=max_hops,
             n_expand=n_expand, with_stats=with_stats,
             visited_mode=visited_mode, allowed=allowed, packed=packed,
-            dequant=dequant, pq=pq, beam_keys=beam_keys,
-            entry_mode=entry_mode)
+            beam_keys=beam_keys, entry_mode=entry_mode)
 
     def body(inputs, loop):
-        return _search_body(inputs, loop, st, graph, vectors, packed,
-                            dequant, pq)
+        return _search_body(inputs, loop, st, graph, storage, packed)
 
-    on_card = vectors.device.type == "cuda"
+    dev = storage.rows.device
+    on_card = dev.type == "cuda"
     if st.fused:
         trace.count("searches.kernel_hop" if on_card
                     else "searches.composed_hop")
     if st.n_sample:
         trace.count("searches.kernel_entry" if on_card
                     else "searches.composed_entry")
-    with trace.Phases("hnsw.search", vectors.device, with_stats) as ph:
-        if graphs.capturing_enabled(vectors.device):
+    with trace.Phases("hnsw.search", dev, with_stats) as ph:
+        if graphs.capturing_enabled(dev):
             out = graphs.replay_or_capture(key, refs, inputs, body,
                                            split=with_stats, phases=ph)
         else:
@@ -349,20 +272,20 @@ def hnsw_search(graph: GraphArrays, vectors: torch.Tensor,
     return out_d, out_i
 
 
-def search_key(graph: GraphArrays, vectors: torch.Tensor,
+def search_key(graph: GraphArrays, storage: Storage,
                queries: torch.Tensor, **kw) -> tuple:
-    """The capture key of ``hnsw_search(graph, vectors, queries, **kw)``:
+    """The capture key of ``hnsw_search(graph, storage, queries, **kw)``:
     its statics and the identity (pointer, shape, dtype, strides) of every
     index tensor the search reads. Runtime values are not in it: the
     queries (beyond their padded shape), ef within its bucket, hop_limit,
     the graph's scalars and the filter's contents."""
-    return _plan(graph, vectors, queries, **kw)[1]
+    return _plan(graph, storage, queries, **kw)[1]
 
 
-def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
+def _plan(graph, storage, queries, *, k, ef_search, metric=L2,
           max_level_cap=6, max_hops=0, n_expand=1, with_stats=False,
-          visited_mode="buffer", allowed=None, packed=None, dequant=None,
-          pq=None, beam_keys="auto", entry_mode="auto"):
+          visited_mode="buffer", allowed=None, packed=None, beam_keys="auto",
+          entry_mode="auto"):
     """(statics, key, index tensors, runtime inputs) of one search."""
     if beam_keys not in ("auto", "bf16", "f32"):
         raise ValueError(f"beam_keys must be auto|bf16|f32, got {beam_keys!r}")
@@ -372,7 +295,8 @@ def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
     if entry_mode not in ("auto", "sample", "seed", "descend"):
         raise ValueError(
             f"entry_mode must be auto|sample|seed|descend, got {entry_mode!r}")
-    if pq is not None:
+    pq_rows = storage.pq is not None
+    if pq_rows:
         entry_mode = "descend"
     elif entry_mode == "auto":
         entry_mode = "sample"
@@ -390,16 +314,16 @@ def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
     if beam_keys == "auto":
         # bf16 keys where routing is quantized already (packed rows, PQ's
         # ADC)
-        key_dtype = "bfloat16" if (packed is not None or pq is not None) \
+        key_dtype = "bfloat16" if (packed is not None or pq_rows) \
             else "float32"
     else:
         key_dtype = "bfloat16" if beam_keys == "bf16" else "float32"
     n_sample = n_seeds = 0
     if entry_mode in ("sample", "seed"):
-        n_sample = entry_sample_size(vectors.shape[0])
+        n_sample = entry_sample_size(storage.rows.shape[0])
         n_seeds = (min(16, ef_buf // 2) if entry_mode == "seed"
                    else max(1, n_sample // 4096))
-    dev = vectors.device
+    dev = storage.rows.device
     qn, d = queries.shape
     q_rows = graphs.padded_rows(qn, dev)
     st = _Statics(
@@ -412,16 +336,12 @@ def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
         chunk=graphs.LOOP_CHUNK)
 
     refs = [graph.neighbors0, graph.levels, graph.upper_slot,
-            graph.upper_node, graph.upper_neighbors, vectors]
+            graph.upper_node, graph.upper_neighbors, *storage.refs()]
     if isinstance(packed, PackedPQ):
         refs += [packed.nbr_codes, packed.cb]
     elif packed is not None:
         refs += [packed.nbr_codes, packed.nbr_sq, packed.scale,
                  packed.offset]
-    if dequant is not None:
-        refs += list(dequant)
-    if pq is not None:
-        refs.append(pq)
     key = (st, type(packed).__name__,
            None if not isinstance(packed, PackedPQ) else packed.pq_bits, d,
            tuple(graphs.tensor_identity(t) for t in refs))
@@ -438,7 +358,7 @@ def _plan(graph, vectors, queries, *, k, ef_search, metric=L2,
 
 
 def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
-                 vectors: torch.Tensor, packed, dequant, pq) -> dict:
+                 storage: Storage, packed) -> dict:
     """The search as one program over ``inputs`` (padded queries; the
     runtime scalars ef_live, hop_limit, entry point, max level, ntotal and
     the real query count; the filter), with its loops run and its phases
@@ -454,12 +374,11 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
     qn = queries.shape[0]
     dev = queries.device
     active = torch.arange(qn, device=dev) < n_queries    # padded rows: False
-    distance_to = _make_distance_fn(vectors, queries, metric, st.pallas_hop,
-                                    dequant, pq)
+    distance_to = storage.distance_fn(queries, metric, st.pallas_hop)
 
     ep = entry_point.to(torch.int32).expand(qn).contiguous()
     if st.entry_mode in ("sample", "seed"):
-        seeds = _sample_seeds(graph, vectors, queries, metric, dequant,
+        seeds = _sample_seeds(graph, storage, queries, metric,
                               n_sample=st.n_sample, n_seeds=st.n_seeds,
                               ntotal=ntotal)
         # seeds + the global entry point (the fallback when every sampled
@@ -512,8 +431,8 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
     bound = ef_buf + 8 if st.bounded else None
     if st.fused:
         if hop_dist is None:
-            hop_dist = _make_hop_distances(vectors, queries, neighbors0,
-                                           metric, dequant, pq, distance_to)
+            hop_dist = storage.hop_distances(queries, neighbors0, metric,
+                                             distance_to)
         state = beam_ops.beam_search_fused(
             ep0, ep0_dist, neighbors0, hop_dist, ef=ef_buf,
             max_hops=4 * ef_buf + 16, ef_live=live_width,
@@ -522,7 +441,7 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
         # the legacy beam starts from the single best entry ("seed" is a
         # fused-beam feature)
         state = beam_ops.init_beam(ep0[:, 0], ep0_dist[:, 0], ef_buf,
-                                   vectors.shape[0], ep0[:, 0] >= 0,
+                                   storage.rows.shape[0], ep0[:, 0] >= 0,
                                    visited_mode=st.visited_mode,
                                    key_dtype=getattr(torch, st.key_dtype))
         if allowed is not None:
@@ -540,13 +459,7 @@ def _search_body(inputs: dict, loop, st: _Statics, graph: GraphArrays,
     # exact ADC: routing may have been quantized, the returned distances
     # are exact over the stored vectors
     src = state.res_ids if allowed is not None else state.buf_ids
-    if pq is not None:
-        from .ops.pq import adc_distance, pq_lut
-        ex = adc_distance(pq_lut(queries, pq, metric),
-                          vectors[src.clamp(min=0).long()])
-    else:
-        ex = gathered_vec_dist_ids(vectors, src.clamp(min=0), queries,
-                                   dequant, metric=metric)
+    ex = storage.rerank(src, queries, metric)
     ids, dist = beam_ops.dedup_sorted_buffer(
         src, torch.where(src >= 0, ex, INF))
     out_d, out_i = dist[:, :st.k], ids[:, :st.k]

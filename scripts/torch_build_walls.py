@@ -62,7 +62,9 @@ def arrays(idx) -> list:
     """Every graph tensor, scalar and stored row of ``idx``."""
     from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS
     graphs = getattr(idx, "_graphs", None) or [idx._graph]
-    vecs = idx._vectors if isinstance(idx._vectors, list) else [idx._vectors]
+    stores = idx._storage if isinstance(idx._storage, list) \
+        else [idx._storage]
+    vecs = [st.rows for st in stores]
     out = []
     for g, v in zip(graphs, vecs):
         out += [getattr(g, f) for f in TENSOR_FIELDS]

@@ -16,6 +16,7 @@ from hnsw_tpu.ops.repair import apply_backlinks as ref_backlinks
 from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch.ops.prune import select_neighbors
 from hnsw_tpu_torch.ops.repair import apply_backlinks
+from hnsw_tpu_torch.ops.storage import Storage
 
 from conftest import exact_knn
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
@@ -74,8 +75,8 @@ def test_apply_backlinks_matches_reference(seed):
     got, drop = apply_backlinks(
         torch.from_numpy(adj.copy()), torch.from_numpy(dst),
         torch.from_numpy(dst), torch.from_numpy(src),
-        torch.from_numpy(valid), torch.from_numpy(vectors), r_window=r,
-        metric="l2")
+        torch.from_numpy(valid), Storage(torch.from_numpy(vectors)),
+        r_window=r, metric="l2")
     np.testing.assert_array_equal(got.numpy(), np.asarray(r_adj))
     assert int(drop) == int(r_drop) > 0
 

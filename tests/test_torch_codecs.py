@@ -19,12 +19,12 @@ from hnsw_tpu.ops.packed import make_packed_pq_expand as ref_pq_expand
 from hnsw_tpu.ops.packed import quantization_params as ref_qparams
 from hnsw_tpu.ops.packed import quantize_codes as ref_qcodes
 from hnsw_tpu.utils.recall import recall_at_k
-from hnsw_tpu_torch.build import _encode_rows
 from hnsw_tpu_torch.ops import pq
 from hnsw_tpu_torch.ops.distances import brute_force_topk
 from hnsw_tpu_torch.ops.packed import (make_packed_pq_expand, pack_neighbors,
                                        pack_pq_neighbors, quantization_params,
                                        quantize_codes)
+from hnsw_tpu_torch.ops.storage import Storage
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
@@ -48,8 +48,8 @@ def test_config_storage_properties_match_reference(kw):
 
 
 def test_sq_params_codes_and_encode_bit_for_bit():
-    """quantization_params, quantize_codes, HnswIndex.train and _sq_encode
-    (numpy on the host) give the reference's bits."""
+    """quantization_params, quantize_codes, HnswIndex.train and the
+    storage's host encode (numpy) give the reference's bits."""
     rng = np.random.default_rng(0)
     x = (rng.normal(size=(700, 24)) * rng.uniform(0.1, 5, 24)).astype(
         np.float32)
@@ -68,10 +68,11 @@ def test_sq_params_codes_and_encode_bit_for_bit():
                                     device="cpu")
     ref.train(x)
     port.train(x)
-    for a, b in zip(port._sq_np, ref._sq_np):
+    arrays = port._storage.codec_arrays()
+    for a, b in zip((arrays["sq_offset"], arrays["sq_scale"]), ref._sq_np):
         np.testing.assert_array_equal(a, b)
     q = (x + rng.normal(size=x.shape).astype(np.float32)) * 1.1  # clips too
-    np.testing.assert_array_equal(port._sq_encode(q), ref._sq_encode(q))
+    np.testing.assert_array_equal(port._storage.encode(q), ref._sq_encode(q))
 
 
 def test_bf16_storage_write_bit_for_bit():
@@ -80,7 +81,9 @@ def test_bf16_storage_write_bit_for_bit():
     rng = np.random.default_rng(1)
     x = rng.normal(size=(500, 24)).astype(np.float32)
     x[0, :4] = [1 + 2 ** -8, 1 + 3 * 2 ** -8, 1e-40, -0.0]   # ties, subnormal
-    got = _encode_rows(t(x), torch.bfloat16, None, None)
+    st = Storage(torch.zeros((500, 24), dtype=torch.bfloat16))
+    st.write(slice(None), t(x))
+    got = st.rows
     want = np.asarray(jnp.asarray(x).astype(jnp.bfloat16)).view(np.uint16)
     np.testing.assert_array_equal(got.view(torch.int16).numpy().view(
         np.uint16), want)
@@ -289,8 +292,8 @@ def test_pack_neighbors_from_sq8_storage_bit_for_bit(small_graph, bits):
                    jnp.asarray(g.levels),
                    bits=bits, n_rows=n,
                    dequant=(jnp.asarray(off.numpy()), jnp.asarray(sc.numpy())))
-    got = pack_neighbors(t(g.neighbors0), codes, t(g.levels), bits=bits,
-                         n_rows=n, dequant=(off, sc))
+    got = pack_neighbors(t(g.neighbors0), Storage(codes, sq=(off, sc)),
+                         t(g.levels), bits=bits, n_rows=n)
     np.testing.assert_array_equal(got.nbr_codes.numpy(),
                                   np.asarray(ref.nbr_codes)[:n])
     np.testing.assert_array_equal(got.offset.numpy(), np.asarray(ref.offset))
@@ -369,7 +372,7 @@ def builds(workload):
                                             device="cpu", **IDX, **kw)
             ref.train(workload.base)
             if dtype == "pq":
-                port._set_pq(ref._pq_np)
+                port._storage.set_codec({"pq_codebooks": ref._pq_np})
             else:
                 port.train(workload.base)
             ref.add(workload.base)

@@ -806,7 +806,7 @@ def test_sharded_nan_shard_probe_on_card(card, tmp_path):
     d0, i0 = idx.search(wl.queries, 10, ef_search=64)
     p = str(tmp_path / "ckpt.npz")
     idx.save(p)
-    idx._vectors[2].fill_(float("nan"))
+    idx._storage[2].rows.fill_(float("nan"))
     report = idx.health_check()
     assert [r["shard"] for r in report if not r["ok"]] == [2], report
     _, i = idx.search(wl.queries, 10, ef_search=64)
@@ -958,16 +958,16 @@ def test_replay_counts_its_launches_on_card(card, monkeypatch, max_hops):
 def test_failed_capture_raises_on_card(card, monkeypatch):
     """A search whose program reads the card mid-capture raises; nothing
     falls back to the eager loop."""
-    import hnsw_tpu_torch.search as search
+    import hnsw_tpu_torch.ops.storage as storage
     idx, wl = _replay_index(card)
-    orig = search.gathered_vec_dist_ids
+    orig = storage.gathered_vec_dist_ids
 
     def reads(*a, **kw):
         out = orig(*a, **kw)
         float(out.sum())             # a host read: illegal in a capture
         return out
 
-    monkeypatch.setattr(search, "gathered_vec_dist_ids", reads)
+    monkeypatch.setattr(storage, "gathered_vec_dist_ids", reads)
     with pytest.raises(RuntimeError, match="capture failed"):
         idx.search(wl.queries, 10, ef_search=40)
     monkeypatch.undo()
@@ -987,8 +987,8 @@ def _build_twins(card, dtype="float32", n=10_000, d=32, seed=21):
     for eager in (True, False):
         idx = HnswIndex(d, 8, capacity=4 * n, ef_construction=60,
                         dtype=dtype, device=card, **kw)
-        if out and dtype == "pq":
-            idx._set_pq(out[0]._pq_np)      # the same codebooks
+        if out and dtype == "pq":     # the same codebooks
+            idx._storage.set_codec(out[0]._storage.codec_arrays())
         else:
             idx.train(wl.base)
         _cuda.reset_launch_counts()
@@ -1010,7 +1010,7 @@ def _assert_same_graph(a, b, n):
         assert torch.equal(getattr(a._graph, f), getattr(b._graph, f)), f
     for f in SCALAR_FIELDS:
         assert getattr(a._graph, f) == getattr(b._graph, f), f
-    assert torch.equal(a._vectors, b._vectors)
+    assert torch.equal(a.vectors, b.vectors)
     lv = b._graph.levels.cpu()
     assert b.ntotal == n and (lv[:n] >= 0).all() and (lv[n:] == -1).all()
     assert (b._graph.neighbors0[:n, 0] >= 0).all()
@@ -1069,7 +1069,7 @@ def test_captured_sharded_build_equals_eager_on_card(card):
             assert torch.equal(getattr(a, f), getattr(b, f)), (s, f)
         for f in SCALAR_FIELDS:
             assert getattr(a, f) == getattr(b, f), (s, f)
-        assert torch.equal(eager._vectors[s], captured._vectors[s])
+        assert torch.equal(eager._storage[s].rows, captured._storage[s].rows)
         assert torch.equal(eager._global_ids[s], captured._global_ids[s])
     assert sum(st["replayed"] for st in captured.last_build_stats) > 0
 
@@ -1633,6 +1633,7 @@ def test_sample_seeds_below_the_sample_on_card(card, monkeypatch, n_seeds,
 
     from hnsw_tpu_torch import search
     from hnsw_tpu_torch.ops import entry_kernel as ek
+    from hnsw_tpu_torch.ops.storage import Storage
     g = torch.Generator(device=card).manual_seed(3)
     n, d = 100, 96
     levels = torch.zeros(n, dtype=torch.int32, device=card)
@@ -1651,9 +1652,10 @@ def test_sample_seeds_below_the_sample_on_card(card, monkeypatch, n_seeds,
     queries[-64:] = 0
     kw = dict(n_sample=128, n_seeds=n_seeds,
               ntotal=torch.tensor(n, device=card))
-    got = search._sample_seeds(graph, vectors, queries, "l2", dequant, **kw)
+    storage = Storage(vectors, sq=dequant)
+    got = search._sample_seeds(graph, storage, queries, "l2", **kw)
     monkeypatch.setattr(search, "entry_scan", ek.entry_scan_plain)
-    want = search._sample_seeds(graph, vectors, queries, "l2", dequant, **kw)
+    want = search._sample_seeds(graph, storage, queries, "l2", **kw)
     assert torch.equal(got, want)
 
 

@@ -30,6 +30,7 @@ from hnsw_tpu.search import hnsw_search as ref_search
 from hnsw_tpu_torch import graphs, trace
 from hnsw_tpu_torch import search as port_search
 from hnsw_tpu_torch.graph import graph_from_numpy
+from hnsw_tpu_torch.ops.storage import Storage
 from hnsw_tpu_torch.utils.datasets import synthetic_workload
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
@@ -39,11 +40,12 @@ K = 10
 
 @pytest.fixture(scope="module")
 def shared(host_index, small_workload):
-    """conftest's NumPy-built graph as the port's tensors and the
-    reference's arrays, and the queries."""
+    """conftest's NumPy-built graph as the port's tensors and storage and
+    the reference's arrays, and the queries."""
     g = host_index.to_graph_arrays()
     v = jnp.asarray(host_index.vectors)
-    return (graph_from_numpy(g, "cpu"), torch.from_numpy(host_index.vectors),
+    return (graph_from_numpy(g, "cpu"),
+            Storage(torch.from_numpy(host_index.vectors)),
             g, v, compute_sqnorms(v), small_workload.queries)
 
 
@@ -80,7 +82,7 @@ def port_run(shared, kw, queries=None):
     d, i, st = port_search.hnsw_search(
         tg, tv, torch.from_numpy(q if queries is None else queries), k=K,
         metric="l2", max_level_cap=6, with_stats=True,
-        **port_kw(kw, tv.shape[0]))
+        **port_kw(kw, tv.rows.shape[0]))
     return d.numpy(), i.numpy(), st.hops, st.ndis.numpy()
 
 
@@ -98,7 +100,7 @@ def test_loop_forms_match_reference(shared, case, monkeypatch):
     _, tv, g, v, sq, q = shared
     rkw = dict(kw)
     if rkw.get("allowed") == "even":
-        rkw["allowed"] = jnp.asarray(even_mask(tv.shape[0]))
+        rkw["allowed"] = jnp.asarray(even_mask(tv.rows.shape[0]))
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     rd, ri, rst = ref_search(g, v, sq, jnp.asarray(q), k=K, metric="l2",
@@ -111,7 +113,7 @@ def test_loop_forms_match_reference(shared, case, monkeypatch):
     ndis, rndis = int(got[3].sum()), int(np.asarray(rst.ndis).sum())
     assert abs(ndis - rndis) <= 0.005 * rndis, (ndis, rndis)
     if "allowed" in kw:
-        assert even_mask(tv.shape[0])[got[1][got[1] >= 0]].all()
+        assert even_mask(tv.rows.shape[0])[got[1][got[1] >= 0]].all()
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -187,7 +189,7 @@ def test_reads_a_search(shared, case, monkeypatch):
         d, i, st = port_search.hnsw_search(
             shared[0], shared[1], torch.from_numpy(shared[5]), k=K,
             metric="l2", max_level_cap=6, with_stats=True,
-            **port_kw(kw, shared[1].shape[0]))
+            **port_kw(kw, shared[1].rows.shape[0]))
         reads = host_reads() - before
     counts = counting_loops(monkeypatch)
     port_run(shared, kw)
@@ -233,12 +235,12 @@ def test_padded_rows_come_back_empty(shared, case, monkeypatch):
     monkeypatch.setattr(graphs, "CPU_Q_ALIGN", 64)
     assert graphs.padded_rows(100, torch.device("cpu")) == 128
     assert_same_run(port_run(shared, kw, q), want)
-    graph, vectors = shared[0], shared[1]
+    graph, storage = shared[0], shared[1]
     st, _, _, inputs = port_search._plan(
-        graph, vectors, torch.from_numpy(q), k=K,
-        **port_kw(kw, vectors.shape[0]))
+        graph, storage, torch.from_numpy(q), k=K,
+        **port_kw(kw, storage.rows.shape[0]))
     out = port_search._search_body(inputs, graphs.EagerLoop(), st, graph,
-                                   vectors, None, None, None)
+                                   storage, None)
     assert (out["i"][100:] == -1).all() and (out["ndis"][100:] == 0).all()
     assert torch.isinf(out["d"][100:]).all()
 

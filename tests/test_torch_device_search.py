@@ -16,6 +16,7 @@ from hnsw_tpu.search import hnsw_search as ref_search
 from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch import search as port_search
 from hnsw_tpu_torch.graph import graph_from_numpy
+from hnsw_tpu_torch.ops.storage import Storage
 
 from conftest import exact_knn
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
@@ -25,7 +26,7 @@ def _search(host_idx, queries, k, ef, **kw):
     """The port's search of a NumpyHnsw's graph: (D, I[, stats]) numpy."""
     out = port_search.hnsw_search(
         graph_from_numpy(host_idx.to_graph_arrays(), "cpu"),
-        torch.from_numpy(host_idx.vectors), torch.from_numpy(queries),
+        Storage(torch.from_numpy(host_idx.vectors)), torch.from_numpy(queries),
         k=k, ef_search=ef, metric=host_idx.cfg.metric,
         max_level_cap=host_idx.cfg.max_level_cap, **kw)
     return (out[0].numpy(), out[1].numpy()) + tuple(out[2:])

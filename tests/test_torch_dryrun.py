@@ -82,7 +82,7 @@ def test_dryrun_matches_reference(capsys):
         "[dryrun] remove_ids + sharded vacuum OK (8 ids gone)"]
     assert out["mesh"] == {"shard": 4, "q": 2}
     assert min(out["recalls"].values()) > 0.95
-    assert all(t.device == CPU for t in out["index"]._vectors)
+    assert all(st.rows.device == CPU for st in out["index"]._storage)
 
     # the reference's build and fan-out search on the same inputs
     rng = np.random.default_rng(7)

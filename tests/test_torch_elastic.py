@@ -75,7 +75,7 @@ def test_health_check_detects_corruption_and_restore_recovers(tmp_path):
     d_full, i_full = idx.search(q, k=10, ef_search=64)
     p = str(tmp_path / "ckpt.npz")
     idx.save(p)
-    idx._vectors[2].fill_(float("nan"))
+    idx._storage[2].rows.fill_(float("nan"))
     report = idx.health_check()
     assert [r["shard"] for r in report if not r["ok"]] == [2], report
     assert "probe" in report[2]["errors"][0]
@@ -142,7 +142,8 @@ def test_checkpointed_build_resume_is_bit_identical(tmp_path):
         for f, v in vars(ga).items():
             assert (torch.equal(v, getattr(gc, f)) if torch.is_tensor(v)
                     else v == getattr(gc, f)), f
-    for x, y in zip(a._global_ids + a._vectors, c._global_ids + c._vectors):
+    for x, y in zip(a._global_ids + [st.rows for st in a._storage],
+                    c._global_ids + [st.rows for st in c._storage]):
         assert torch.equal(x, y)
     assert [s.rng.random() for s in a._builders] == \
         [s.rng.random() for s in c._builders]
@@ -198,7 +199,7 @@ def test_restore_from_a_reference_checkpoint(tmp_path):
         np.testing.assert_allclose(d[same], rd[same], rtol=1e-5, atol=1e-5)
 
     same_as_reference()
-    port._vectors[1].fill_(float("nan"))
+    port._storage[1].rows.fill_(float("nan"))
     port._graphs[1].neighbors0.fill_(-1)
     assert [r["shard"] for r in port.health_check() if not r["ok"]] == [1]
     assert port.restore_shards(p) == [1]

@@ -19,6 +19,7 @@ from hnsw_tpu_torch import search, trace
 from hnsw_tpu_torch.config import IP, L2
 from hnsw_tpu_torch.ops import entry_kernel
 from hnsw_tpu_torch.ops.distances import decode_rows
+from hnsw_tpu_torch.ops.storage import Storage
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
@@ -114,8 +115,9 @@ def test_plain_scan_equals_composed_bit_for_bit(name):
     graph, vectors, q, dequant = scan_case(n, d, n_sample, 11, codec=codec,
                                            n_seeds=n_seeds, **kw)
     nt = torch.tensor(n)
-    got = search._sample_seeds(graph, vectors, q, metric, dequant,
-                               n_sample=n_sample, n_seeds=n_seeds, ntotal=nt)
+    got = search._sample_seeds(graph, Storage(vectors, sq=dequant), q,
+                               metric, n_sample=n_sample, n_seeds=n_seeds,
+                               ntotal=nt)
     want = composed_sample_seeds(graph, vectors, q, metric, dequant,
                                  n_sample=n_sample, n_seeds=n_seeds,
                                  ntotal=nt, tile_q=40)
@@ -159,8 +161,8 @@ def test_sample_seeds_match_the_reference(name):
     n, d, n_sample, n_seeds, metric, codec, kw = CASES[name]
     graph, vectors, q, dequant = scan_case(n, d, n_sample, 11, codec=codec,
                                            n_seeds=n_seeds, **kw)
-    got = search._sample_seeds(graph, vectors, q, metric, dequant,
-                               n_sample=n_sample, n_seeds=n_seeds,
+    got = search._sample_seeds(graph, Storage(vectors, sq=dequant), q,
+                               metric, n_sample=n_sample, n_seeds=n_seeds,
                                ntotal=torch.tensor(n))
     ref_graph = SimpleNamespace(levels=jnp.asarray(graph.levels.numpy()),
                                 neighbors0=jnp.asarray(

@@ -75,7 +75,7 @@ def drive(idx, wl, load_path=None):
                           ef_construction=EFC, seed=SEED, dtype="sq8")
     sq.train(wl.base)
     sq.add(wl.base)
-    out["sq_offset"], out["sq_scale"] = sq._sq_np
+    out.update(sq._codec.codec_arrays())
     out["D_sq8"], out["I_sq8"] = sq.search(wl.queries, K, ef_search=EF)
     cap = sharded.upper_batch_cap
     sharded.upper_batch_cap = lambda size, m: 2
@@ -102,7 +102,7 @@ def shard_arrays(idx, prefix: str = "") -> dict:
             out[p + f] = getattr(g, f).cpu().numpy()
         for f in SCALAR_FIELDS:
             out[p + f] = np.int64(getattr(g, f))
-        out[p + "vectors"] = idx._vectors[s].cpu().numpy()
+        out[p + "vectors"] = idx._storage[s].rows.cpu().numpy()
         out[p + "global_ids"] = idx._global_ids[s].cpu().numpy()
     return out
 

@@ -21,6 +21,7 @@ from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch.ops import packed
 from hnsw_tpu_torch.ops.packed import (_pack_nibbles, pack_neighbors,
                                        quantize_codes)
+from hnsw_tpu_torch.ops.storage import Storage
 
 from conftest import exact_knn
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
@@ -143,7 +144,8 @@ def test_update_packed_rows_match_reference(kind):
     kw = dict(bits=bits, n_rows=600, chunk=256, layout=layout)
     ref = ref_packed.pack_neighbors(jnp.asarray(nb), jnp.asarray(vec),
                                     jnp.asarray(levels), dequant=rdeq, **kw)
-    port = pack_neighbors(t(nb), t(vec), t(levels), dequant=deq, **kw)
+    st = Storage(t(vec), sq=deq)
+    port = pack_neighbors(t(nb), st, t(levels), **kw)
     assert port.nbr_codes.shape == (768, ref.nbr_codes.shape[1])
     np.testing.assert_array_equal(port.nbr_codes.numpy(),
                                   np.asarray(ref.nbr_codes))
@@ -153,13 +155,13 @@ def test_update_packed_rows_match_reference(kind):
         ref.nbr_codes, ref.nbr_sq, jnp.asarray(nb2), jnp.asarray(vec),
         ref.offset, ref.scale, jnp.asarray(ids), rdeq, bits=bits)
     pc, ps = packed.update_packed_rows(
-        port.nbr_codes, port.nbr_sq, t(nb2), t(vec), port.offset, port.scale,
-        t(ids), deq, bits=bits)
+        port.nbr_codes, port.nbr_sq, t(nb2), st, port.offset, port.scale,
+        t(ids), bits=bits)
     assert pc is port.nbr_codes                        # in place
     np.testing.assert_array_equal(pc.numpy(), np.asarray(rc))
     np.testing.assert_allclose(ps.numpy(), np.asarray(rs), rtol=1e-6)
     # and it is the table a fresh pack of the new adjacency holds there
-    fresh = pack_neighbors(t(nb2), t(vec), t(levels), dequant=deq, **kw)
+    fresh = pack_neighbors(t(nb2), st, t(levels), **kw)
     rows = np.unique(ids[ids >= 0])
     np.testing.assert_array_equal(pc.numpy()[rows],
                                   fresh.nbr_codes.numpy()[rows])
@@ -281,7 +283,7 @@ def test_words_layout_incremental_maintenance(f32):
     idx.enable_packed(bits=8, layout="words")
     idx.add(wl.base[:8])
     assert idx.packed_enabled and idx._packed.layout == "words"
-    fresh = pack_neighbors(idx.graph.neighbors0, idx.vectors,
+    fresh = pack_neighbors(idx.graph.neighbors0, idx._storage,
                            idx.graph.levels, bits=8, n_rows=idx.ntotal,
                            layout="words")
     n = idx.ntotal

@@ -10,6 +10,7 @@ import torch
 
 from hnsw_tpu.ops import packed as ref
 from hnsw_tpu_torch.ops import packed
+from hnsw_tpu_torch.ops.storage import Storage
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
@@ -78,7 +79,8 @@ def test_pack_neighbors_words_matches_reference(d, bits):
     want = ref.pack_neighbors(jnp.asarray(nb), jnp.asarray(vecs),
                               jnp.asarray(levels), bits=bits, n_rows=n,
                               layout="words")
-    got = packed.pack_neighbors(torch.from_numpy(nb), torch.from_numpy(vecs),
+    got = packed.pack_neighbors(torch.from_numpy(nb),
+                                Storage(torch.from_numpy(vecs)),
                                 torch.from_numpy(levels), bits=bits,
                                 n_rows=n, layout="words")
     assert got.layout == want.layout == "words"
@@ -123,7 +125,7 @@ def test_make_packed_expand_words_equals_bytes(metric):
     ok = torch.ones((20, 2), dtype=torch.bool)
     out = []
     for layout in ("bytes", "words"):
-        p = packed.pack_neighbors(tnb, tv, tl, bits=8, n_rows=250,
+        p = packed.pack_neighbors(tnb, Storage(tv), tl, bits=8, n_rows=250,
                                   layout=layout)
         expand, shift = packed.make_packed_expand(p, tnb, q, metric)
         out.append(expand(cur, ok) + (shift,))

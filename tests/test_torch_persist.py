@@ -48,10 +48,15 @@ def _assert_same_arrays(port, ref):
         np.testing.assert_array_equal(v, np.asarray(getattr(ref.graph, k)))
     np.testing.assert_array_equal(port.vectors.float().numpy(),
                                   np.asarray(ref.vectors, np.float32))
-    for a, b in ((port._sq_np, ref._sq_np), (port._pq_np, ref._pq_np)):
-        assert (a is None) == (b is None)
-        if a is not None:
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    want = {}
+    if ref._sq_np is not None:
+        want["sq_offset"], want["sq_scale"] = ref._sq_np
+    if ref._pq_np is not None:
+        want["pq_codebooks"] = ref._pq_np
+    got = port._storage.codec_arrays()
+    assert got.keys() == want.keys()
+    for k, b in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(b))
 
 
 @pytest.mark.parametrize("dtype", list(CODECS))

@@ -18,6 +18,7 @@ from hnsw_tpu.search import hnsw_search as ref_search
 from hnsw_tpu.utils.recall import recall_at_k
 from hnsw_tpu_torch.graph import graph_from_numpy
 from hnsw_tpu_torch.ops.packed import pack_neighbors
+from hnsw_tpu_torch.ops.storage import Storage
 from hnsw_tpu_torch.search import ef_bucket, entry_sample_size, hnsw_search
 
 from conftest import exact_knn
@@ -25,11 +26,12 @@ from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
 
 def _both(index, monkeypatch):
-    """(reference graph + vectors, port graph + vectors) of a NumpyHnsw."""
+    """(reference graph + vectors, port graph + storage) of a NumpyHnsw."""
     monkeypatch.setenv("HNSW_TPU_BEAM_KERNEL", "1")
     g = index.to_graph_arrays()
     return (g, jnp.asarray(index.vectors),
-            graph_from_numpy(g, "cpu"), torch.from_numpy(index.vectors))
+            graph_from_numpy(g, "cpu"),
+            Storage(torch.from_numpy(index.vectors)))
 
 
 def _assert_same_search(ref, got, gt, k):
@@ -172,10 +174,10 @@ def test_pallas_hop_search_matches_reference(host_index, small_workload,
     from hnsw_tpu_torch.ops import hop_kernel
     calls = []
     real = hop_kernel.fused_gather_distances
-    monkeypatch.setattr("hnsw_tpu_torch.search.fused_gather_distances",
+    monkeypatch.setattr("hnsw_tpu_torch.ops.storage.fused_gather_distances",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    got = hnsw_search(tg, torch.from_numpy(vp), torch.from_numpy(qp), k=k,
-                      ef_search=ef, metric="l2", with_stats=True)
+    got = hnsw_search(tg, Storage(torch.from_numpy(vp)), torch.from_numpy(qp),
+                      k=k, ef_search=ef, metric="l2", with_stats=True)
     _assert_same_search(ref, got, gt, k)
     assert len(calls) >= got[2].hops + 1   # the entry rescore and each hop
 
@@ -209,11 +211,11 @@ def test_pallas_hop_bf16_search_matches_reference(host_index, small_workload,
     from hnsw_tpu_torch.ops import hop_kernel
     rows = []
     real = hop_kernel.fused_gather_distances
-    monkeypatch.setattr("hnsw_tpu_torch.search.fused_gather_distances",
+    monkeypatch.setattr("hnsw_tpu_torch.ops.storage.fused_gather_distances",
                         lambda vec, *a, **kw: rows.append(vec.dtype)
                         or real(vec, *a, **kw))
-    got = hnsw_search(tg, pv, torch.from_numpy(qp), k=k, ef_search=ef,
-                      metric="l2", with_stats=True)
+    got = hnsw_search(tg, Storage(pv), torch.from_numpy(qp), k=k,
+                      ef_search=ef, metric="l2", with_stats=True)
     _assert_same_search(ref, got, gt, k)
     assert len(rows) >= got[2].hops + 1   # the entry rescore and each hop
     assert set(rows) == {torch.bfloat16}
@@ -241,7 +243,7 @@ def test_pack_neighbors_byte_identical(host_index, bits):
     ref = ref_pack(g.neighbors0, jnp.asarray(v), g.levels, bits=bits,
                    n_rows=n)
     got = pack_neighbors(torch.tensor(np.asarray(g.neighbors0)),
-                         torch.from_numpy(v),
+                         Storage(torch.from_numpy(v)),
                          torch.tensor(np.asarray(g.levels)), bits=bits,
                          n_rows=n)
     np.testing.assert_array_equal(got.nbr_codes.numpy(),
@@ -259,7 +261,7 @@ def test_pack_neighbors_budget_and_unported_layout(host_index):
     raises."""
     g = host_index.to_graph_arrays()
     args = (torch.tensor(np.asarray(g.neighbors0)),
-            torch.from_numpy(host_index.vectors),
+            Storage(torch.from_numpy(host_index.vectors)),
             torch.tensor(np.asarray(g.levels)))
     n, m0, d = host_index.ntotal, g.neighbors0.shape[1], 32
     with pytest.raises(ValueError, match="budget"):

@@ -62,7 +62,7 @@ def assert_same_index(ref, port):
                 err_msg=f"shard {s} {f}")
         for f in SCALAR_FIELDS:
             assert getattr(g, f) == int(np.asarray(getattr(ref._graph, f))[s])
-        np.testing.assert_array_equal(port._vectors[s].numpy(),
+        np.testing.assert_array_equal(port._storage[s].rows.numpy(),
                                       np.asarray(ref._vectors)[s])
         np.testing.assert_array_equal(port._global_ids[s].numpy(),
                                       np.asarray(ref._global_ids)[s])
@@ -146,8 +146,9 @@ def test_sq8_build_search_and_files_match_reference(tmp_path):
     with pytest.raises(RuntimeError, match="train"):
         port.add(wl.base)
     ref, port = pair(wl.base, train=True, dtype="sq8", seed=11, **SMALL)
-    assert port._vectors[0].dtype == torch.uint8
-    for a, b in zip(port._sq_np, ref._sq_np):
+    assert port._storage[0].rows.dtype == torch.uint8
+    arrays = port._codec.codec_arrays()
+    for a, b in zip((arrays["sq_offset"], arrays["sq_scale"]), ref._sq_np):
         np.testing.assert_array_equal(a, b)
     assert_same_index(ref, port)
     _, gt = exact_knn(wl.base, wl.queries, 10, "l2")
@@ -163,7 +164,7 @@ def test_sq8_build_search_and_files_match_reference(tmp_path):
     ref2 = RefSharded.load(p_port, mesh=ref_mesh(4, 2))
     assert_same_index(ref2, port)
     port2 = ShardedHnswIndex.load(p_ref, mesh=cpu_mesh())
-    assert port2.is_trained and port2._vectors[0].dtype == torch.uint8
+    assert port2.is_trained and port2._storage[0].rows.dtype == torch.uint8
     d2, i2 = port2.search(wl.queries, k=10, ef_search=64)
     np.testing.assert_array_equal(i2, out[1])
     np.testing.assert_array_equal(d2, out[0])
@@ -440,7 +441,7 @@ def test_sharded_packed_sq8_and_4bit():
     r_u = recall_at_k(i_u, gt, 10)
     idx.enable_packed(bits=8)
     # sq8 at 8 bits: the stored codes are the routing codes
-    assert torch.equal(idx._packed[0].scale, torch.from_numpy(idx._sq_np[1]))
+    assert idx._packed[0].scale is idx._storage[0].sq[1]
     _, i_p = idx.search(wl.queries, k=10, ef_search=96)
     assert recall_at_k(i_p, gt, 10) >= r_u - 0.02
     idx.disable_packed()

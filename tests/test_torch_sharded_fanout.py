@@ -102,9 +102,9 @@ def keys_of_searches(monkeypatch, idx, queries, times=2):
     from hnsw_tpu_torch.parallel import sharded
     real, got = sharded.hnsw_search, []
 
-    def spy(graph, vectors, q, **kw):
-        got[-1].append(search.search_key(graph, vectors, q, **kw))
-        return real(graph, vectors, q, **kw)
+    def spy(graph, storage, q, **kw):
+        got[-1].append(search.search_key(graph, storage, q, **kw))
+        return real(graph, storage, q, **kw)
     monkeypatch.setattr(sharded, "hnsw_search", spy)
     for _ in range(times):
         got.append([])
@@ -114,45 +114,55 @@ def keys_of_searches(monkeypatch, idx, queries, times=2):
 
 
 def test_sq_affine_kept_once_per_shard(monkeypatch, tmp_path):
-    """``_sq(s)`` gives the same tensors on every call, through
-    ``enable_packed``, ``vacuum`` and a save / load round trip (the loaded
-    index's own, equal in value), and two searches of the same shapes key
-    alike (a card replays the first one's capture)."""
+    """Each shard's ``Storage`` holds the shared sq8 affine as tensors made
+    once on its device: the same objects through searches, a second
+    ``add``, ``enable_packed``, ``vacuum`` and a save / load round trip
+    (the loaded index's own, equal in value and kept alike), and two
+    searches of the same shapes key alike (a card replays the first one's
+    capture)."""
     base, queries = workload()
-    idx = build([CPU] * S, base)
-    held = [idx._sq(s) for s in range(S)]
+    idx = new_index([CPU] * S)
+    idx.train(base[:TRAIN])
+    idx.add(base[:N // 2])
+    held = [idx._storage[s].sq for s in range(S)]
+    host = idx._codec.codec_arrays()
     for s, sq in enumerate(held):
-        assert sq is not None and idx._sq(s) is sq
-        for t, a in zip(sq, idx._sq_np):
+        assert sq is not None
+        for t, a in zip(sq, (host["sq_offset"], host["sq_scale"])):
             assert t.device == idx._dev[s]
             np.testing.assert_array_equal(t.numpy(), a)
     first, second = keys_of_searches(monkeypatch, idx, queries)
     assert len(first) == S and first == second
+    idx.add(base[N // 2:])
+    assert all(idx._storage[s].sq is held[s] for s in range(S))
+    first, second = keys_of_searches(monkeypatch, idx, queries)
+    assert first == second
     path = str(tmp_path / "sharded.npz")
     idx.save(path)
     idx.enable_packed(bits=8)
-    assert all(idx._sq(s) is held[s] for s in range(S))
+    assert all(idx._storage[s].sq is held[s] for s in range(S))
     first, second = keys_of_searches(monkeypatch, idx, queries)
     assert first == second
     idx.remove_ids(np.arange(0, N, 7))
     idx.vacuum()
-    assert all(idx._sq(s) is held[s] for s in range(S))
+    assert all(idx._storage[s].sq is held[s] for s in range(S))
     from hnsw_tpu_torch.parallel.sharded import ShardedHnswIndex
     loaded = ShardedHnswIndex.load(path, mesh=idx.mesh)
+    kept = [loaded._storage[s].sq for s in range(S)]
     for s in range(S):
-        sq = loaded._sq(s)
-        assert sq is not None and loaded._sq(s) is sq
-        for t, u in zip(sq, held[s]):
+        assert kept[s] is not None
+        for t, u in zip(kept[s], held[s]):
             assert torch.equal(t, u)
     first, second = keys_of_searches(monkeypatch, loaded, queries)
     assert first == second
+    assert all(loaded._storage[s].sq is kept[s] for s in range(S))
 
 
 def test_flat_storage_has_no_affine():
     from hnsw_tpu_torch.parallel.sharded import ShardedHnswIndex, make_mesh
     idx = ShardedHnswIndex(D, M, "l2", mesh=make_mesh(S, 1, [CPU] * S),
                            capacity_per_shard=PER_SHARD)
-    assert all(idx._sq(s) is None for s in range(S))
+    assert all(idx._storage[s].sq is None for s in range(S))
 
 
 def test_fanout_against_exact_topk_over_xhat(built):

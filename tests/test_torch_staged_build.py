@@ -24,6 +24,7 @@ from hnsw_tpu_torch import build, graphs, trace
 from hnsw_tpu_torch.config import HnswConfig
 from hnsw_tpu_torch.graph import SCALAR_FIELDS, TENSOR_FIELDS, empty_graph
 from hnsw_tpu_torch.ops.repair import apply_backlinks
+from hnsw_tpu_torch.ops.storage import Storage
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 
@@ -94,15 +95,16 @@ def port_staged(batches, dtype="float32", scan_chunk=4):
     kw, sq, pq, _ = _codec(dtype)
     cfg = HnswConfig(dim=D, m=M, capacity=CAP, ef_construction=EFC,
                      seed=SEED, dtype=dtype, **kw)
-    b = build.DeviceBuilder(cfg, max_batch=MAX_BATCH, sq_params=sq,
-                            pq_cb=pq)
+    b = build.DeviceBuilder(cfg, max_batch=MAX_BATCH)
     b.SCAN_CHUNK = scan_chunk
     g = empty_graph(cfg, CPU)
     width = cfg.pq_m if dtype == "pq" else D
-    vec = torch.zeros((CAP, width), dtype=getattr(torch, cfg.storage_dtype))
+    st = Storage(torch.zeros((CAP, width),
+                             dtype=getattr(torch, cfg.storage_dtype)),
+                 sq=sq, pq=pq)
     for x in batches:
-        b.add(g, vec, x)
-    return g, vec, b
+        b.add(g, st, x)
+    return g, st.rows, b
 
 
 def assert_same_build(ref, port):
@@ -260,9 +262,9 @@ def _backlinks_match_reference(codec, mode, metric):
         got, drop = apply_backlinks(
             torch.from_numpy(adj.copy()), torch.from_numpy(dst),
             torch.from_numpy(dst), torch.from_numpy(src),
-            torch.from_numpy(valid), torch.from_numpy(vectors),
-            opt(dequant, lambda t: tuple(torch.from_numpy(a) for a in t)),
-            opt(pq, torch.from_numpy), r_window=r, metric=metric)
+            torch.from_numpy(valid),
+            Storage(torch.from_numpy(vectors), sq=dequant, pq=pq),
+            r_window=r, metric=metric)
         np.testing.assert_array_equal(got.numpy(), np.asarray(r_adj))
         assert int(drop) == int(r_drop)
         drops.append(int(drop))

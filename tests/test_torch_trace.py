@@ -157,7 +157,7 @@ def test_traced_add_is_the_add(wl):
             b.add(x)
     for k, v in a.graph.numpy().items():
         np.testing.assert_array_equal(b.graph.numpy()[k], v, err_msg=k)
-    assert torch.equal(a._vectors, b._vectors)
+    assert torch.equal(a.vectors, b.vectors)
     assert a._builder.last_stats == b._builder.last_stats
     assert names(t) == BUILD_SPANS
     batches = b._builder.last_stats["batches"]

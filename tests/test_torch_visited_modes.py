@@ -10,6 +10,7 @@ import torch
 from hnsw_tpu.search import compute_sqnorms
 from hnsw_tpu.search import hnsw_search as ref_search
 from hnsw_tpu_torch.graph import graph_from_numpy
+from hnsw_tpu_torch.ops.storage import Storage
 from hnsw_tpu_torch.search import hnsw_search
 
 from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
@@ -18,7 +19,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (a fixture)
 def _modes(host_index, queries, k, ef):
     """{mode: ((D, I) of the port, (D, I) of the reference)}."""
     g = host_index.to_graph_arrays()
-    tg, tv = graph_from_numpy(g, "cpu"), torch.from_numpy(host_index.vectors)
+    tg = graph_from_numpy(g, "cpu")
+    tv = Storage(torch.from_numpy(host_index.vectors))
     v = jnp.asarray(host_index.vectors)
     out = {}
     for mode in ("buffer", "bitmap"):
